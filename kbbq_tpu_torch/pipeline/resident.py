@@ -1,0 +1,183 @@
+"""Device-resident single-device pipeline.
+
+Counterpart of ``kbbq_tpu/pipeline/resident.py::recalibrate_arrays_resident``:
+the same four passes and the same output bytes.  The dataset goes to the
+device once with plain ``tensor.to(device)``; the passes then work on row
+chunks of it, so that no whole-dataset [N, n] lane tensor is ever held
+(the output does not depend on the chunk size).  What stays resident across
+passes is the hash cache of pass 1: per window the block hash ``h1``, the
+32-bit probe ``word`` (0 = invalid window) and one bool plane that holds
+first the sampled ``keep`` bit and then, overwritten in place, the trusted
+bit.
+
+  pass 1  hash cache; filter A = OR of the sampled windows' words (kernel
+          bloom_or_words)
+  pass 2  cached word test against A (kernel bloom_probe), coverage rule,
+          filter B = OR of the trusted windows' words (bloom_or_words)
+  pass 3  initial trust = cached word test against B (bloom_probe), the
+          correction walk (kernel walk_errors), covariate histogram on the
+          device
+  host    float64 delta math -> int8 Q' table
+  pass 4  one flat gather per base on the device
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..io.batcher import ReadArrays
+from ..ops.bloom import (
+    _probe_word_w,
+    bloom_build_words,
+    bloom_query_words,
+)
+from ..ops.covariate import accumulate_covariates, new_covariate_state
+from ..ops.inference import infer_errors
+from ..ops.kmers import (
+    _canonical_kmers_w,
+    _kmer_hashes_w,
+    sample_keep_mask,
+    wide_to_u32,
+)
+from ..ops.recal import apply_recal_table
+from ..ops.trusted import trusted_mask_batch
+from ..oracle.bloom import check_layout_capacity
+from ..oracle.covariate import CovariateTables
+from ..oracle.gatk import build_recal_table
+from ..oracle.kmers import alpha_threshold
+from ..oracle.lighter import coverage_thresholds
+from ..oracle.pipeline import bloom_params_for
+
+# rows per chunk: the per-chunk temporaries are ~20 int64 [rows, n] tensors
+DEFAULT_CHUNK_ROWS = 65536
+
+
+def hash_cache_chunk(codes: torch.Tensor, read_ids: torch.Tensor, k: int,
+                     num_hashes: int, threshold: int):
+    """(h1, word, keep) of every window of a row chunk: int32 patterns
+    [B, n] and bool [B, n]; word == 0 marks an invalid window.
+
+    h1 masks down to ANY filter's block index and `word` depends only on
+    h2, so this one hash pass serves pass 1's sampled build, pass 2's
+    filter-A query and filter-B build, and pass 3's initial trust query.
+    """
+    hi, lo, valid = _canonical_kmers_w(codes, k)
+    h1, h2 = _kmer_hashes_w(hi, lo)
+    word = torch.where(valid, _probe_word_w(h2, num_hashes),
+                       torch.zeros_like(h2))
+    keep = valid & sample_keep_mask(read_ids, hi.shape[1], threshold)
+    return wide_to_u32(h1), wide_to_u32(word), keep
+
+
+def recalibrate_arrays_resident(arrays: ReadArrays, config,
+                                timings: dict | None = None,
+                                device=None,
+                                chunk_rows: int | None = None
+                                ) -> np.ndarray:
+    """Full pipeline over in-memory arrays -> new quals int8 [N, L].
+
+    device=None means the CUDA device (raises without one); the CPU is used
+    only for device="cpu".  If `timings` is given, per-stage wall times (s)
+    are recorded into it (setup, h2d, pass1, pass2, pass3, deltas, pass4),
+    each closed by a device synchronise; without it nothing synchronises
+    but the transfers back to the host.  `chunk_rows` (default
+    DEFAULT_CHUNK_ROWS) is the number of rows per chunk; the result does not
+    depend on it, and ``config.batch_size`` is not read here.
+    """
+    dev = resolve_device(device)
+    t_last = [time.time()]
+
+    def _mark(name):
+        if timings is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.time()
+            timings[name] = round(now - t_last[0], 3)
+            t_last[0] = now
+
+    k, h = config.k, config.num_hashes
+    N, L = arrays.num_reads, arrays.max_len
+    n = max(L - k + 1, 0)      # 0: no read has a k-mer, every tensor [N, 0]
+    rows = int(chunk_rows or DEFAULT_CHUNK_ROWS)
+
+    lens = arrays.mask.sum(axis=1)
+    total_bases = int(lens.sum())
+    total_kmers = int(np.maximum(lens - k + 1, 0).sum())
+    num_rg = int(arrays.rgs.max(initial=0)) + 1
+    alpha, coverage = config.resolve_alpha(total_bases)
+    threshold = int(alpha_threshold(alpha))
+    t_host = coverage_thresholds(alpha, k)
+    params_a, params_b = bloom_params_for(config, total_kmers, alpha,
+                                          coverage)
+    for p in (params_a, params_b):
+        # the device holds packed words only (m/8 bytes per filter)
+        check_layout_capacity(p, 33, "single-device resident",
+                              "lower the bits per key or split the input")
+    la, lb = params_a.log2_m, params_b.log2_m
+    _mark("setup")
+
+    mask = torch.from_numpy(np.ascontiguousarray(arrays.mask)).to(dev)
+    codes = torch.from_numpy(np.ascontiguousarray(arrays.codes)).to(dev)
+    # everything past a read's end is code 4, whatever the caller left there
+    codes = torch.where(mask, codes, torch.full_like(codes, 4))
+    quals = torch.from_numpy(np.ascontiguousarray(arrays.quals)).to(dev)
+    rgs = torch.from_numpy(
+        np.ascontiguousarray(arrays.rgs, dtype=np.int64)).to(dev)
+    seconds = torch.from_numpy(
+        np.ascontiguousarray(arrays.seconds, dtype=bool)).to(dev)
+    t_table = torch.from_numpy(t_host).to(dev)
+    _mark("h2d")
+
+    chunks = [(s, min(N, s + rows)) for s in range(0, N, rows)]
+
+    # ---- pass 1: hash cache + filter A
+    h1 = torch.empty((N, n), dtype=torch.int32, device=dev)
+    word = torch.empty((N, n), dtype=torch.int32, device=dev)
+    flag = torch.empty((N, n), dtype=torch.bool, device=dev)
+    for s, e in chunks:
+        ids = torch.arange(s, e, dtype=torch.int64, device=dev)
+        h1[s:e], word[s:e], flag[s:e] = hash_cache_chunk(
+            codes[s:e], ids, k, h, threshold)
+    filt_a = bloom_build_words(h1, word, flag, la)
+    _mark("pass1")
+
+    # ---- pass 2: trusted windows (written over the keep plane) + filter B
+    hits = bloom_query_words(filt_a, h1, word)
+    for s, e in chunks:
+        flag[s:e] = trusted_mask_batch(hits[s:e], word[s:e] != 0, t_table,
+                                       k, config.trust_threshold)
+    del hits
+    filt_b = bloom_build_words(h1, word, flag, lb)
+    del filt_a
+    _mark("pass2")
+
+    # ---- pass 3: walks + covariate histogram
+    cov = new_covariate_state(num_rg, L, dev)
+    tr0 = bloom_query_words(filt_b, h1, word)
+    for s, e in chunks:
+        err = infer_errors(filt_b, codes[s:e], k, h, config.ext_cap,
+                           trusted0=tr0[s:e])
+        accumulate_covariates(cov, codes[s:e], quals[s:e], mask[s:e],
+                              rgs[s:e], seconds[s:e], err)
+    del tr0, h1, word, flag, filt_b
+    tables = CovariateTables(
+        num_rg, L, *(cov[name].cpu().numpy() for name in
+                     ("cyc_total", "cyc_errors", "din_total", "din_errors")))
+    _mark("pass3")
+
+    recal_host = build_recal_table(tables)
+    _mark("deltas")
+
+    # ---- pass 4: gather
+    recal = torch.from_numpy(recal_host).to(dev)
+    out = torch.empty((N, L), dtype=torch.int8, device=dev)
+    for s, e in chunks:
+        out[s:e] = apply_recal_table(recal, codes[s:e], quals[s:e],
+                                     mask[s:e], rgs[s:e], seconds[s:e])
+    res = out.cpu().numpy()
+    _mark("pass4")
+    return res
