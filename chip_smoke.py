@@ -13,9 +13,12 @@ from a seed.  Any failed phase raises, so the exit code is non-zero; without
 a CUDA device the script exits 1 at once and prints no result.
 
 Output, last three lines: a JSON object {"kernels": [...]} (one entry per
-kernel: launches on the main path, mismatches against the plain version,
-times in ms, the roofline bound), the card's name and power limit as
-nvidia-smi gives them, and {"ok": true, "device": {...}}.
+kernel entry point: launches on the main path, mismatches against the plain
+version, times in ms, the roofline bound), the card's name and power limit
+as nvidia-smi gives them, and {"ok": true, "device": {...}}.  In every entry
+"ms" is the time between two CUDA events around one call of the entry
+point's dispatcher, host enqueue work included; "graph_ms", where present,
+is the card's time for one launch out of a CUDA graph of 20.
 
 Tolerance: exact equality everywhere.  Every compared quantity is a bool, an
 integer or a byte; the kernels do integer arithmetic only.
@@ -46,6 +49,10 @@ PEAK_OPS_PER_S = 67e12
 
 FULL_READS = 1_533_333
 WALK_READS = 65_536          # rows of the walk kernel's check = one chunk
+# the walk on reads whose two directions commit into one word of the packed
+# working copy: (read length, k, extension cap), and launches of each
+TWO_SIDED_SHAPES = [(36, 8, 8), (44, 16, 16), (40, 12, 6)]
+TWO_SIDED_LAUNCHES = 20
 KERNEL_SOURCE = "kbbq_tpu_torch/csrc/kbbq_kernels.cu"
 DEVICE = "cuda"
 
@@ -80,6 +87,20 @@ def cuda_ms(fn, reps: int = 3, before=None) -> float:
     return float(np.median(ts))
 
 
+def cuda_graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time of one fn() for kernels of a few microseconds: `launches`
+    calls are captured into one CUDA graph and the graph's replay is timed,
+    so the card never waits for the host to enqueue the next launch (which
+    is what an event pair around a single short launch mostly measures)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, reps=reps) / launches
+
+
 def bound(bytes_moved: float, ops: float):
     tb = bytes_moved / PEAK_BYTES_PER_S * 1e3
     to = ops / PEAK_OPS_PER_S * 1e3
@@ -112,6 +133,38 @@ def phase_device():
             log("[device]   " + line.strip())
 
 
+def two_sided_walks(dev, num_hashes):
+    """walk_errors against its plain version on reads with a short anchor
+    and errors on both sides of it inside one 32-base word: the two
+    directions of such a read run in different warps and commit into the
+    same 64-bit word of the read's packed working copy.  A commit that
+    rewrote more than its own base would show only when two commits meet in
+    time, so every shape is launched TWO_SIDED_LAUNCHES times.  Returns
+    (mismatches over all launches, reads corrected on both sides)."""
+    from kbbq_tpu_torch.ops import bloom as tb
+    from kbbq_tpu_torch.ops.hash_cache import hash_cache_build
+    from kbbq_tpu_torch.ops.inference import infer_errors, infer_errors_plain
+    from kbbq_tpu_torch.utils.synth import make_two_sided_reads
+
+    mm = both = 0
+    for L, k, W in TWO_SIDED_SHAPES:
+        clean, codes, left, right = make_two_sided_reads(
+            WALK_READS, L, k, genome_len=5000, seed=L * k)
+        # the filter holds every k-mer of the error-free reads
+        *_, filt = hash_cache_build(torch.from_numpy(clean).to(dev), 0, k,
+                                    num_hashes, 0xFFFFFFFF, 24)
+        codes = torch.from_numpy(codes).to(dev)
+        h1, word, _, _ = hash_cache_build(codes, 0, k, num_hashes, 0, 24)
+        tr0 = tb.bloom_query_words(filt, h1, word)
+        want = infer_errors_plain(filt, codes, k, num_hashes, W, trusted0=tr0)
+        both += int((want[:, left[0]:left[1]].any(dim=1)
+                     & want[:, right[0]:right[1]].any(dim=1)).sum())
+        for _ in range(TWO_SIDED_LAUNCHES):
+            mm += mismatches(infer_errors(filt, codes, k, num_hashes, W,
+                                          trusted0=tr0), want)
+    return mm, both
+
+
 def phase_kernels(arrays, cfg):
     """Each kernel against its plain version on the card, on the main
     path's own state: the hash cache of all windows of the dataset and the
@@ -121,19 +174,21 @@ def phase_kernels(arrays, cfg):
     write.  Returns the per-kernel records (without the main path's launch
     counts) and those qualities, int8 [N, L] on the host."""
     from kbbq_tpu_torch.ops import bloom as tb
+    from kbbq_tpu_torch.ops.hash_cache import (hash_cache_build,
+                                               hash_cache_chunk)
     from kbbq_tpu_torch.ops.inference import infer_errors, infer_errors_plain
     from kbbq_tpu_torch.ops.kmers import canonical_kmers_batch, u32_to_wide
     from kbbq_tpu_torch.ops.trusted import trusted_mask_batch
     from kbbq_tpu_torch.oracle import (alpha_threshold, bloom_params_for,
                                        coverage_thresholds)
     from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.constants import DEFAULT_EXT_CAP
     from kbbq_tpu_torch.ops.covariate import (accumulate_covariates,
                                               new_covariate_state)
     from kbbq_tpu_torch.ops.recal import apply_recal_table
     from kbbq_tpu_torch.oracle.covariate import CovariateTables
     from kbbq_tpu_torch.oracle.gatk import build_recal_table
-    from kbbq_tpu_torch.pipeline.resident import (DEFAULT_CHUNK_ROWS,
-                                                  hash_cache_chunk)
+    from kbbq_tpu_torch.pipeline.resident import DEFAULT_CHUNK_ROWS
 
     dev = torch.device(DEVICE)
     k, h = cfg.k, cfg.num_hashes
@@ -144,27 +199,69 @@ def phase_kernels(arrays, cfg):
     pa, pb = bloom_params_for(cfg, N * n, alpha, coverage)
     log(f"[kernels] {N} reads x {L}, {N * n} windows, filter A 2^{pa.log2_m}"
         f" B 2^{pb.log2_m} bits, chunk {rows} rows")
-
-    codes = torch.from_numpy(arrays.codes).to(dev)
-    h1 = torch.empty((N, n), dtype=torch.int32, device=dev)
-    word = torch.empty_like(h1)
-    keep = torch.empty((N, n), dtype=torch.bool, device=dev)
-    thr = int(alpha_threshold(alpha))
-    for s in range(0, N, rows):
-        e = min(N, s + rows)
-        ids = torch.arange(s, e, dtype=torch.int64, device=dev)
-        h1[s:e], word[s:e], keep[s:e] = hash_cache_chunk(codes[s:e], ids, k,
-                                                         h, thr)
     nwin = N * n
     records = []
 
-    # ---- K3 bloom_or_words: filter A (sampled) and filter B (trusted)
-    filt_a = tb.bloom_build_words(h1, word, keep, pa.log2_m)
-    plain_a = tb.bloom_build_words_plain(h1, word, keep, pa.log2_m)
+    def record(name, entry, replaces, mm, ms, plain_ms, bnd, lib_ms=None,
+               **more):
+        records.append({
+            "name": name, "entry": entry, "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": replaces, "mismatches": mm,
+            "max_abs_err": float(min(1, mm)), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+            **more})
+
+    # the floor under every launch: a kernel that does nothing
+    empty_ms = cuda_graph_ms(kernels.empty_launch)
+    empty_events_ms = cuda_ms(kernels.empty_launch, reps=21)
+    log(f"[kernels] empty launch: {empty_ms * 1e3:.2f} us on the card, "
+        f"{empty_events_ms * 1e3:.2f} us between two events around it")
+
+    codes = torch.from_numpy(arrays.codes).to(dev)
+    thr = int(alpha_threshold(alpha))
+
+    # ---- K3 bloom_or_words, fused entry point: hash cache + filter A of the
+    # whole dataset in one launch, against the plain hash pass + plain build
+    def plain_pass1():
+        p1 = torch.empty((N, n), dtype=torch.int32, device=dev)
+        pw = torch.empty_like(p1)
+        pk = torch.empty((N, n), dtype=torch.bool, device=dev)
+        for s in range(0, N, rows):
+            e = min(N, s + rows)
+            ids = torch.arange(s, e, dtype=torch.int64, device=dev)
+            p1[s:e], pw[s:e], pk[s:e] = hash_cache_chunk(codes[s:e], ids, k,
+                                                         h, thr)
+        return p1, pw, pk, tb.bloom_build_words_plain(p1, pw, pk, pa.log2_m)
+
+    plain_pass1()                                   # warm the allocator
     torch.cuda.synchronize()
-    mm_a = mismatches(filt_a, plain_a)
-    log(f"[kernels] bloom_or_words filter A: {mm_a} mismatching words of "
-        f"{filt_a.numel()}, {int(keep.sum())} windows kept")
+    t0 = time.time()
+    p1, pw, pk, plain_a = plain_pass1()
+    torch.cuda.synchronize()
+    fused_plain_ms = (time.time() - t0) * 1e3
+    h1, word, keep, filt_a = hash_cache_build(codes, 0, k, h, thr, pa.log2_m)
+    torch.cuda.synchronize()
+    mm_f = {"h1": mismatches(h1, p1), "word": mismatches(word, pw),
+            "keep": mismatches(keep, pk), "filter": mismatches(filt_a,
+                                                               plain_a)}
+    kept_a = int(keep.sum())
+    log(f"[kernels] bloom_or_words fused (hash cache + filter A): mismatches "
+        f"{mm_f} over {nwin} windows / {filt_a.numel()} words, {kept_a} "
+        f"windows kept")
+    del p1, pw, pk, plain_a
+    scratch = torch.empty_like(filt_a)
+    fused_ms = cuda_ms(
+        lambda: kernels.hash_build(codes, scratch, 0, k, h, thr),
+        before=scratch.zero_)
+    # ~150 integer operations per window: k-mer roll, two fmix32 pairs, the
+    # probe word, the sampling hash
+    record("bloom_or_words.hash_build", "hash_build",
+           "kbbq_tpu/ops/bloom.py:164 + kbbq_tpu/pipeline/resident.py:330",
+           sum(mm_f.values()), fused_ms, fused_plain_ms,
+           bound(N * L + nwin * 9 + 2 * filt_a.numel() * 4, nwin * 150),
+           n=nwin, kept=kept_a,
+           replaces_note="XLA sort build bloom_rows_dense and the XLA hash "
+                         "pass _pass1_kmers_slice; no Pallas counterpart")
 
     # ---- K1 bloom_probe, cached entry point, all windows against A
     hits = tb.bloom_query_words(filt_a, h1, word)
@@ -178,7 +275,7 @@ def phase_kernels(arrays, cfg):
     block = u32_to_wide(h1) & ((1 << (pa.log2_m - 5)) - 1)
     k1_lib_ms = cuda_ms(lambda: filt_a[block])   # the one-call yardstick
     del block, hits_plain
-    k1_bound, k1_by = bound(nwin * 9 + filt_a.numel() * 4, nwin * 4)
+    k1_bound = bound(nwin * 9 + filt_a.numel() * 4, nwin * 4)
 
     # trusted windows as the main path computes them
     t_table = torch.from_numpy(coverage_thresholds(alpha, k)).to(dev)
@@ -187,31 +284,32 @@ def phase_kernels(arrays, cfg):
         e = min(N, s + rows)
         trusted[s:e] = trusted_mask_batch(hits[s:e], word[s:e] != 0, t_table,
                                           k, cfg.trust_threshold)
-    del hits
+    del hits, keep
+
+    # ---- K3 bloom_or_words, cached entry point: filter B from the trusted
+    # windows of the cache
     filt_b = tb.bloom_build_words(h1, word, trusted, pb.log2_m)
     plain_b = tb.bloom_build_words_plain(h1, word, trusted, pb.log2_m)
     torch.cuda.synchronize()
     mm_b = mismatches(filt_b, plain_b)
+    kept_b = int(trusted.sum())
     log(f"[kernels] bloom_or_words filter B: {mm_b} mismatching words, "
-        f"{int(trusted.sum())} windows trusted")
-    scratch = torch.empty_like(filt_b)
+        f"{kept_b} windows trusted")
+    del plain_b
     k3_ms = cuda_ms(
         lambda: kernels.bloom_or_words(scratch, h1, word, trusted),
         before=scratch.zero_)
     k3_plain_ms = cuda_ms(
         lambda: tb.bloom_build_words_plain(h1, word, trusted, pb.log2_m),
         reps=1)
-    del scratch, plain_a, plain_b
-    k3_bound, k3_by = bound(nwin * 9 + 2 * filt_b.numel() * 4, nwin * 2)
-    records.append({
-        "name": "bloom_or_words", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": "kbbq_tpu/ops/bloom.py:164",
-        "replaces_note": "XLA sort build bloom_rows_dense; no Pallas "
-                         "counterpart",
-        "n": nwin, "mismatches": mm_a + mm_b,
-        "max_abs_err": float(min(1, mm_a + mm_b)),
-        "ms": k3_ms, "kernel_ms": k3_ms, "plain_ms": k3_plain_ms,
-        "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None})
+    del scratch
+    record("bloom_or_words", "bloom_or_words", "kbbq_tpu/ops/bloom.py:164",
+           mm_b, k3_ms, k3_plain_ms,
+           bound(nwin * 9 + 2 * filt_b.numel() * 4, nwin * 2),
+           n=nwin, kept=kept_b,
+           replaces_note="XLA sort build bloom_rows_dense; no Pallas "
+                         "counterpart")
+    del trusted
 
     # ---- K1 hashed entry point, on one chunk of reads (the main path
     # always holds the hash cache, so it uses the cached entry point)
@@ -224,15 +322,17 @@ def phase_kernels(arrays, cfg):
     log(f"[kernels] bloom_probe (hashed): {mm_k1h} mismatches of "
         f"{got.numel()}")
     k1h_ms = cuda_ms(lambda: tb.bloom_query_rows(filt_b, hi, lo, h))
-    records.insert(0, {
-        "name": "bloom_probe", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": "kbbq_tpu/ops/pallas_bloom.py:105",
-        "n": nwin, "mismatches": mm_k1 + mm_k1h,
-        "max_abs_err": float(min(1, mm_k1 + mm_k1h)),
-        "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
-        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib_ms,
-        "hashed_entry": {"n": got.numel(), "mismatches": mm_k1h,
-                         "ms": k1h_ms}})
+    k1h_plain_ms = cuda_ms(
+        lambda: tb.bloom_query_rows_plain(filt_b, hi, lo, h))
+    record("bloom_probe", "bloom_probe_words",
+           "kbbq_tpu/ops/pallas_bloom.py:105", mm_k1, k1_ms, k1_plain_ms,
+           k1_bound, k1_lib_ms, n=nwin)
+    # ~90 integer operations per k-mer: two fmix32 pairs, the probe word,
+    # the test.  The main path holds the hash cache, so it never comes here
+    record("bloom_probe.hashed", "bloom_probe_hashed",
+           "kbbq_tpu/ops/pallas_bloom.py:105", mm_k1h, k1h_ms, k1h_plain_ms,
+           bound(got.numel() * 9 + filt_b.numel() * 4, got.numel() * 90),
+           n=got.numel(), on_main_path=False)
     del hi, lo, got, want
 
     # ---- K2 walk_errors against its plain version on EVERY chunk of the
@@ -244,14 +344,15 @@ def phase_kernels(arrays, cfg):
     seconds = torch.from_numpy(arrays.seconds.astype(bool)).to(dev)
     num_rg = int(arrays.rgs.max(initial=0)) + 1
     cov = new_covariate_state(num_rg, L, dev)
+    tr0_all = tb.bloom_query_words(filt_b, h1, word)
+    if not torch.equal(tr0_all, tb.bloom_query_words_plain(filt_b, h1,
+                                                           word)):
+        raise AssertionError("initial trust differs between kernel and plain")
+    del h1, word
     mm_k2 = marks_all = 0
     for s in range(0, N, rows):
         e = min(N, s + rows)
-        tr0 = tb.bloom_query_words(filt_b, h1[s:e], word[s:e])
-        if not torch.equal(tr0, tb.bloom_query_words_plain(
-                filt_b, h1[s:e], word[s:e])):
-            raise AssertionError(
-                "initial trust differs between kernel and plain")
+        tr0 = tr0_all[s:e]
         err = infer_errors(filt_b, codes[s:e], k, h, cfg.ext_cap,
                            trusted0=tr0)
         torch.cuda.synchronize()
@@ -263,14 +364,35 @@ def phase_kernels(arrays, cfg):
             k2_plain_ms = (time.time() - t0) * 1e3
             marks = int(err.sum())
             outside = int((~tr0).sum())
+            k2_graph_ms = cuda_graph_ms(lambda: kernels.walk_errors(
+                codes[:e], tr0, filt_b, k,
+                min(cfg.ext_cap or DEFAULT_EXT_CAP, k), h))
             k2_ms = cuda_ms(lambda: infer_errors(
-                filt_b, codes[:e], k, h, cfg.ext_cap, trusted0=tr0))
+                filt_b, codes[:e], k, h, cfg.ext_cap, trusted0=tr0), reps=9)
         mm_k2 += mismatches(err, err_plain)
         marks_all += int(err_plain.sum())
         accumulate_covariates(cov, codes[s:e], quals[s:e], mask[s:e],
                               rgs[s:e], seconds[s:e], err_plain)
     log(f"[kernels] walk_errors: {mm_k2} mismatches of {N * L} bases in {N} "
         f"reads, {marks_all} bases marked ({marks} in the {wr} reads timed)")
+    # the narrow-load path: an odd number of reads from a base pointer that
+    # is one read (L, and n, bytes: not a multiple of 16) into the tensors
+    odd = min(N - 1, 60001) | 1
+    if 1 + odd > N:
+        odd -= 2
+    c_odd, t_odd = codes[1:1 + odd], tr0_all[1:1 + odd]
+    mm_odd = mismatches(
+        infer_errors(filt_b, c_odd, k, h, cfg.ext_cap, trusted0=t_odd),
+        infer_errors_plain(filt_b, c_odd, k, h, cfg.ext_cap, trusted0=t_odd))
+    log(f"[kernels] walk_errors, misaligned ({odd} reads from row 1, base "
+        f"pointers at {c_odd.data_ptr() % 16} and {t_odd.data_ptr() % 16} "
+        f"mod 16): {mm_odd} mismatches")
+    del tr0_all
+    mm_two, both = two_sided_walks(dev, h)
+    log(f"[kernels] walk_errors, both directions committing into one word "
+        f"(L, k, W = {TWO_SIDED_SHAPES}, {WALK_READS} reads each, {both} "
+        f"corrected on both sides, {TWO_SIDED_LAUNCHES} launches each): "
+        f"{mm_two} mismatches")
     # least work this data needs: every window outside the anchor is rolled
     # once (~12 integer operations), and every marked base tried 3
     # candidates with at least one probe each (~90: two fmix32 pairs, the
@@ -278,8 +400,8 @@ def phase_kernels(arrays, cfg):
     # mask once, and of the filter only the 4-byte words those probes fetch
     # (at least 3 per marked base; never more than the filter holds)
     filter_bytes = min(filt_b.numel() * 4, marks * 3 * 4)
-    k2_bound, k2_by = bound(wr * (L + n + L) + filter_bytes,
-                            outside * 12 + marks * 3 * 90)
+    k2_bound = bound(wr * (L + n + L) + filter_bytes,
+                     outside * 12 + marks * 3 * 90)
 
     # what the main path must write, through the plain walk
     tables = CovariateTables(
@@ -292,20 +414,22 @@ def phase_kernels(arrays, cfg):
         expected[s:e] = apply_recal_table(
             recal, codes[s:e], quals[s:e], mask[s:e], rgs[s:e],
             seconds[s:e]).cpu().numpy()
-    records.insert(1, {
-        "name": "walk_errors", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": "kbbq_tpu/ops/pallas_walk.py:242",
-        "n": wr, "reads_checked": N, "mismatches": mm_k2,
-        "max_abs_err": float(min(1, mm_k2)),
-        "ms": k2_ms, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
-        "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None})
+    record("walk_errors", "walk_errors", "kbbq_tpu/ops/pallas_walk.py:242",
+           mm_k2 + mm_odd + mm_two, k2_ms, k2_plain_ms, k2_bound, n=wr,
+           graph_ms=k2_graph_ms, reads_checked=N, marks=marks,
+           misaligned_reads=odd, two_sided_reads=both,
+           two_sided_launches=TWO_SIDED_LAUNCHES * len(TWO_SIDED_SHAPES),
+           empty_launch_graph_ms=empty_ms, empty_launch_ms=empty_events_ms)
 
     bad = [r["name"] for r in records if r["mismatches"]]
     if bad:
         raise AssertionError(f"kernels disagree with plain versions: {bad}")
+    order = ["bloom_probe", "bloom_probe.hashed", "walk_errors",
+             "bloom_or_words", "bloom_or_words.hash_build"]
+    records.sort(key=lambda r: order.index(r["name"]))
     for r in records:
-        log(f"[kernels] {r['name']}: {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.3f} ms "
+        log(f"[kernels] {r['name']}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
     return records, expected
 
@@ -354,6 +478,7 @@ def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
     from kbbq_tpu_torch import kernels
     from kbbq_tpu_torch.io.fastq import extract_padded_arrays, read_fastq
     from kbbq_tpu_torch.pipeline import recalibrate_fastq
+    from kbbq_tpu_torch.pipeline.resident import DEFAULT_CHUNK_ROWS
 
     src = os.path.join(tmp, "reads.fq")
     with open(src, "wb") as f:
@@ -369,10 +494,15 @@ def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(kernels.LAUNCHES)
+    by_entry = dict(kernels.ENTRY_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    missing = [name for name, cnt in launches.items() if cnt < 1]
-    if missing:
-        raise AssertionError(f"main path launched no {missing}")
+    # pass 1 fused build, pass 2 cached build; one probe each in passes 2
+    # and 3; one walk per chunk of reads
+    want = {"bloom_probe": 2, "bloom_or_words": 2,
+            "walk_errors": -(-info["num_reads"] // DEFAULT_CHUNK_ROWS)}
+    if launches != want or by_entry["hash_build"] != 1:
+        raise AssertionError(f"main path launched {launches} ({by_entry}), "
+                             f"expected {want}")
 
     fq_in, fq_out = read_fastq(src), read_fastq(out1)
     if fq_out.num_reads != info["num_reads"] or \
@@ -417,6 +547,7 @@ def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
     result = {"reads": info["num_reads"], "bases": info["total_bases"],
               "wall_s": wall, "reads_per_s": info["num_reads"] / wall,
               "timings": timings, "launches": launches,
+              "launches_by_entry": by_entry,
               "peak_device_bytes": peak,
               "mean_q_at_planted_errors": q_err, "mean_q_elsewhere": q_ok,
               "errors_predicted_by_quals": predicted,
@@ -424,7 +555,7 @@ def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
               "quals_differing_from_plain_pipeline": diff,
               "deterministic": True, "card": smi_line()}
     log("[main_path] " + json.dumps(result))
-    return launches
+    return by_entry
 
 
 def main(argv=None) -> int:
@@ -469,7 +600,7 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r["entry"]]
     log(f"[done] {time.time() - t_start:.0f} s in all")
     print(json.dumps({"kernels": records}), flush=True)
     print(smi_line(), flush=True)

@@ -1,7 +1,7 @@
 """Build, ctypes binding and wrappers of ``csrc/kbbq_kernels.cu``.
 
-The three kernels (``bloom_probe`` with its two entry points,
-``bloom_or_words``, ``walk_errors``) are CUDA C++ for sm_90a with a plain C
+The three kernels (``bloom_probe`` and ``bloom_or_words`` with two entry
+points each, ``walk_errors``) are CUDA C++ for sm_90a with a plain C
 interface.  ``build()`` compiles them with nvcc into
 ``kbbq_tpu_torch/build/libkbbq_kernels.so`` at first use (and again when
 the source is newer); the library is loaded with ctypes.  Nothing here
@@ -33,8 +33,20 @@ LIBRARY = os.path.join(BUILD_DIR, "libkbbq_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# launches per kernel since the last reset_launches()
+# launches per kernel since the last reset_launches(), and the same launches
+# split by entry point (C function)
 LAUNCHES = {"bloom_probe": 0, "bloom_or_words": 0, "walk_errors": 0}
+ENTRY_LAUNCHES = {"bloom_probe_hashed": 0, "bloom_probe_words": 0,
+                  "bloom_or_words": 0, "hash_build": 0, "walk_errors": 0}
+
+# reads per block of the two tiled kernels and threads per block of the walk
+# (a warp works on one read and direction at a time), settled by measuring
+# on an H100 at 150-base reads (PERF.md); the rows are halved for reads so
+# long that a tile of this many would not fit a block's shared memory
+WALK_TILE_ROWS = 32
+WALK_THREADS = 128
+HASH_TILE_ROWS = 32
+MAX_SHARED_BYTES = 232448
 
 _lib = None
 build_log = ""       # nvcc's output of the last build (registers, spills)
@@ -42,8 +54,14 @@ build_seconds = 0.0  # wall time of the last build, 0 when the library was fresh
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ENTRY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(kernel: str, entry: str) -> None:
+    LAUNCHES[kernel] += 1
+    ENTRY_LAUNCHES[entry] += 1
 
 
 def _find_nvcc() -> str:
@@ -87,9 +105,17 @@ def _bind(lib) -> None:
     lib.kbbq_bloom_probe_hashed.argtypes = [p, u32, p, p, p, i64, i, p]
     lib.kbbq_bloom_probe_words.argtypes = [p, u32, p, p, p, i64, p]
     lib.kbbq_bloom_or_words.argtypes = [p, u32, p, p, p, i64, p]
-    lib.kbbq_walk_errors.argtypes = [p, p, p, u32, p, i64, i, i, i, i, p]
+    lib.kbbq_hash_build.argtypes = [p, p, u32, p, p, p, i64, i64, i, i, i,
+                                    u32, i, p]
+    lib.kbbq_walk_errors.argtypes = [p, p, p, u32, p, i64, i, i, i, i, i, i,
+                                     p]
+    lib.kbbq_walk_tile_bytes.argtypes = [i, i, i]
+    lib.kbbq_hash_tile_bytes.argtypes = [i, i, i]
+    lib.kbbq_empty_launch.argtypes = [p]
     for fn in (lib.kbbq_bloom_probe_hashed, lib.kbbq_bloom_probe_words,
-               lib.kbbq_bloom_or_words, lib.kbbq_walk_errors):
+               lib.kbbq_bloom_or_words, lib.kbbq_hash_build,
+               lib.kbbq_walk_errors, lib.kbbq_walk_tile_bytes,
+               lib.kbbq_hash_tile_bytes, lib.kbbq_empty_launch):
         fn.restype = ctypes.c_int
 
 
@@ -149,7 +175,7 @@ def bloom_probe_hashed(packed: torch.Tensor, hi: torch.Tensor,
             packed.data_ptr(), mask, hi.data_ptr(), lo.data_ptr(),
             out.data_ptr(), hi.numel(), int(num_hashes), _stream())
     _raise_on(rc, "bloom_probe")
-    LAUNCHES["bloom_probe"] += 1
+    _count("bloom_probe", "bloom_probe_hashed")
     return out
 
 
@@ -172,14 +198,27 @@ def bloom_probe_words(packed: torch.Tensor, h1: torch.Tensor,
             packed.data_ptr(), mask, h1.data_ptr(), word.data_ptr(),
             out.data_ptr(), h1.numel(), _stream())
     _raise_on(rc, "bloom_probe")
-    LAUNCHES["bloom_probe"] += 1
+    _count("bloom_probe", "bloom_probe_words")
     return out
+
+
+def _fit_tile_rows(tile_bytes, L: int, k: int, rows: int) -> int:
+    """The largest tile of at most `rows` reads whose shared memory
+    (`tile_bytes(L, k, rows)`, the kernel's own formula) fits a block."""
+    while rows > 1 and tile_bytes(L, k, rows) > MAX_SHARED_BYTES:
+        rows //= 2
+    if tile_bytes(L, k, rows) > MAX_SHARED_BYTES:
+        raise ValueError(f"reads of {L} bases do not fit a block's shared "
+                         f"memory ({MAX_SHARED_BYTES} bytes)")
+    return rows
 
 
 def bloom_or_words(packed: torch.Tensor, h1: torch.Tensor,
                    word: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """Kernel bloom_or_words: ``packed[h1 & mask] |= word`` where `keep`,
-    IN PLACE on `packed` (which it returns)."""
+    """Kernel bloom_or_words, cached entry point: ``packed[h1 & mask] |=
+    word`` where `keep`, IN PLACE on `packed` (which it returns).  A window
+    whose bits are all set already costs a read of its filter word and no
+    atomic."""
     dev = packed.device
     _check(packed, "packed", torch.int32, dev)
     _check(h1, "h1", torch.int32, dev)
@@ -195,8 +234,51 @@ def bloom_or_words(packed: torch.Tensor, h1: torch.Tensor,
             packed.data_ptr(), mask, h1.data_ptr(), word.data_ptr(),
             keep.data_ptr(), h1.numel(), _stream())
     _raise_on(rc, "bloom_or_words")
-    LAUNCHES["bloom_or_words"] += 1
+    _count("bloom_or_words", "bloom_or_words")
     return packed
+
+
+def hash_build(codes: torch.Tensor, packed: torch.Tensor, first_id: int,
+               k: int, num_hashes: int, threshold: int):
+    """Kernel bloom_or_words, fused entry point: the hash cache of every
+    window of `codes` and the sampled build in one launch.
+
+    codes int8 [N, L] with everything past a read's end code 4; packed int32
+    [m/32], zeroed or partly built, updated IN PLACE; first_id the global
+    ordinal of read 0; threshold the inclusive keep threshold in [0, 2^32).
+    Returns (h1, word, keep): int32 patterns [N, n] x2 and bool [N, n],
+    n = L-k+1 (n <= 0: empty [N, 0] tensors and no launch); word == 0 marks
+    a window with an N, whose h1 is the hash of the window with each N read
+    as base 0.  Every insert is a plain atomic here: the sampled windows
+    of pass 1 seldom repeat, and testing first measured slower (PERF.md)."""
+    dev = codes.device
+    _check(codes, "codes", torch.int8, dev)
+    _check(packed, "packed", torch.int32, dev)
+    if codes.dim() != 2:
+        raise ValueError("codes must be [N, L]")
+    if not 1 <= k <= 32 or num_hashes < 1:
+        raise ValueError("need 1 <= k <= 32 and num_hashes >= 1")
+    if not 0 <= threshold < (1 << 32):
+        raise ValueError("threshold must lie in [0, 2^32)")
+    N, L = codes.shape
+    n = max(L - k + 1, 0)
+    mask = _block_mask(packed)
+    h1 = torch.empty((N, n), dtype=torch.int32, device=dev)
+    word = torch.empty((N, n), dtype=torch.int32, device=dev)
+    keep = torch.empty((N, n), dtype=torch.bool, device=dev)
+    if N == 0 or n == 0:
+        return h1, word, keep
+    with torch.cuda.device(dev):
+        lib = library()
+        rows = _fit_tile_rows(lib.kbbq_hash_tile_bytes, L, int(k),
+                              HASH_TILE_ROWS)
+        rc = lib.kbbq_hash_build(
+            codes.data_ptr(), packed.data_ptr(), mask, h1.data_ptr(),
+            word.data_ptr(), keep.data_ptr(), N, int(first_id), L, int(k),
+            int(num_hashes), int(threshold), rows, _stream())
+    _raise_on(rc, "bloom_or_words (hash_build)")
+    _count("bloom_or_words", "hash_build")
+    return h1, word, keep
 
 
 def walk_errors(codes: torch.Tensor, trusted0: torch.Tensor,
@@ -205,8 +287,8 @@ def walk_errors(codes: torch.Tensor, trusted0: torch.Tensor,
     """Kernel walk_errors: the whole correction walk of every read in one
     launch.  codes int8 [N, L]; trusted0 bool [N, L-k+1] (initial trust of
     every window, query & valid); packed int32 [m/32]; returns the error
-    mask bool [N, L].  `codes` is not modified: the kernel works on a copy.
-    """
+    mask bool [N, L].  `codes` is only read: the kernel's working copy of a
+    read lives in shared memory, and it writes every byte of the mask."""
     dev = codes.device
     _check(codes, "codes", torch.int8, dev)
     _check(trusted0, "trusted0", torch.bool, dev)
@@ -219,16 +301,24 @@ def walk_errors(codes: torch.Tensor, trusted0: torch.Tensor,
     if L - k + 1 < 1 or tuple(trusted0.shape) != (N, L - k + 1):
         raise ValueError("trusted0 must be [N, L-k+1] with L >= k")
     mask = _block_mask(packed)
-    # the scratch copy may be freed on return: torch's allocator reuses it
-    # only in stream order, and the kernel runs on the current stream
-    work = codes.clone()
-    err = torch.zeros((N, L), dtype=torch.bool, device=dev)
+    err = torch.empty((N, L), dtype=torch.bool, device=dev)
     if N == 0:
         return err
     with torch.cuda.device(dev):
-        rc = library().kbbq_walk_errors(
-            work.data_ptr(), trusted0.data_ptr(), packed.data_ptr(), mask,
-            err.data_ptr(), N, L, int(k), int(W), int(num_hashes), _stream())
+        lib = library()
+        rows = _fit_tile_rows(lib.kbbq_walk_tile_bytes, L, int(k),
+                              WALK_TILE_ROWS)
+        rc = lib.kbbq_walk_errors(
+            codes.data_ptr(), trusted0.data_ptr(), packed.data_ptr(), mask,
+            err.data_ptr(), N, L, int(k), int(W), int(num_hashes), rows,
+            WALK_THREADS, _stream())
     _raise_on(rc, "walk_errors")
-    LAUNCHES["walk_errors"] += 1
+    _count("walk_errors", "walk_errors")
     return err
+
+
+def empty_launch() -> None:
+    """Launch a kernel that does nothing (the floor under a launch's time).
+    Not a kernel of any path: nothing is counted."""
+    rc = library().kbbq_empty_launch(_stream())
+    _raise_on(rc, "empty_launch")

@@ -3,7 +3,8 @@
 All device arithmetic is integer, so results are invariant to chunking and
 order.  Three functions run as hand-written CUDA kernels on CUDA tensors and
 as their plain PyTorch versions on CPU tensors: the Bloom probe, the Bloom
-build and the correction walk.
+build (alone, or fused with the hash pass in front of it) and the correction
+walk.
 """
 
 from .bloom import (
@@ -14,6 +15,7 @@ from .bloom import (
     probe_words,
 )
 from .covariate import accumulate_covariates, new_covariate_state
+from .hash_cache import hash_cache_build, hash_cache_chunk
 from .inference import infer_errors
 from .kmers import (
     canonical_kmers_batch,

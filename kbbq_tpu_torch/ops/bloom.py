@@ -10,7 +10,8 @@ uint32 bit pattern; word b's bit j is slot b*32 + j.
 
 Two of the functions here are kernels on the card: the membership probe
 (``bloom_query_rows`` / ``bloom_query_words``, kernel ``bloom_probe``) and
-the build (``bloom_build_words``, kernel ``bloom_or_words``).  Each has its
+the build (``bloom_build_words``, kernel ``bloom_or_words``; its fused entry
+point, which hashes the reads itself, is ``ops.hash_cache``).  Each has its
 plain PyTorch version beside it (``*_plain``); the dispatching function
 takes the plain version only for CPU tensors and launches the kernel for
 CUDA tensors.
@@ -186,7 +187,9 @@ def bloom_build_words(h1: torch.Tensor, word: torch.Tensor,
 
     h1, word: int32 patterns, keep: bool, same shape.  OR commutes, so the
     result does not depend on the order of the entries.  CUDA tensors go
-    through the ``bloom_or_words`` kernel, into a zeroed filter.
+    through the ``bloom_or_words`` kernel (cached entry point: a window
+    whose bits are all set already costs a read and no atomic), into a
+    zeroed filter.
     """
     if h1.is_cuda:
         from .. import kernels

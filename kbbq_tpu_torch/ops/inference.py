@@ -4,8 +4,10 @@ Counterpart of ``kbbq_tpu/ops/inference.py`` and ``ops/pallas_walk.py``;
 bit-exact twin of ``oracle/lighter.py::infer_read_errors``.
 
 On the card the whole walk is ONE launch of the ``walk_errors`` kernel: a
-thread per (read, direction) follows the oracle's sequential recurrence
-directly.  Beside it, ``infer_errors_plain`` is the plain PyTorch version: a
+block stages a tile of reads in shared memory, and a warp per (read,
+direction) that has a break follows the oracle's sequential recurrence
+directly, probing the 32 windows of a step at once.  Beside it,
+``infer_errors_plain`` is the plain PyTorch version: a
 ROUND-BASED batch sweep in the manner of the JAX package's ``_walk_loop``.
 Between "breaks" (a valid, untrusted window) the oracle's walk only
 advances through windows whose trust is already known, so the sweep keeps

@@ -10,8 +10,8 @@ passes is the hash cache of pass 1: per window the block hash ``h1``, the
 first the sampled ``keep`` bit and then, overwritten in place, the trusted
 bit.
 
-  pass 1  hash cache; filter A = OR of the sampled windows' words (kernel
-          bloom_or_words)
+  pass 1  hash cache and filter A = OR of the sampled windows' words, one
+          launch (kernel bloom_or_words, fused entry point)
   pass 2  cached word test against A (kernel bloom_probe), coverage rule,
           filter B = OR of the trusted windows' words (bloom_or_words)
   pass 3  initial trust = cached word test against B (bloom_probe), the
@@ -30,19 +30,10 @@ import torch
 
 from .. import resolve_device
 from ..io.batcher import ReadArrays
-from ..ops.bloom import (
-    _probe_word_w,
-    bloom_build_words,
-    bloom_query_words,
-)
+from ..ops.bloom import bloom_build_words, bloom_query_words
 from ..ops.covariate import accumulate_covariates, new_covariate_state
+from ..ops.hash_cache import hash_cache_build
 from ..ops.inference import infer_errors
-from ..ops.kmers import (
-    _canonical_kmers_w,
-    _kmer_hashes_w,
-    sample_keep_mask,
-    wide_to_u32,
-)
 from ..ops.recal import apply_recal_table
 from ..ops.trusted import trusted_mask_batch
 from ..oracle.bloom import check_layout_capacity
@@ -52,25 +43,8 @@ from ..oracle.kmers import alpha_threshold
 from ..oracle.lighter import coverage_thresholds
 from ..oracle.pipeline import bloom_params_for
 
-# rows per chunk: the per-chunk temporaries are ~20 int64 [rows, n] tensors
+# rows per chunk of passes 2-4
 DEFAULT_CHUNK_ROWS = 65536
-
-
-def hash_cache_chunk(codes: torch.Tensor, read_ids: torch.Tensor, k: int,
-                     num_hashes: int, threshold: int):
-    """(h1, word, keep) of every window of a row chunk: int32 patterns
-    [B, n] and bool [B, n]; word == 0 marks an invalid window.
-
-    h1 masks down to ANY filter's block index and `word` depends only on
-    h2, so this one hash pass serves pass 1's sampled build, pass 2's
-    filter-A query and filter-B build, and pass 3's initial trust query.
-    """
-    hi, lo, valid = _canonical_kmers_w(codes, k)
-    h1, h2 = _kmer_hashes_w(hi, lo)
-    word = torch.where(valid, _probe_word_w(h2, num_hashes),
-                       torch.zeros_like(h2))
-    keep = valid & sample_keep_mask(read_ids, hi.shape[1], threshold)
-    return wide_to_u32(h1), wide_to_u32(word), keep
 
 
 def recalibrate_arrays_resident(arrays: ReadArrays, config,
@@ -101,7 +75,6 @@ def recalibrate_arrays_resident(arrays: ReadArrays, config,
 
     k, h = config.k, config.num_hashes
     N, L = arrays.num_reads, arrays.max_len
-    n = max(L - k + 1, 0)      # 0: no read has a k-mer, every tensor [N, 0]
     rows = int(chunk_rows or DEFAULT_CHUNK_ROWS)
 
     lens = arrays.mask.sum(axis=1)
@@ -134,15 +107,9 @@ def recalibrate_arrays_resident(arrays: ReadArrays, config,
 
     chunks = [(s, min(N, s + rows)) for s in range(0, N, rows)]
 
-    # ---- pass 1: hash cache + filter A
-    h1 = torch.empty((N, n), dtype=torch.int32, device=dev)
-    word = torch.empty((N, n), dtype=torch.int32, device=dev)
-    flag = torch.empty((N, n), dtype=torch.bool, device=dev)
-    for s, e in chunks:
-        ids = torch.arange(s, e, dtype=torch.int64, device=dev)
-        h1[s:e], word[s:e], flag[s:e] = hash_cache_chunk(
-            codes[s:e], ids, k, h, threshold)
-    filt_a = bloom_build_words(h1, word, flag, la)
+    # ---- pass 1: hash cache + filter A (`flag` holds the keep bits)
+    h1, word, flag, filt_a = hash_cache_build(codes, 0, k, h, threshold, la,
+                                              chunk_rows=rows)
     _mark("pass1")
 
     # ---- pass 2: trusted windows (written over the keep plane) + filter B

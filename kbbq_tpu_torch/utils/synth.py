@@ -104,6 +104,38 @@ def make_arrays_fast(
     return arrays, err
 
 
+def make_two_sided_reads(num_reads: int, read_len: int, k: int,
+                         genome_len: int = 3000, seed: int = 0):
+    """Reads with a short anchor in the middle and two planted errors on
+    each side of it, all within the first 32 bases -> (clean, codes, left,
+    right): the error-free reads and the reads int8 [N, L], and the two
+    half-open base ranges that hold the errors.
+
+    The left errors lie in the first k-1 bases and the right ones in the
+    last k bases of the first 32, so every window in between is error-free.
+    A walk that holds 32 bases in a machine word then corrects, from both
+    sides of the anchor, bases of ONE word.  Needs k+1 <= 31 and
+    read_len - k <= 31.
+    """
+    left = (0, k - 1)
+    right = (max(read_len - k, k + 1), min(read_len, 32))
+    if left[1] <= left[0] or right[1] <= right[0]:
+        raise ValueError("no room for errors on both sides of an anchor "
+                         "within the first 32 bases")
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_len, dtype=np.int8)
+    starts = rng.integers(0, genome_len - read_len + 1, size=num_reads)
+    clean = genome[starts[:, None] + np.arange(read_len)]
+    codes = clean.copy()
+    row = np.arange(num_reads)
+    for lo, hi in (left, right):
+        for _ in range(2):
+            pos = rng.integers(lo, hi, size=num_reads)
+            codes[row, pos] = (clean[row, pos]
+                               + rng.integers(1, 4, size=num_reads)) % 4
+    return clean, codes, left, right
+
+
 def to_fastq_bytes(ds: SynthDataset) -> bytes:
     """Render the dataset as an uncompressed FASTQ byte string."""
     from ..oracle.kmers import decode_seq

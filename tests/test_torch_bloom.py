@@ -132,7 +132,7 @@ def test_hash_cache_matches_jax_pass1():
     """The port's per-chunk hash cache equals the JAX resident pipeline's
     _pass1_kmers_slice (h1, word, keep), pads and all."""
     from kbbq_tpu.pipeline.resident import _pass1_kmers_slice
-    from kbbq_tpu_torch.pipeline.resident import hash_cache_chunk
+    from kbbq_tpu_torch.ops.hash_cache import hash_cache_chunk
 
     k, B = 16, 32
     codes, *_ = _batch(k, seed=21, B=2 * B, L=60)

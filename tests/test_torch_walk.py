@@ -161,3 +161,70 @@ def test_anchors_and_next_break_match():
                             torch.from_numpy(valid[:, ::-1].copy()),
                             torch.from_numpy(44 - x.astype(np.int64)))
     assert np.array_equal(np.where(want < 45, 44 - want, -1), back.numpy())
+
+
+def _contract_case(name):
+    """Batches at the edges of the walk's contract: (k, codes int8 [B, L])."""
+    k = 32 if name == "k32_one_window" else 16
+    codes_l, arrays, _ = _cached(k)
+    L = arrays.codes.shape[1]
+    rng = np.random.default_rng(99)
+    if name == "ragged_batch":          # 97 reads: no multiple of any tile
+        return k, arrays.codes[:97]
+    if name == "single_read":           # the first read with a mark, alone
+        _, _, bloom_b = _cached(k)
+        i = next(i for i in range(8, len(codes_l)) if olight.infer_read_errors(
+            codes_l[i], k, bloom_b).any())
+        return k, arrays.codes[i:i + 1]
+    if name == "no_trusted_window":
+        return k, rng.integers(0, 4, (5, L)).astype(np.int8)
+    # error-free reads of the same genome (the generator draws the genome
+    # first, so the seed fixes it whatever the error rate)
+    clean = make_dataset(genome_len=1500, read_len=L, coverage=2.0,
+                         error_rate=0.0, seed=23 + k)
+    codes = np.stack([np.asarray(c) for c in clean.codes]).astype(np.int8)
+    if name == "left_walk_only":        # one wrong base near the start
+        codes[:, 2] = (codes[:, 2] + 1) % 4
+        return k, codes
+    assert name == "k32_one_window"     # L == k: a single window per read
+    codes = codes[:, :32].copy()
+    codes[::3, 31] = (codes[::3, 31] + 2) % 4    # untrusted: no anchor
+    return k, codes
+
+
+@pytest.mark.parametrize("name", ["ragged_batch", "single_read",
+                                  "left_walk_only", "no_trusted_window",
+                                  "k32_one_window"])
+def test_walk_contract_cases(name):
+    """What every version of the walk must give at the edges of its
+    contract: the oracle's marks read by read, and the JAX package's."""
+    k, codes = _contract_case(name)
+    _, _, bloom_b = _cached(k)
+    packed = convert.bloom_from_slots(bloom_b.slots)
+    got = tinf.infer_errors(packed, torch.from_numpy(codes.copy()), k,
+                            7).numpy()
+    assert got.dtype == bool and got.shape == codes.shape
+    want = np.stack([olight.infer_read_errors(c, k, bloom_b) for c in codes])
+    assert np.array_equal(got, want)
+    rows = bloom_rows(jnp.asarray(bloom_b.slots))
+    assert np.array_equal(got, np.asarray(
+        infer_errors_batch(rows, jnp.asarray(codes), k, 7)))
+    if name == "left_walk_only":
+        # in most reads the planted base is the one mark (the rest lie on
+        # stretches of the genome that the filter does not cover)
+        assert (got[:, 2] & (got.sum(axis=1) == 1)).sum() > got.shape[0] // 2
+    if name in ("no_trusted_window", "k32_one_window"):
+        assert not got.any()
+    if name in ("ragged_batch", "single_read"):
+        assert got.any()
+
+
+def test_walk_kernel_wrapper_takes_cuda_tensors_only():
+    """The kernel's wrapper never takes a plain version's place: CPU tensors
+    are refused, not walked."""
+    from kbbq_tpu_torch import kernels
+    codes = torch.zeros((4, 40), dtype=torch.int8)
+    tr0 = torch.ones((4, 25), dtype=torch.bool)
+    packed = torch.zeros(1 << 11, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.walk_errors(codes, tr0, packed, 16, 16, 7)
