@@ -6,7 +6,8 @@
 
 Builds the CUDA kernels from kbbq_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card at the shapes the main path gives it, runs
-the two golden checks on the card, then drives the port's main path
+the two golden checks and the report round trip (``report_out`` then
+``apply_report``) on the card, then drives the port's main path
 (FASTQ -> FASTQ through ``recalibrate_fastq``) at the size of BASELINE.json
 config 2: E. coli-like 4.6 Mb genome, 2x150 bp, ~50x, 1,533,333 reads made
 from a seed.  Any failed phase raises, so the exit code is non-zero; without
@@ -14,11 +15,15 @@ a CUDA device the script exits 1 at once and prints no result.
 
 Output, last three lines: a JSON object {"kernels": [...]} (one entry per
 kernel entry point: launches on the main path, mismatches against the plain
-version, times in ms, the roofline bound), the card's name and power limit
+version, times in ms, the roofline bound; the probe's entries also
+"bound_l2_ms", the time its sector traffic took in this run when every
+filter read hit in L2, and the cached word test "ms_by_log2_m", its time
+against filters of a quarter, one and four times the main path's size, the
+first of which is that reading), the card's name and power limit
 as nvidia-smi gives them, and {"ok": true, "device": {...}}.  In every entry
 "ms" is the time between two CUDA events around one call of the entry
 point's dispatcher, host enqueue work included; "graph_ms", where present,
-is the card's time for one launch out of a CUDA graph of 20.
+is the card's time for one launch out of a CUDA graph of several.
 
 Tolerance: exact equality everywhere.  Every compared quantity is a bool, an
 integer or a byte; the kernels do integer arithmetic only.
@@ -46,6 +51,8 @@ DATA = os.path.join(HERE, "tests", "data")
 # integer operations (the integer pipes are no faster)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# a random 4-byte read of the filter moves one sector of this size through L2
+L2_SECTOR = 32
 
 FULL_READS = 1_533_333
 WALK_READS = 65_536          # rows of the walk kernel's check = one chunk
@@ -53,6 +60,8 @@ WALK_READS = 65_536          # rows of the walk kernel's check = one chunk
 # working copy: (read length, k, extension cap), and launches of each
 TWO_SIDED_SHAPES = [(36, 8, 8), (44, 16, 16), (40, 12, 6)]
 TWO_SIDED_LAUNCHES = 20
+# the fused trust probe on narrow reads: (read length, k, trust threshold)
+NARROW_TRUST_SHAPES = [(36, 8, None), (36, 8, 5), (44, 16, 9)]
 KERNEL_SOURCE = "kbbq_tpu_torch/csrc/kbbq_kernels.cu"
 DEVICE = "cuda"
 
@@ -165,6 +174,34 @@ def two_sided_walks(dev, num_hashes):
     return mm, both
 
 
+def narrow_trust(dev, num_hashes):
+    """bloom_probe_trust against its plain version on short reads with a
+    short k (several reads per 32 windows of a warp, masks of one or two
+    words) and with a trust threshold below k.  Filter A holds a 30 % sample
+    of the reads' own windows.  Returns (mismatches, windows trusted,
+    windows checked)."""
+    from kbbq_tpu_torch.ops.hash_cache import hash_cache_build
+    from kbbq_tpu_torch.ops.trusted import (trusted_from_cache,
+                                            trusted_from_cache_plain)
+    from kbbq_tpu_torch.oracle import alpha_threshold, coverage_thresholds
+    from kbbq_tpu_torch.utils.synth import make_two_sided_reads
+
+    mm = trusted = windows = 0
+    for L, k, T in NARROW_TRUST_SHAPES:
+        _, codes, _, _ = make_two_sided_reads(WALK_READS + 1, L, k,
+                                              genome_len=5000, seed=L + k)
+        h1, word, _, filt = hash_cache_build(
+            torch.from_numpy(codes).to(dev), 0, k, num_hashes,
+            int(alpha_threshold(0.3)), 22)
+        t = torch.from_numpy(coverage_thresholds(0.3, k)).to(dev)
+        got = trusted_from_cache(filt, h1, word, t, k, T)
+        want = trusted_from_cache_plain(filt, h1, word, t, k, T)
+        mm += mismatches(got, want)
+        trusted += int(want.sum())
+        windows += want.numel()
+    return mm, trusted, windows
+
+
 def phase_kernels(arrays, cfg):
     """Each kernel against its plain version on the card, on the main
     path's own state: the hash cache of all windows of the dataset and the
@@ -178,7 +215,8 @@ def phase_kernels(arrays, cfg):
                                                hash_cache_chunk)
     from kbbq_tpu_torch.ops.inference import infer_errors, infer_errors_plain
     from kbbq_tpu_torch.ops.kmers import canonical_kmers_batch, u32_to_wide
-    from kbbq_tpu_torch.ops.trusted import trusted_mask_batch
+    from kbbq_tpu_torch.ops.trusted import (trusted_from_cache,
+                                            trusted_from_cache_plain)
     from kbbq_tpu_torch.oracle import (alpha_threshold, bloom_params_for,
                                        coverage_thresholds)
     from kbbq_tpu_torch import kernels
@@ -276,15 +314,90 @@ def phase_kernels(arrays, cfg):
     k1_lib_ms = cuda_ms(lambda: filt_a[block])   # the one-call yardstick
     del block, hits_plain
     k1_bound = bound(nwin * 9 + filt_a.numel() * 4, nwin * 4)
+    # the same windows against filters a quarter and four times the size,
+    # built from the same cache: the smaller sits in L2 whatever the policy,
+    # the larger cannot
+    k1_by_size = {}
+    for log2_m in (pa.log2_m - 2, pa.log2_m, pa.log2_m + 2):
+        f = filt_a if log2_m == pa.log2_m else \
+            tb.bloom_build_words(h1, word, keep, log2_m)
+        mm_k1 += mismatches(tb.bloom_query_words(f, h1, word),
+                            tb.bloom_query_words_plain(f, h1, word))
+        k1_by_size[str(log2_m)] = cuda_ms(
+            lambda: tb.bloom_query_words(f, h1, word))
+        del f
+    log(f"[kernels] bloom_probe by filter size (log2 bits: ms): "
+        f"{k1_by_size}, {mm_k1} mismatches in all")
+    # second bound, measured: the same windows through L2 (a sector each for
+    # the filter, the streams once) with no filter read missing, which is the
+    # reading against the quarter-size filter; and the rate that makes
+    k1_l2_ms = k1_by_size[str(pa.log2_m - 2)]
+    l2_rate = nwin * (L2_SECTOR + 9) / (k1_l2_ms * 1e-3)
+    log(f"[kernels] bloom_probe with every filter read a hit in L2: "
+        f"{k1_l2_ms} ms, {l2_rate:.4g} B/s of sectors")
+    # incongruent pointers: the flat planes from element 1 (4 bytes past a
+    # 16-byte boundary), a count that is no multiple of 4, into an output
+    # from byte 1 (wide stores) and into a fresh one (byte stores)
+    m_odd = min(nwin - 1, 40_000_003)
+    m_odd -= m_odd % 4 == 0
+    h1_odd, w_odd = h1.reshape(-1)[1:1 + m_odd], word.reshape(-1)[1:1 + m_odd]
+    want_odd = tb.bloom_query_words_plain(filt_a, h1_odd, w_odd)
+    o_odd = torch.zeros(m_odd + 1, dtype=torch.bool, device=dev)
+    kernels.bloom_probe_words(filt_a, h1_odd, w_odd, out=o_odd[1:])
+    mm_k1_odd = mismatches(o_odd[1:], want_odd) + mismatches(
+        tb.bloom_query_words(filt_a, h1_odd, w_odd), want_odd)
+    log(f"[kernels] bloom_probe, misaligned ({m_odd} windows from element 1, "
+        f"base pointers at {h1_odd.data_ptr() % 16} and "
+        f"{o_odd[1:].data_ptr() % 16} mod 16): {mm_k1_odd} mismatches")
+    del h1_odd, w_odd, want_odd, o_odd, hits
 
-    # trusted windows as the main path computes them
-    t_table = torch.from_numpy(coverage_thresholds(alpha, k)).to(dev)
-    trusted = torch.empty_like(keep)
-    for s in range(0, N, rows):
-        e = min(N, s + rows)
-        trusted[s:e] = trusted_mask_batch(hits[s:e], word[s:e] != 0, t_table,
-                                          k, cfg.trust_threshold)
-    del hits, keep
+    # ---- K1 fused entry point: probe A + coverage rule -> trusted windows,
+    # one launch for the whole dataset, against the plain version (the
+    # cached word test, then the rule, by chunks of rows)
+    t_table = torch.from_numpy(
+        coverage_thresholds(alpha, k).astype(np.int32)).to(dev)
+    T = cfg.trust_threshold
+    trusted_from_cache_plain(filt_a, h1[:rows], word[:rows], t_table, k, T)
+    torch.cuda.synchronize()                        # allocator warm
+    t0 = time.time()
+    trusted_plain = trusted_from_cache_plain(filt_a, h1, word, t_table, k, T,
+                                             chunk_rows=rows)
+    torch.cuda.synchronize()
+    k1t_plain_ms = (time.time() - t0) * 1e3
+    trusted = trusted_from_cache(filt_a, h1, word, t_table, k, T)
+    torch.cuda.synchronize()
+    mm_k1t = mismatches(trusted, trusted_plain)
+    log(f"[kernels] bloom_probe_trust: {mm_k1t} mismatches of {nwin}, "
+        f"{int(trusted.sum())} windows trusted")
+    # a trust threshold below k, at the main path's shape
+    mm_k1t_low = mismatches(
+        trusted_from_cache(filt_a, h1, word, t_table, k, k - 12,
+                           out=trusted_plain),
+        trusted_from_cache_plain(filt_a, h1, word, t_table, k, k - 12,
+                                 chunk_rows=rows))
+    mm_narrow, narrow_trusted, narrow_windows = narrow_trust(dev, h)
+    log(f"[kernels] bloom_probe_trust, T = k - 12: {mm_k1t_low} mismatches; "
+        f"narrow reads (L, k, T = {NARROW_TRUST_SHAPES}, {WALK_READS + 1} "
+        f"reads each): {mm_narrow} mismatches, {narrow_trusted} of "
+        f"{narrow_windows} windows trusted")
+    k1t_ms = cuda_ms(lambda: trusted_from_cache(filt_a, h1, word, t_table, k,
+                                                T, out=trusted_plain))
+    k1t_graph_ms = cuda_graph_ms(lambda: kernels.bloom_probe_trust(
+        filt_a, h1, word, t_table, k, k if T is None else T,
+        out=trusted_plain), launches=5)
+    del trusted_plain, keep
+    # ~14 integer operations per window: the test, two ballots, two counts
+    # over the hit and valid masks, the table, one count over the covered mask
+    record("bloom_probe.trust", "bloom_probe_trust",
+           "kbbq_tpu/pipeline/resident.py:404 + kbbq_tpu/ops/trusted.py:57",
+           mm_k1t + mm_k1t_low + mm_narrow, k1t_ms, k1t_plain_ms,
+           bound(nwin * 9 + filt_a.numel() * 4, nwin * 14), n=nwin,
+           bound_l2_ms=k1_l2_ms, graph_ms=k1t_graph_ms,
+           trusted=int(trusted.sum()),
+           narrow_windows=narrow_windows,
+           replaces_note="the XLA body of _pass2_dense_cached (cached word "
+                         "test) and trusted_mask_batch; no Pallas "
+                         "counterpart")
 
     # ---- K3 bloom_or_words, cached entry point: filter B from the trusted
     # windows of the cache
@@ -324,15 +437,19 @@ def phase_kernels(arrays, cfg):
     k1h_ms = cuda_ms(lambda: tb.bloom_query_rows(filt_b, hi, lo, h))
     k1h_plain_ms = cuda_ms(
         lambda: tb.bloom_query_rows_plain(filt_b, hi, lo, h))
+    k1h_graph_ms = cuda_graph_ms(
+        lambda: kernels.bloom_probe_hashed(filt_b, hi, lo, h))
     record("bloom_probe", "bloom_probe_words",
-           "kbbq_tpu/ops/pallas_bloom.py:105", mm_k1, k1_ms, k1_plain_ms,
-           k1_bound, k1_lib_ms, n=nwin)
+           "kbbq_tpu/ops/pallas_bloom.py:105", mm_k1 + mm_k1_odd, k1_ms,
+           k1_plain_ms, k1_bound, k1_lib_ms, n=nwin, bound_l2_ms=k1_l2_ms,
+           l2_bytes_per_s_measured=l2_rate, ms_by_log2_m=k1_by_size,
+           misaligned_windows=m_odd)
     # ~90 integer operations per k-mer: two fmix32 pairs, the probe word,
     # the test.  The main path holds the hash cache, so it never comes here
     record("bloom_probe.hashed", "bloom_probe_hashed",
            "kbbq_tpu/ops/pallas_bloom.py:105", mm_k1h, k1h_ms, k1h_plain_ms,
            bound(got.numel() * 9 + filt_b.numel() * 4, got.numel() * 90),
-           n=got.numel(), on_main_path=False)
+           n=got.numel(), graph_ms=k1h_graph_ms, on_main_path=False)
     del hi, lo, got, want
 
     # ---- K2 walk_errors against its plain version on EVERY chunk of the
@@ -424,8 +541,8 @@ def phase_kernels(arrays, cfg):
     bad = [r["name"] for r in records if r["mismatches"]]
     if bad:
         raise AssertionError(f"kernels disagree with plain versions: {bad}")
-    order = ["bloom_probe", "bloom_probe.hashed", "walk_errors",
-             "bloom_or_words", "bloom_or_words.hash_build"]
+    order = ["bloom_probe", "bloom_probe.hashed", "bloom_probe.trust",
+             "walk_errors", "bloom_or_words", "bloom_or_words.hash_build"]
     records.sort(key=lambda r: order.index(r["name"]))
     for r in records:
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms, plain "
@@ -434,11 +551,22 @@ def phase_kernels(arrays, cfg):
     return records, expected
 
 
+def midscale_dataset():
+    """The dataset of tests/data/midscale_golden.npz, made anew from its
+    seed -> (dataset, k, coverage, the golden qualities)."""
+    from kbbq_tpu_torch.utils.synth import make_dataset
+    z = np.load(os.path.join(DATA, "midscale_golden.npz"))
+    seed, gl, rl, cov, k, nrg = (int(v) for v in z["meta"])
+    ds = make_dataset(genome_len=gl, read_len=rl, coverage=float(cov),
+                      error_rate=0.01, seed=seed, num_rg=nrg, paired=True,
+                      n_rate=0.002)
+    return ds, k, float(cov), z["quals"]
+
+
 def phase_golden(tmp):
     from kbbq_tpu_torch.io.batcher import ReadArrays
     from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_fastq,
                                          run_pipeline)
-    from kbbq_tpu_torch.utils.synth import make_dataset
 
     out = os.path.join(tmp, "tiny.out.fq")
     recalibrate_fastq(os.path.join(DATA, "tiny.fq"), out,
@@ -449,19 +577,15 @@ def phase_golden(tmp):
             raise AssertionError("tiny.fq output differs from the golden")
     log("[golden] tiny.fq == tiny.recal.golden.fq byte for byte")
 
-    z = np.load(os.path.join(DATA, "midscale_golden.npz"))
-    seed, gl, rl, cov, k, nrg = (int(v) for v in z["meta"])
-    ds = make_dataset(genome_len=gl, read_len=rl, coverage=float(cov),
-                      error_rate=0.01, seed=seed, num_rg=nrg, paired=True,
-                      n_rate=0.002)
+    ds, k, cov, golden = midscale_dataset()
     codes = np.stack([np.asarray(c) for c in ds.codes])
     quals = np.stack([np.asarray(q).astype(np.int8) for q in ds.quals])
     arrays = ReadArrays(codes, quals, np.ones(codes.shape, bool),
                         np.asarray(ds.rgs, np.int32),
                         np.asarray(ds.seconds, bool))
-    got = run_pipeline(arrays, RecalConfig(k=k, coverage=float(cov),
+    got = run_pipeline(arrays, RecalConfig(k=k, coverage=cov,
                                            batch_size=2048))
-    if not np.array_equal(got, z["quals"]):
+    if not np.array_equal(got, golden):
         raise AssertionError("midscale golden not reproduced")
     planted = np.stack(ds.true_errors)
     q_err, q_ok = float(got[planted].mean()), float(got[~planted].mean())
@@ -472,6 +596,40 @@ def phase_golden(tmp):
         f"{q_ok:.2f} elsewhere")
     log(f"[golden] midscale_golden.npz reproduced exactly "
         f"({codes.shape[0]} reads)")
+
+
+def phase_report(tmp):
+    """Report interop on the card, on the midscale golden data:
+    ``report_out`` (the full pipeline, and the GATKReport of its covariate
+    tables) then ``apply_report`` (pass 4 only, from that report) must write
+    the same bytes, and the second run must launch no kernel."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.pipeline import RecalConfig, recalibrate_fastq
+    from kbbq_tpu_torch.utils.synth import to_fastq_bytes
+
+    ds, k, cov, _ = midscale_dataset()
+    src = os.path.join(tmp, "midscale.fq")
+    with open(src, "wb") as f:
+        f.write(to_fastq_bytes(ds))
+    cfg = RecalConfig(k=k, coverage=cov)
+    direct, applied = (os.path.join(tmp, n) for n in ("direct.fq",
+                                                      "applied.fq"))
+    report = os.path.join(tmp, "recal.report")
+    info = recalibrate_fastq(src, direct, cfg, report_out=report)
+    kernels.reset_launches()
+    recalibrate_fastq(src, applied, cfg, apply_report=report)
+    torch.cuda.synchronize()
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"apply_report launched kernels: "
+                             f"{kernels.LAUNCHES}")
+    with open(direct, "rb") as f, open(applied, "rb") as g:
+        a, b = f.read(), g.read()
+    if a != b or not a:
+        raise AssertionError("apply_report wrote other bytes than the run "
+                             "that wrote the report")
+    log(f"[report] report_out then apply_report: {info['num_reads']} reads, "
+        f"{len(a)} output bytes equal, report of "
+        f"{os.path.getsize(report)} bytes, apply run launched no kernel")
 
 
 def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
@@ -486,7 +644,6 @@ def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
     del fastq_bytes
     out1, out2 = os.path.join(tmp, "out1.fq"), os.path.join(tmp, "out2.fq")
 
-    torch.cuda.reset_peak_memory_stats()
     timings: dict = {}
     kernels.reset_launches()
     t0 = time.time()
@@ -495,13 +652,20 @@ def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
     wall = time.time() - t0
     launches = dict(kernels.LAUNCHES)
     by_entry = dict(kernels.ENTRY_LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    # pass 1 fused build, pass 2 cached build; one probe each in passes 2
-    # and 3; one walk per chunk of reads
-    want = {"bloom_probe": 2, "bloom_or_words": 2,
-            "walk_errors": -(-info["num_reads"] // DEFAULT_CHUNK_ROWS)}
-    if launches != want or by_entry["hash_build"] != 1:
-        raise AssertionError(f"main path launched {launches} ({by_entry}), "
+    # the resident pipeline records the peak of every stage by itself
+    peaks = {name[:-len("_peak_bytes")]: timings.pop(name)
+             for name in sorted(timings) if name.endswith("_peak_bytes")}
+    peak = max(peaks.values())
+    log("[main_path] peak device bytes by stage: " + json.dumps(peaks))
+    # pass 1 fused build; pass 2 fused trust probe and cached build; pass 3
+    # one probe and one walk per chunk of reads
+    chunks = -(-info["num_reads"] // DEFAULT_CHUNK_ROWS)
+    want = {"bloom_probe_trust": 1, "bloom_probe_words": 1,
+            "bloom_probe_hashed": 0, "hash_build": 1, "bloom_or_words": 1,
+            "walk_errors": chunks}
+    if by_entry != want or launches != {
+            "bloom_probe": 2, "bloom_or_words": 2, "walk_errors": chunks}:
+        raise AssertionError(f"main path launched {by_entry} ({launches}), "
                              f"expected {want}")
 
     fq_in, fq_out = read_fastq(src), read_fastq(out1)
@@ -594,6 +758,7 @@ def main(argv=None) -> int:
     tmp = tempfile.mkdtemp(prefix="kbbq_smoke_")
     try:
         phase_golden(tmp)
+        phase_report(tmp)
         launches = phase_main_path(tmp, fastq_bytes, true_err, expected, cfg,
                                    read_len)
     finally:

@@ -60,6 +60,9 @@ inline uint64_t __brevll(uint64_t x) {
   return r;
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcs(const T* p) { return *p; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
+inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 inline uint32_t __ldcg(const uint32_t* p) {
   return __atomic_load_n(p, __ATOMIC_RELAXED);
 }

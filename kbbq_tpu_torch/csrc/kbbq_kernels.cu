@@ -33,6 +33,50 @@ constexpr int kThreads = 256;      // probe / build / hash blocks
 constexpr int kMaxBlocks = 132 * 32;
 constexpr int kHashSeg = 15;       // windows per thread of the fused build
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may ask for
+constexpr uint32_t kFullWarp = 0xFFFFFFFFu;
+
+constexpr int kTrustUnroll = 4;  // chunks of 32 windows whose filter reads a
+                                 // thread starts before it uses any
+
+// A streamed input is read once and a streamed output written once: evict
+// first, so that they do not push the filter out of L2.
+template <class T>
+__device__ __forceinline__ T stream_load(const T* p) {
+  return __ldcs(p);
+}
+
+template <class T>
+__device__ __forceinline__ void stream_store(T* p, T v) {
+  __stcs(p, v);
+}
+
+// The probe's read of a filter word: read-only path, and the line is marked
+// evict-last in L2 (a cache policy made once per thread by filter_policy()),
+// because the filter is read once per window and the streams once in all.
+// A build for the host has no PTX: there it is a plain read-only load.
+__device__ __forceinline__ uint64_t filter_policy() {
+#ifdef __CUDA_ARCH__
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+#else
+  return 0;
+#endif
+}
+
+__device__ __forceinline__ uint32_t filter_word(const uint32_t* p,
+                                                uint64_t policy) {
+#ifdef __CUDA_ARCH__
+  uint32_t v;
+  asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
+      : "=r"(v)
+      : "l"(p), "l"(policy));
+  return v;
+#else
+  (void)policy;
+  return __ldg(p);
+#endif
+}
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -55,28 +99,12 @@ __device__ __forceinline__ uint32_t probe_word(uint32_t h2, int num_hashes) {
   return w;
 }
 
-// The one device function behind both entry points of the probe and behind
-// every probe of the walk: one random 4-byte read of the filter.
-__device__ __forceinline__ bool word_test(const uint32_t* __restrict__ packed,
-                                          uint32_t block_mask, uint32_t h1,
-                                          uint32_t word) {
-  return (__ldg(packed + (h1 & block_mask)) & word) == word;
-}
-
 // block hash and probe word of a canonical k-mer (hi, lo)
 __device__ __forceinline__ void kmer_hash(uint32_t hi, uint32_t lo,
                                           int num_hashes, uint32_t& h1,
                                           uint32_t& word) {
   h1 = fmix32(lo ^ fmix32(hi ^ kSeedH1));
   word = probe_word(fmix32(hi ^ fmix32(lo ^ kSeedH2)), num_hashes);
-}
-
-__device__ __forceinline__ bool probe_kmer(const uint32_t* __restrict__ packed,
-                                           uint32_t block_mask, uint32_t hi,
-                                           uint32_t lo, int num_hashes) {
-  uint32_t h1, word;
-  kmer_hash(hi, lo, num_hashes, h1, word);
-  return word_test(packed, block_mask, h1, word);
 }
 
 inline int grid_for(int64_t n, int threads) {
@@ -125,6 +153,16 @@ __host__ __device__ __forceinline__ int round16(int x) {
 // bytes.  The tiles below are placed in shared memory at a device address's
 // offset modulo 16, so that whatever the base pointer and the tile's start,
 // the tile's main copy takes the wide path.
+// kStream 1: src is a streamed input (stream_load); 2: dst is a streamed
+// output (stream_store); 0: plain loads and stores.
+template <int kStream, class T>
+__device__ __forceinline__ void copy_unit(T* d, const T* s) {
+  if (kStream == 1) *d = stream_load(s);
+  else if (kStream == 2) stream_store(d, *s);
+  else *d = *s;
+}
+
+template <int kStream = 0>
 __device__ __forceinline__ void tile_copy(uint8_t* dst, const uint8_t* src,
                                           int nbytes, int tid, int nthreads) {
   const uint32_t apart =
@@ -138,11 +176,13 @@ __device__ __forceinline__ void tile_copy(uint8_t* dst, const uint8_t* src,
   if (unit == 16u) {
     uint4* d = reinterpret_cast<uint4*>(dst + head);
     const uint4* s = reinterpret_cast<const uint4*>(src + head);
-    for (int i = tid; i < body; i += nthreads) d[i] = s[i];
+    for (int i = tid; i < body; i += nthreads)
+      copy_unit<kStream>(d + i, s + i);
   } else if (unit == 4u) {
     uint32_t* d = reinterpret_cast<uint32_t*>(dst + head);
     const uint32_t* s = reinterpret_cast<const uint32_t*>(src + head);
-    for (int i = tid; i < body; i += nthreads) d[i] = s[i];
+    for (int i = tid; i < body; i += nthreads)
+      copy_unit<kStream>(d + i, s + i);
   }
   for (int i = head + body * (int)unit + tid; i < nbytes; i += nthreads)
     dst[i] = src[i];
@@ -154,17 +194,124 @@ __device__ __forceinline__ void tile_copy(uint8_t* dst, const uint8_t* src,
 // Replaces: kbbq_tpu/ops/pallas_bloom.py::_probe_kernel (reached through
 //   bloom_query_rows_pallas), the blocked-Bloom membership test, and the
 //   cached word test the resident pipeline runs in XLA
-//   (kbbq_tpu/pipeline/resident.py, _pass2_dense_cached / _pass3_walks).
-// Bound by: bytes.  Per k-mer the streamed inputs (8 B) and the 1 B answer,
-//   plus one random 4-byte read of the filter; at 32 MiB the filter sits
-//   largely in the 50 MB L2, so the random read rarely reaches device memory.
-// Design: one thread per k-mer, grid-stride, neighbouring threads on
-//   neighbouring inputs so the streams coalesce; the filter word comes
-//   through the read-only path.  The Pallas kernel's [rows, 128] row gather
-//   and lane select exist only because Mosaic lowers 2-D gathers alone: here
-//   the word is simply loaded.  The hashed entry point computes fmix32 and the
-//   (h1, h2) pair inside the kernel (the TPU version left them to XLA).
+//   (kbbq_tpu/pipeline/resident.py, _pass2_dense_cached / _pass3_walks); the
+//   fused entry point bloom_probe_trust also replaces pass 2's coverage rule
+//   (kbbq_tpu/ops/trusted.py::trusted_mask_batch), which has no Pallas kernel.
+// Bound by: bytes on paper (8 B in and 1 B out per window, the filter once),
+//   in practice by L2 sector traffic: every window makes one random 4-byte
+//   read of the filter, which moves a 32-byte sector through L2, 3.5 times
+//   the bytes of the streams.
+// Design: the filter is the thing to keep in L2 and the random reads are the
+//   thing to keep in flight.
+//   - A thread takes 4 consecutive windows per step: one 16-byte load of each
+//     input, four filter reads started before any is used, the four answers
+//     in one 4-byte store (four 1-byte stores where the output does not
+//     follow the inputs modulo 4).  Where the two inputs are not congruent
+//     modulo 16 every window takes the scalar path; else only the few
+//     before the first and after the last aligned group do.
+//   - The streams are loaded and stored evict-first (__ldcs / __stcs); the
+//     filter word comes through the read-only path with an evict-last L2
+//     policy.  Both are per-load hints: no launch inherits anything.
+//   - The hashed entry point computes fmix32 and the (h1, h2) pair inside the
+//     same body (the TPU version left them to XLA).  The Pallas kernel's
+//     [rows, 128] row gather and lane select exist only because Mosaic
+//     lowers 2-D gathers alone: here the word is simply loaded.
+//   - bloom_probe_trust (pass 2) keeps the answers on the SM.  A block stages
+//     a tile of reads' h1 and word rows in shared memory with wide streamed
+//     loads; a warp takes a read, thread t the windows t, t+32, ..: it starts
+//     kTrustUnroll filter reads back to back, and ballots turn the answers
+//     into bit masks (hit, valid).  A count over a sliding window of at most
+//     32 positions is then the popcount of a masked 64-bit shift, so the
+//     coverage rule needs no prefix sum and no integer plane: per base the
+//     hits s and the valid windows x among the windows that overlap it,
+//     covered = s >= t[x] (t in shared memory), again a bit mask; per window
+//     trusted = valid and at least T of its k bases covered.  Only that byte
+//     per window leaves the SM, through a shared-memory tile and wide
+//     streamed stores.  The build of filter B from those bytes stays the
+//     launch of its own that bloom_or_words is: fused in here it would save
+//     about a millisecond and orphan that kernel's cached entry point.
 // ---------------------------------------------------------------------------
+
+// One window of either entry point: (a, b) is the cached (h1, word) pair or
+// the canonical k-mer (hi, lo) to hash.  word == 0 marks an invalid window (a
+// probe word is never zero).
+template <bool kHashed>
+__device__ __forceinline__ void probe_args(uint32_t a, uint32_t b,
+                                           int num_hashes, uint32_t& h1,
+                                           uint32_t& word) {
+  if (kHashed) {
+    kmer_hash(a, b, num_hashes, h1, word);
+  } else {
+    h1 = a;
+    word = b;
+  }
+}
+
+__device__ __forceinline__ uint32_t word_test(uint32_t got, uint32_t word) {
+  return (word != 0u && (got & word) == word) ? 1u : 0u;
+}
+
+template <bool kHashed>
+__device__ __forceinline__ void probe_one(const uint32_t* __restrict__ packed,
+                                          uint32_t block_mask,
+                                          const uint32_t* a, const uint32_t* b,
+                                          uint8_t* out, int64_t i,
+                                          int num_hashes, uint64_t policy) {
+  uint32_t h1, w;
+  probe_args<kHashed>(stream_load(a + i), stream_load(b + i), num_hashes, h1,
+                      w);
+  stream_store(out + i, (uint8_t)word_test(
+      filter_word(packed + (h1 & block_mask), policy), w));
+}
+
+template <bool kHashed>
+__device__ __forceinline__ void bloom_probe_body(
+    const uint32_t* __restrict__ packed, uint32_t block_mask,
+    const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+    uint8_t* __restrict__ out, int64_t n, int num_hashes) {
+  const uint64_t policy = filter_policy();
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  // windows before the first group: up to the inputs' first 16-byte
+  // boundary where the two are congruent modulo 16, else all of them
+  int64_t head = n;
+  if ((((uintptr_t)a ^ (uintptr_t)b) & 15u) == 0u) {
+    const int64_t h = (int64_t)(((16u - ((uintptr_t)a & 15u)) & 15u) >> 2);
+    if (h < n) head = h;
+  }
+  const int64_t groups = (n - head) / 4;
+  const uint4* a4 = reinterpret_cast<const uint4*>(a + head);
+  const uint4* b4 = reinterpret_cast<const uint4*>(b + head);
+  uint8_t* o1 = out + head;
+  uint32_t* o4 = reinterpret_cast<uint32_t*>(o1);
+  const bool wide_out = ((uintptr_t)o1 & 3u) == 0u;  // else a byte at a time
+  for (int64_t g = tid; g < groups; g += stride) {
+    const uint4 va = stream_load(a4 + g), vb = stream_load(b4 + g);
+    const uint32_t xa[4] = {va.x, va.y, va.z, va.w};
+    const uint32_t xb[4] = {vb.x, vb.y, vb.z, vb.w};
+    uint32_t w[4], got[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t h1;
+      probe_args<kHashed>(xa[e], xb[e], num_hashes, h1, w[e]);
+      got[e] = filter_word(packed + (h1 & block_mask), policy);
+    }
+    uint32_t r = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r |= word_test(got[e], w[e]) << (8 * e);
+    if (wide_out) {
+      stream_store(o4 + g, r);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        stream_store(o1 + 4 * g + e, (uint8_t)(r >> (8 * e)));
+    }
+  }
+  for (int64_t i = tid; i < head; i += stride)
+    probe_one<kHashed>(packed, block_mask, a, b, out, i, num_hashes, policy);
+  for (int64_t i = head + 4 * groups + tid; i < n; i += stride)
+    probe_one<kHashed>(packed, block_mask, a, b, out, i, num_hashes, policy);
+}
 
 __global__ void bloom_probe_hashed_kernel(const uint32_t* __restrict__ packed,
                                           uint32_t block_mask,
@@ -172,10 +319,7 @@ __global__ void bloom_probe_hashed_kernel(const uint32_t* __restrict__ packed,
                                           const uint32_t* __restrict__ lo,
                                           uint8_t* __restrict__ out, int64_t n,
                                           int num_hashes) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = probe_kmer(packed, block_mask, hi[i], lo[i], num_hashes) ? 1 : 0;
+  bloom_probe_body<true>(packed, block_mask, hi, lo, out, n, num_hashes);
 }
 
 __global__ void bloom_probe_words_kernel(const uint32_t* __restrict__ packed,
@@ -183,13 +327,123 @@ __global__ void bloom_probe_words_kernel(const uint32_t* __restrict__ packed,
                                          const uint32_t* __restrict__ h1,
                                          const uint32_t* __restrict__ word,
                                          uint8_t* __restrict__ out, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const uint32_t w = word[i];
-    // word == 0 marks an invalid window (a probe word is never zero)
-    out[i] = (w != 0u && word_test(packed, block_mask, h1[i], w)) ? 1 : 0;
+  bloom_probe_body<false>(packed, block_mask, h1, word, out, n, 0);
+}
+
+// 32-bit words of a bit mask of x positions, and one more so that a range
+// may always read two
+__host__ __device__ inline int mask_words(int x) { return (x + 31) / 32 + 1; }
+
+// set bits among positions lo .. lo+len-1 of a bit mask, 1 <= len <= 32
+__device__ __forceinline__ int range_count(const uint32_t* bits, int lo,
+                                           int len) {
+  const int q = lo >> 5;
+  const uint64_t two = (uint64_t)bits[q] | ((uint64_t)bits[q + 1] << 32);
+  const uint32_t v = (uint32_t)(two >> (lo & 31));
+  return __popc(len >= 32 ? v : v & ((1u << len) - 1u));
+}
+
+// shared memory of one block of bloom_probe_trust_kernel, in bytes: the h1 and
+// word rows of the tile, its trusted bytes, the threshold table, and per
+// warp the three bit masks of the read it works on
+__host__ __device__ inline int trust_tile_bytes(int n, int k, int rows,
+                                                int threads) {
+  return 2 * round16(rows * n * 4 + 16) + round16(rows * n + 16) +
+         round16((k + 1) * 4) +
+         round16((threads / 32) * (2 * mask_words(n) + mask_words(n + k - 1)) *
+                 4);
+}
+
+__global__ void bloom_probe_trust_kernel(
+    const uint32_t* __restrict__ packed, uint32_t block_mask,
+    const uint32_t* __restrict__ h1, const uint32_t* __restrict__ word,
+    const int32_t* __restrict__ thresholds, uint8_t* __restrict__ out,
+    int64_t num_reads, int n, int k, int trust_threshold, int tile_rows) {
+  extern __shared__ uint4 smem4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+  const int L = n + k - 1;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int64_t r0 = (int64_t)blockIdx.x * tile_rows;
+  const int64_t rest = num_reads - r0;
+  const int R = rest < tile_rows ? (int)rest : tile_rows;
+
+  const uint8_t* gh1 = reinterpret_cast<const uint8_t*>(h1 + r0 * n);
+  const uint8_t* gword = reinterpret_cast<const uint8_t*>(word + r0 * n);
+  uint8_t* gout = out + r0 * n;
+  const int plane = round16(tile_rows * n * 4 + 16);
+  // each plane at its device address's offset modulo 16 (a multiple of 4)
+  uint8_t* sh1 = smem + ((uintptr_t)gh1 & 15u);
+  uint8_t* sword = smem + plane + ((uintptr_t)gword & 15u);
+  uint8_t* sout = smem + 2 * plane + ((uintptr_t)gout & 15u);
+  int32_t* st = reinterpret_cast<int32_t*>(smem + 2 * plane +
+                                           round16(tile_rows * n + 16));
+  const int nw = mask_words(n), lw = mask_words(L);
+  uint32_t* hit = reinterpret_cast<uint32_t*>(st) + round16((k + 1) * 4) / 4 +
+                  (tid >> 5) * (2 * nw + lw);
+  uint32_t* valid = hit + nw;
+  uint32_t* cov = valid + nw;
+
+  tile_copy<1>(sh1, gh1, R * n * 4, tid, nthreads);
+  tile_copy<1>(sword, gword, R * n * 4, tid, nthreads);
+  for (int i = tid; i <= k; i += nthreads) st[i] = thresholds[i];
+  __syncthreads();
+
+  const uint64_t policy = filter_policy();
+  const int lane = tid & 31;
+  const int nc = (n + 31) >> 5, lc = (L + 31) >> 5;
+  if (lane == 0) hit[nc] = valid[nc] = cov[lc] = 0u;  // the words never set
+  for (int r = tid >> 5; r < R; r += nthreads >> 5) {
+    const uint32_t* rh = reinterpret_cast<const uint32_t*>(sh1) + r * n;
+    const uint32_t* rw = reinterpret_cast<const uint32_t*>(sword) + r * n;
+    // 1. the probes: hit and valid, a bit per window
+    for (int c0 = 0; c0 < nc; c0 += kTrustUnroll) {
+      uint32_t w[kTrustUnroll], got[kTrustUnroll];
+#pragma unroll
+      for (int u = 0; u < kTrustUnroll; ++u) {
+        const int j = (c0 + u) * 32 + lane;
+        w[u] = got[u] = 0u;
+        if (j < n) {
+          w[u] = rw[j];
+          got[u] = filter_word(packed + (rh[j] & block_mask), policy);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTrustUnroll; ++u) {
+        const uint32_t vb = __ballot_sync(kFullWarp, w[u] != 0u);
+        const uint32_t hb =
+            __ballot_sync(kFullWarp, word_test(got[u], w[u]) != 0u);
+        if (lane == 0 && c0 + u < nc) {
+          valid[c0 + u] = vb;
+          hit[c0 + u] = hb;
+        }
+      }
+    }
+    __syncwarp();
+    // 2. covered, a bit per base: s hits among the x valid windows that
+    // overlap base i, windows max(0, i-k+1) .. min(i, n-1)
+    for (int c = 0; c < lc; ++c) {
+      const int i = c * 32 + lane;
+      bool covered = false;
+      if (i < L) {
+        const int lo = i - k + 1 > 0 ? i - k + 1 : 0;
+        const int len = (i < n - 1 ? i : n - 1) - lo + 1;
+        covered = range_count(hit, lo, len) >= st[range_count(valid, lo, len)];
+      }
+      const uint32_t cb = __ballot_sync(kFullWarp, covered);
+      if (lane == 0) cov[c] = cb;
+    }
+    __syncwarp();
+    // 3. trusted, a byte per window: valid, and at least trust_threshold of
+    // its k bases covered
+    for (int j = lane; j < n; j += 32) {
+      const bool ok = ((valid[j >> 5] >> (j & 31)) & 1u) != 0u;
+      sout[r * n + j] =
+          (ok && range_count(cov, j, k) >= trust_threshold) ? 1 : 0;
+    }
+    __syncwarp();  // the next read's ballots overwrite the masks
   }
+  __syncthreads();
+  tile_copy<2>(gout, sout, R * n, tid, nthreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -389,7 +643,6 @@ __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
 // ---------------------------------------------------------------------------
 
 constexpr uint8_t kFlagTrusted = 1, kFlagBreak = 2;
-constexpr uint32_t kFullWarp = 0xFFFFFFFFu;
 
 // 64-bit words of a packed read: 32 bases a word, first base in the highest
 // bits, and one word more so that a window may always read two
@@ -683,6 +936,9 @@ __global__ void walk_errors_kernel(const int8_t* __restrict__ codes,
 
 __global__ void empty_kernel() {}
 
+// blocks of a probe launch: a thread takes 4 windows a step
+inline int probe_grid(int64_t n) { return grid_for((n + 3) / 4, kThreads); }
+
 }  // namespace
 
 extern "C" {
@@ -691,7 +947,7 @@ int kbbq_bloom_probe_hashed(const void* packed, uint32_t block_mask,
                             const void* hi, const void* lo, void* out,
                             int64_t n, int num_hashes, void* stream) {
   if (n > 0)
-    bloom_probe_hashed_kernel<<<grid_for(n, kThreads), kThreads, 0,
+    bloom_probe_hashed_kernel<<<probe_grid(n), kThreads, 0,
                                 (cudaStream_t)stream>>>(
         (const uint32_t*)packed, block_mask, (const uint32_t*)hi,
         (const uint32_t*)lo, (uint8_t*)out, n, num_hashes);
@@ -702,7 +958,7 @@ int kbbq_bloom_probe_words(const void* packed, uint32_t block_mask,
                            const void* h1, const void* word, void* out,
                            int64_t n, void* stream) {
   if (n > 0)
-    bloom_probe_words_kernel<<<grid_for(n, kThreads), kThreads, 0,
+    bloom_probe_words_kernel<<<probe_grid(n), kThreads, 0,
                                (cudaStream_t)stream>>>(
         (const uint32_t*)packed, block_mask, (const uint32_t*)h1,
         (const uint32_t*)word, (uint8_t*)out, n);
@@ -752,6 +1008,31 @@ int kbbq_hash_build(const void* codes, void* packed, uint32_t block_mask,
   return (int)cudaGetLastError();
 }
 
+// h1, word: int32 [num_reads, n], the hash cache; thresholds: int32 [k+1],
+// the coverage rule's table t(x); out: bool [num_reads, n], every byte
+// written.  tile_rows: reads per block; threads: threads per block.
+int kbbq_bloom_probe_trust(const void* packed, uint32_t block_mask,
+                           const void* h1, const void* word,
+                           const void* thresholds, void* out,
+                           int64_t num_reads, int n, int k,
+                           int trust_threshold, int tile_rows, int threads,
+                           void* stream) {
+  if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (k < 1 || k > 32 || tile_rows < 1 || threads < 32 || threads > 1024 ||
+      threads % 32)
+    return (int)cudaErrorInvalidValue;
+  const int smem = trust_tile_bytes(n, k, tile_rows, threads);
+  const int rc = set_smem((const void*)bloom_probe_trust_kernel, smem);
+  if (rc != 0) return rc;
+  const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
+  bloom_probe_trust_kernel<<<(unsigned)blocks, threads, smem,
+                             (cudaStream_t)stream>>>(
+      (const uint32_t*)packed, block_mask, (const uint32_t*)h1,
+      (const uint32_t*)word, (const int32_t*)thresholds, (uint8_t*)out,
+      num_reads, n, k, trust_threshold, tile_rows);
+  return (int)cudaGetLastError();
+}
+
 // codes: int8 [num_reads, L], read only; trusted0: bool [num_reads, L-k+1];
 // err: bool [num_reads, L], every byte written.  tile_rows: reads per block;
 // threads: threads per block.
@@ -774,13 +1055,16 @@ int kbbq_walk_errors(const void* codes, const void* trusted0,
   return (int)cudaGetLastError();
 }
 
-// shared memory (bytes) a block of the two tiled kernels needs, for the
+// shared memory (bytes) a block of the tiled kernels needs, for the
 // wrappers that choose tile_rows
 int kbbq_walk_tile_bytes(int L, int k, int tile_rows) {
   return walk_tile_bytes(L, L - k + 1, tile_rows);
 }
 int kbbq_hash_tile_bytes(int L, int k, int tile_rows) {
   return hash_tile_bytes(L, L - k + 1, tile_rows);
+}
+int kbbq_trust_tile_bytes(int L, int k, int tile_rows, int threads) {
+  return trust_tile_bytes(L - k + 1, k, tile_rows, threads);
 }
 
 // a kernel that does nothing: the floor under every launch's time

@@ -1,7 +1,8 @@
 """Build, ctypes binding and wrappers of ``csrc/kbbq_kernels.cu``.
 
-The three kernels (``bloom_probe`` and ``bloom_or_words`` with two entry
-points each, ``walk_errors``) are CUDA C++ for sm_90a with a plain C
+The three kernels (``bloom_probe`` with three entry points,
+``bloom_or_words`` with two, ``walk_errors``) are CUDA C++ for sm_90a with a
+plain C
 interface.  ``build()`` compiles them with nvcc into
 ``kbbq_tpu_torch/build/libkbbq_kernels.so`` at first use (and again when
 the source is newer); the library is loaded with ctypes.  Nothing here
@@ -37,15 +38,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # split by entry point (C function)
 LAUNCHES = {"bloom_probe": 0, "bloom_or_words": 0, "walk_errors": 0}
 ENTRY_LAUNCHES = {"bloom_probe_hashed": 0, "bloom_probe_words": 0,
-                  "bloom_or_words": 0, "hash_build": 0, "walk_errors": 0}
+                  "bloom_probe_trust": 0, "bloom_or_words": 0,
+                  "hash_build": 0, "walk_errors": 0}
 
-# reads per block of the two tiled kernels and threads per block of the walk
-# (a warp works on one read and direction at a time), settled by measuring
-# on an H100 at 150-base reads (PERF.md); the rows are halved for reads so
-# long that a tile of this many would not fit a block's shared memory
+# reads per block of the tiled kernels and threads per block of the walk and
+# of the fused trust probe (in both a warp works on one read at a time),
+# settled by measuring on an H100 at 150-base reads (PERF.md); the rows are
+# halved for reads so long that a tile of this many would not fit a block's
+# shared memory
 WALK_TILE_ROWS = 32
 WALK_THREADS = 128
 HASH_TILE_ROWS = 32
+TRUST_TILE_ROWS = 16
+TRUST_THREADS = 256
 MAX_SHARED_BYTES = 232448
 
 _lib = None
@@ -104,6 +109,8 @@ def _bind(lib) -> None:
                       ctypes.c_uint32)
     lib.kbbq_bloom_probe_hashed.argtypes = [p, u32, p, p, p, i64, i, p]
     lib.kbbq_bloom_probe_words.argtypes = [p, u32, p, p, p, i64, p]
+    lib.kbbq_bloom_probe_trust.argtypes = [p, u32, p, p, p, p, i64, i, i, i,
+                                           i, i, p]
     lib.kbbq_bloom_or_words.argtypes = [p, u32, p, p, p, i64, p]
     lib.kbbq_hash_build.argtypes = [p, p, u32, p, p, p, i64, i64, i, i, i,
                                     u32, i, p]
@@ -111,11 +118,13 @@ def _bind(lib) -> None:
                                      p]
     lib.kbbq_walk_tile_bytes.argtypes = [i, i, i]
     lib.kbbq_hash_tile_bytes.argtypes = [i, i, i]
+    lib.kbbq_trust_tile_bytes.argtypes = [i, i, i, i]
     lib.kbbq_empty_launch.argtypes = [p]
     for fn in (lib.kbbq_bloom_probe_hashed, lib.kbbq_bloom_probe_words,
-               lib.kbbq_bloom_or_words, lib.kbbq_hash_build,
-               lib.kbbq_walk_errors, lib.kbbq_walk_tile_bytes,
-               lib.kbbq_hash_tile_bytes, lib.kbbq_empty_launch):
+               lib.kbbq_bloom_probe_trust, lib.kbbq_bloom_or_words,
+               lib.kbbq_hash_build, lib.kbbq_walk_errors,
+               lib.kbbq_walk_tile_bytes, lib.kbbq_hash_tile_bytes,
+               lib.kbbq_trust_tile_bytes, lib.kbbq_empty_launch):
         fn.restype = ctypes.c_int
 
 
@@ -179,10 +188,25 @@ def bloom_probe_hashed(packed: torch.Tensor, hi: torch.Tensor,
     return out
 
 
+def _out_like(x: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
+    """`out` checked (bool, contiguous, the shape and device of `x`), or a
+    new tensor of that kind."""
+    if out is None:
+        return torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    _check(out, "out", torch.bool, x.device)
+    if out.shape != x.shape:
+        raise ValueError(f"out must have shape {tuple(x.shape)}")
+    return out
+
+
 def bloom_probe_words(packed: torch.Tensor, h1: torch.Tensor,
-                      word: torch.Tensor) -> torch.Tensor:
+                      word: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel bloom_probe, cached entry point:
-    ``(packed[h1 & mask] & word) == word and word != 0`` per element."""
+    ``(packed[h1 & mask] & word) == word and word != 0`` per element, into
+    `out` when given.  Any base pointers are taken: 16-byte loads need h1
+    and word congruent modulo 16, 4-byte stores an output that follows
+    them modulo 4."""
     dev = packed.device
     _check(packed, "packed", torch.int32, dev)
     _check(h1, "h1", torch.int32, dev)
@@ -190,7 +214,7 @@ def bloom_probe_words(packed: torch.Tensor, h1: torch.Tensor,
     if h1.shape != word.shape:
         raise ValueError("h1 and word must have one shape")
     mask = _block_mask(packed)
-    out = torch.empty(h1.shape, dtype=torch.bool, device=dev)
+    out = _out_like(h1, out)
     if h1.numel() == 0:
         return out
     with torch.cuda.device(dev):
@@ -211,6 +235,45 @@ def _fit_tile_rows(tile_bytes, L: int, k: int, rows: int) -> int:
         raise ValueError(f"reads of {L} bases do not fit a block's shared "
                          f"memory ({MAX_SHARED_BYTES} bytes)")
     return rows
+
+
+def bloom_probe_trust(packed: torch.Tensor, h1: torch.Tensor,
+                      word: torch.Tensor, thresholds: torch.Tensor, k: int,
+                      trust_threshold: int,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel bloom_probe, fused entry point of pass 2: the cached word test
+    of every window against `packed` and the coverage rule on its answers,
+    in one launch.  h1, word int32 patterns [N, n] (word == 0: window with
+    an N); thresholds int32 [k+1], the table t(x); a window is trusted when
+    it is valid and at least `trust_threshold` of its k bases are covered.
+    Returns bool [N, n], written into `out` when given (every byte of it);
+    N == 0 or n == 0 launches nothing."""
+    dev = packed.device
+    _check(packed, "packed", torch.int32, dev)
+    _check(h1, "h1", torch.int32, dev)
+    _check(word, "word", torch.int32, dev)
+    _check(thresholds, "thresholds", torch.int32, dev)
+    if h1.dim() != 2 or h1.shape != word.shape:
+        raise ValueError("h1 and word must be [N, n], of one shape")
+    if not 1 <= k <= 32 or tuple(thresholds.shape) != (k + 1,):
+        raise ValueError("need 1 <= k <= 32 and thresholds of k+1 entries")
+    out = _out_like(h1, out)
+    mask = _block_mask(packed)
+    N, n = h1.shape
+    if N == 0 or n == 0:
+        return out
+    with torch.cuda.device(dev):
+        lib = library()
+        rows = _fit_tile_rows(
+            lambda L, k, r: lib.kbbq_trust_tile_bytes(L, k, r, TRUST_THREADS),
+            n + int(k) - 1, int(k), TRUST_TILE_ROWS)
+        rc = lib.kbbq_bloom_probe_trust(
+            packed.data_ptr(), mask, h1.data_ptr(), word.data_ptr(),
+            thresholds.data_ptr(), out.data_ptr(), N, n, int(k),
+            int(trust_threshold), rows, TRUST_THREADS, _stream())
+    _raise_on(rc, "bloom_probe (trust)")
+    _count("bloom_probe", "bloom_probe_trust")
+    return out
 
 
 def bloom_or_words(packed: torch.Tensor, h1: torch.Tensor,

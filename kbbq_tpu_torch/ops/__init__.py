@@ -2,9 +2,9 @@
 
 All device arithmetic is integer, so results are invariant to chunking and
 order.  Three functions run as hand-written CUDA kernels on CUDA tensors and
-as their plain PyTorch versions on CPU tensors: the Bloom probe, the Bloom
-build (alone, or fused with the hash pass in front of it) and the correction
-walk.
+as their plain PyTorch versions on CPU tensors: the Bloom probe (alone, or
+fused with pass 2's coverage rule behind it), the Bloom build (alone, or
+fused with the hash pass in front of it) and the correction walk.
 """
 
 from .bloom import (
@@ -25,4 +25,4 @@ from .kmers import (
     sample_keep_mask,
 )
 from .recal import apply_recal_table
-from .trusted import coverage_counts, trusted_mask_batch
+from .trusted import coverage_counts, trusted_from_cache, trusted_mask_batch

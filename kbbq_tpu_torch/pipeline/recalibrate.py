@@ -1,7 +1,8 @@
 """End-to-end recalibration entry points of the port (single device).
 
 Counterpart of ``kbbq_tpu/pipeline/recalibrate.py``: ``RecalConfig``,
-``run_pipeline`` and the FASTQ -> FASTQ entry point ``recalibrate_fastq``.
+``run_pipeline``, the pass-4-only ``apply_table_arrays`` and the FASTQ ->
+FASTQ entry point ``recalibrate_fastq`` with its GATKReport options.
 Bit-exact parity authority: the NumPy oracle of the JAX package.
 """
 
@@ -73,6 +74,46 @@ def run_pipeline(arrays: ReadArrays, config: RecalConfig,
                                        device=dev, chunk_rows=chunk_rows)
 
 
+def apply_table_arrays(arrays: ReadArrays, recal_table: np.ndarray,
+                       device=None, chunk_rows: int | None = None
+                       ) -> np.ndarray:
+    """Pass 4 ONLY: apply an externally supplied Q' table (the
+    ApplyBQSR-equivalent path) -> new quals int8 [N, L].  The same gather,
+    by the same row chunks, that the full pipeline's pass 4 runs, so a
+    table rebuilt from a report reproduces the direct run.  No kernel is
+    launched.  device=None means the CUDA device (raises without one)."""
+    from .. import resolve_device
+    from .resident import (DEFAULT_CHUNK_ROWS, apply_table_on_device,
+                           arrays_to_device)
+    dev = resolve_device(device)
+    if arrays.num_reads == 0:
+        return np.zeros((0, arrays.max_len), np.int8)
+    return apply_table_on_device(
+        np.ascontiguousarray(recal_table), *arrays_to_device(arrays, dev),
+        int(chunk_rows or DEFAULT_CHUNK_ROWS))
+
+
+def _run_or_apply(arrays, config, rg_names, report_out, apply_report,
+                  **run_kwargs):
+    """Engine dispatch of the report-aware entry points: apply_report -> pass 4
+    only, from a parsed GATKReport; report_out -> the full pipeline, and
+    the report of its covariate tables; else the plain pipeline."""
+    if apply_report is not None:
+        from ..gatk_report import read_gatk_report, recal_table_from_report
+        table = recal_table_from_report(
+            read_gatk_report(apply_report), rg_names, arrays.max_len)
+        return apply_table_arrays(arrays, table,
+                                  device=run_kwargs.get("device"))
+    if report_out is not None:
+        from ..gatk_report import write_gatk_report
+        from ..oracle.gatk import captured_tables
+        with captured_tables() as cap:
+            new_quals = run_pipeline(arrays, config, **run_kwargs)
+        write_gatk_report(cap["tables"], rg_names, report_out)
+        return new_quals
+    return run_pipeline(arrays, config, **run_kwargs)
+
+
 def _load_fastq_arrays(in_paths, interleaved: bool):
     """Load FASTQ inputs into one padded ReadArrays (each input file is
     its own read group, DECISIONS.md D8): (fqs, mask_list, arrays)."""
@@ -139,7 +180,9 @@ def _write_fastq_outputs(fqs, mask_l, new_quals, out_paths) -> None:
 
 def recalibrate_fastq(in_paths, out_paths, config: RecalConfig,
                       interleaved: bool = False, device=None,
-                      timings: dict | None = None) -> dict:
+                      timings: dict | None = None,
+                      report_out: str | None = None,
+                      apply_report: str | None = None) -> dict:
     """FASTQ -> FASTQ recalibration (the reference CLI's main flow).
 
     Accepts one path or a list; each input file is its own read group
@@ -147,6 +190,11 @@ def recalibrate_fastq(in_paths, out_paths, config: RecalConfig,
     writable (outputs concatenated in input order).  Plain or ``.gz`` on
     both sides.  device=None means the CUDA device (raises without one).
     `timings`, when given, also gets ``read`` and ``write`` (host IO, s).
+
+    report_out: also write the computed covariates as a GATKReport.
+    apply_report: SKIP passes 1-3 and recalibrate from a previously
+    written report instead (ApplyBQSR-equivalent; read groups match by
+    input path, so pass the same inputs in the same order).
     """
     import time
 
@@ -157,7 +205,9 @@ def recalibrate_fastq(in_paths, out_paths, config: RecalConfig,
     t0 = time.time()
     fqs, mask_l, arrays = _load_fastq_arrays(in_paths, interleaved)
     t1 = time.time()
-    new_quals = run_pipeline(arrays, config, device=dev, timings=timings)
+    new_quals = _run_or_apply(arrays, config, [str(p) for p in in_paths],
+                              report_out, apply_report, device=dev,
+                              timings=timings)
     t2 = time.time()
     _write_fastq_outputs(fqs, mask_l, new_quals, out_paths)
     if timings is not None:

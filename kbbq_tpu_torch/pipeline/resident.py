@@ -12,8 +12,9 @@ bit.
 
   pass 1  hash cache and filter A = OR of the sampled windows' words, one
           launch (kernel bloom_or_words, fused entry point)
-  pass 2  cached word test against A (kernel bloom_probe), coverage rule,
-          filter B = OR of the trusted windows' words (bloom_or_words)
+  pass 2  cached word test against A and the coverage rule in one launch
+          (kernel bloom_probe, fused entry point), filter B = OR of the
+          trusted windows' words (bloom_or_words)
   pass 3  initial trust = cached word test against B (bloom_probe), the
           correction walk (kernel walk_errors), covariate histogram on the
           device
@@ -35,7 +36,7 @@ from ..ops.covariate import accumulate_covariates, new_covariate_state
 from ..ops.hash_cache import hash_cache_build
 from ..ops.inference import infer_errors
 from ..ops.recal import apply_recal_table
-from ..ops.trusted import trusted_mask_batch
+from ..ops.trusted import trusted_from_cache
 from ..oracle.bloom import check_layout_capacity
 from ..oracle.covariate import CovariateTables
 from ..oracle.gatk import build_recal_table
@@ -45,6 +46,35 @@ from ..oracle.pipeline import bloom_params_for
 
 # rows per chunk of passes 2-4
 DEFAULT_CHUNK_ROWS = 65536
+
+
+def arrays_to_device(arrays: ReadArrays, dev):
+    """(codes, quals, mask, rgs, seconds) of `arrays` as tensors on `dev`,
+    everything past a read's end set to code 4."""
+    mask = torch.from_numpy(np.ascontiguousarray(arrays.mask)).to(dev)
+    codes = torch.from_numpy(np.ascontiguousarray(arrays.codes)).to(dev)
+    # everything past a read's end is code 4, whatever the caller left there
+    codes = torch.where(mask, codes, torch.full_like(codes, 4))
+    quals = torch.from_numpy(np.ascontiguousarray(arrays.quals)).to(dev)
+    rgs = torch.from_numpy(
+        np.ascontiguousarray(arrays.rgs, dtype=np.int64)).to(dev)
+    seconds = torch.from_numpy(
+        np.ascontiguousarray(arrays.seconds, dtype=bool)).to(dev)
+    return codes, quals, mask, rgs, seconds
+
+
+def apply_table_on_device(recal_host: np.ndarray, codes, quals, mask, rgs,
+                          seconds, rows: int) -> np.ndarray:
+    """Pass 4: one flat gather per base from the Q' table, `rows` rows at a
+    time -> new quals int8 [N, L] on the host."""
+    N, L = codes.shape
+    recal = torch.from_numpy(recal_host).to(codes.device)
+    out = torch.empty((N, L), dtype=torch.int8, device=codes.device)
+    for s in range(0, N, rows):
+        e = min(N, s + rows)
+        out[s:e] = apply_recal_table(recal, codes[s:e], quals[s:e],
+                                     mask[s:e], rgs[s:e], seconds[s:e])
+    return out.cpu().numpy()
 
 
 def recalibrate_arrays_resident(arrays: ReadArrays, config,
@@ -57,18 +87,25 @@ def recalibrate_arrays_resident(arrays: ReadArrays, config,
     device=None means the CUDA device (raises without one); the CPU is used
     only for device="cpu".  If `timings` is given, per-stage wall times (s)
     are recorded into it (setup, h2d, pass1, pass2, pass3, deltas, pass4),
-    each closed by a device synchronise; without it nothing synchronises
-    but the transfers back to the host.  `chunk_rows` (default
-    DEFAULT_CHUNK_ROWS) is the number of rows per chunk; the result does not
-    depend on it, and ``config.batch_size`` is not read here.
+    each closed by a device synchronise, and on a CUDA device beside each
+    the peak of allocated device memory while it ran
+    (``<stage>_peak_bytes``); without it nothing synchronises but the
+    transfers back to the host.  `chunk_rows` (default DEFAULT_CHUNK_ROWS)
+    is the number of rows per chunk; the result does not depend on it, and
+    ``config.batch_size`` is not read here.
     """
     dev = resolve_device(device)
     t_last = [time.time()]
+    if timings is not None and dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
 
     def _mark(name):
         if timings is not None:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+                timings[name + "_peak_bytes"] = \
+                    torch.cuda.max_memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
             now = time.time()
             timings[name] = round(now - t_last[0], 3)
             t_last[0] = now
@@ -93,16 +130,8 @@ def recalibrate_arrays_resident(arrays: ReadArrays, config,
     la, lb = params_a.log2_m, params_b.log2_m
     _mark("setup")
 
-    mask = torch.from_numpy(np.ascontiguousarray(arrays.mask)).to(dev)
-    codes = torch.from_numpy(np.ascontiguousarray(arrays.codes)).to(dev)
-    # everything past a read's end is code 4, whatever the caller left there
-    codes = torch.where(mask, codes, torch.full_like(codes, 4))
-    quals = torch.from_numpy(np.ascontiguousarray(arrays.quals)).to(dev)
-    rgs = torch.from_numpy(
-        np.ascontiguousarray(arrays.rgs, dtype=np.int64)).to(dev)
-    seconds = torch.from_numpy(
-        np.ascontiguousarray(arrays.seconds, dtype=bool)).to(dev)
-    t_table = torch.from_numpy(t_host).to(dev)
+    codes, quals, mask, rgs, seconds = arrays_to_device(arrays, dev)
+    t_table = torch.from_numpy(t_host.astype(np.int32)).to(dev)
     _mark("h2d")
 
     chunks = [(s, min(N, s + rows)) for s in range(0, N, rows)]
@@ -113,11 +142,8 @@ def recalibrate_arrays_resident(arrays: ReadArrays, config,
     _mark("pass1")
 
     # ---- pass 2: trusted windows (written over the keep plane) + filter B
-    hits = bloom_query_words(filt_a, h1, word)
-    for s, e in chunks:
-        flag[s:e] = trusted_mask_batch(hits[s:e], word[s:e] != 0, t_table,
-                                       k, config.trust_threshold)
-    del hits
+    trusted_from_cache(filt_a, h1, word, t_table, k, config.trust_threshold,
+                       out=flag)
     filt_b = bloom_build_words(h1, word, flag, lb)
     del filt_a
     _mark("pass2")
@@ -140,11 +166,7 @@ def recalibrate_arrays_resident(arrays: ReadArrays, config,
     _mark("deltas")
 
     # ---- pass 4: gather
-    recal = torch.from_numpy(recal_host).to(dev)
-    out = torch.empty((N, L), dtype=torch.int8, device=dev)
-    for s, e in chunks:
-        out[s:e] = apply_recal_table(recal, codes[s:e], quals[s:e],
-                                     mask[s:e], rgs[s:e], seconds[s:e])
-    res = out.cpu().numpy()
+    res = apply_table_on_device(recal_host, codes, quals, mask, rgs, seconds,
+                                rows)
     _mark("pass4")
     return res

@@ -158,6 +158,6 @@ def test_fused_kernel_wrapper_takes_cuda_tensors_only():
         kernels.bloom_or_words(packed, packed[:4], packed[:4],
                                torch.ones(4, dtype=torch.bool))
     assert set(kernels.ENTRY_LAUNCHES) == {
-        "bloom_probe_hashed", "bloom_probe_words", "bloom_or_words",
-        "hash_build", "walk_errors"}
+        "bloom_probe_hashed", "bloom_probe_words", "bloom_probe_trust",
+        "bloom_or_words", "hash_build", "walk_errors"}
     assert not any(kernels.LAUNCHES.values())

@@ -21,13 +21,19 @@ def test_port_runs_without_jax_or_kbbq_tpu(tmp_path):
     prog = f"""
 import sys
 import kbbq_tpu_torch
-from kbbq_tpu_torch import io, kernels, ops, oracle, pipeline, state
+from kbbq_tpu_torch import (gatk_report, io, kernels, ops, oracle, pipeline,
+                            state)
+from kbbq_tpu_torch.ops import hash_cache, trusted
 from kbbq_tpu_torch.utils import synth
 from kbbq_tpu_torch.pipeline import RecalConfig, recalibrate_fastq
-info = recalibrate_fastq({os.path.join(REPO, 'tests', 'data', 'tiny.fq')!r},
-                         {str(tmp_path / 'out.fq')!r},
-                         RecalConfig(k=16, coverage=18.0, batch_size=64),
-                         device="cpu")
+from kbbq_tpu_torch.pipeline.recalibrate import apply_table_arrays
+cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
+src = {os.path.join(REPO, 'tests', 'data', 'tiny.fq')!r}
+recalibrate_fastq(src, {str(tmp_path / 'direct.fq')!r}, cfg, device="cpu",
+                  report_out={str(tmp_path / 'recal.report')!r})
+info = recalibrate_fastq(src, {str(tmp_path / 'out.fq')!r}, cfg,
+                         device="cpu",
+                         apply_report={str(tmp_path / 'recal.report')!r})
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "kbbq_tpu" or m.startswith("kbbq_tpu."))
@@ -43,6 +49,7 @@ print("BAD", bad)
     want = open(os.path.join(REPO, "tests", "data",
                              "tiny.recal.golden.fq"), "rb").read()
     assert (tmp_path / "out.fq").read_bytes() == want
+    assert (tmp_path / "direct.fq").read_bytes() == want
 
 
 def _port_sources():
@@ -109,6 +116,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         kernels.bloom_probe_words(packed, x, x)
     with pytest.raises(ValueError):
+        kernels.bloom_probe_trust(packed, x.reshape(2, 4), x.reshape(2, 4),
+                                  torch.ones(17, dtype=torch.int32), 16, 16)
+    with pytest.raises(ValueError):
         kernels.bloom_or_words(packed, x, x, keep)
     with pytest.raises(ValueError):
         kernels.walk_errors(torch.zeros((2, 40), dtype=torch.int8),
@@ -123,13 +133,19 @@ def test_kernel_source_holds_the_three_kernels_and_their_notes():
     from kbbq_tpu_torch import kernels
     src = open(kernels.SOURCE).read()
     for name in ("bloom_probe_hashed_kernel", "bloom_probe_words_kernel",
-                 "bloom_or_words_kernel", "walk_errors_kernel"):
+                 "bloom_probe_trust_kernel", "bloom_or_words_kernel",
+                 "hash_build_kernel", "walk_errors_kernel"):
         assert f"__global__ void {name}(" in src
     for fn in ("kbbq_bloom_probe_hashed", "kbbq_bloom_probe_words",
-               "kbbq_bloom_or_words", "kbbq_walk_errors"):
+               "kbbq_bloom_probe_trust", "kbbq_bloom_or_words",
+               "kbbq_hash_build", "kbbq_walk_errors"):
         assert re.search(rf"\bint {fn}\(", src)
     assert src.count("// Replaces:") == 3 and src.count("// Bound by:") == 3
     assert "torch/extension.h" not in src
+    # the probe states its cache policy: streamed loads and stores for the
+    # inputs and the output, an evict-last L2 hint for the filter word
+    for word in ("__ldcs", "__stcs", "L2::evict_last", "L2::cache_hint"):
+        assert word in src
     assert "arch=compute_90a,code=sm_90a" in " ".join(kernels.NVCC_FLAGS)
     assert os.path.relpath(kernels.BUILD_DIR, REPO) == os.path.join(
         "kbbq_tpu_torch", "build")

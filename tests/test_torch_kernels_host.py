@@ -6,7 +6,8 @@ CUDA library, so a host C++ compiler can build them against the stand-in
 __syncthreads and the warp functions).  The tests load that library with the
 port's own ctypes binding, hand it CPU tensors, and hold every entry point
 against its plain PyTorch version: tiles, ragged last tiles, base pointers
-that are not 16-byte aligned, k = 32 and k < 17, reads with N.  They say
+that are not 16-byte aligned, k = 32 and k < 17, reads with N, the fused
+trust probe with T < k and tiles that had to be halved.  They say
 nothing about the card (chip_smoke.py does) and skip where there is no g++.
 Tolerance: exact equality.
 """
@@ -158,6 +159,113 @@ def test_bloom_or_words_logic_matches_plain(lib, n):
     assert hits[keep].all()
 
 
+PROBE_CASES = [(n, off) for n in (1, 3, 255, 4097) for off in (0, 1, 2, 3)]
+
+
+@pytest.mark.parametrize("hashed", [False, True], ids=["words", "hashed"])
+@pytest.mark.parametrize("n,off", PROBE_CASES,
+                         ids=lambda v: str(v))
+def test_bloom_probe_logic_matches_plain(lib, hashed, n, off):
+    """Both probe entry points at sizes around the groups of 4 windows, from
+    base pointers 0-3 elements into their tensors (inputs 0, 4, 8, 12 and the
+    output 0-3 bytes past a 16-byte boundary), with invalid windows (word
+    0) among the cached pairs."""
+    rng = np.random.default_rng(n * 4 + off)
+    a = torch.from_numpy(rng.integers(-2**31, 2**31, n + off).astype(np.int32))
+    b = torch.from_numpy(rng.integers(-2**31, 2**31, n + off).astype(np.int32))
+    if not hashed:
+        b[rng.random(n + off) < 0.2] = 0
+    packed = torch.from_numpy(
+        (rng.integers(-2**31, 2**31, 1 << 6)
+         | rng.integers(-2**31, 2**31, 1 << 6)).astype(np.int32))
+    out = torch.full((n + off,), 7, dtype=torch.uint8)
+    a_, b_, o_ = a[off:], b[off:], out[off:]
+    if hashed:
+        rc = lib.kbbq_bloom_probe_hashed(packed.data_ptr(), 63, a_.data_ptr(),
+                                         b_.data_ptr(), o_.data_ptr(), n, 3,
+                                         None)
+        want = tbloom.bloom_query_rows_plain(packed, a_, b_, 3)
+    else:
+        rc = lib.kbbq_bloom_probe_words(packed.data_ptr(), 63, a_.data_ptr(),
+                                        b_.data_ptr(), o_.data_ptr(), n, None)
+        want = tbloom.bloom_query_words_plain(packed, a_, b_)
+    assert rc == 0
+    assert torch.equal(o_, want.to(torch.uint8))
+    assert 0 < int(want.sum()) < n or n < 4
+    assert (out[:off] == 7).all()           # nothing written before the base
+
+
+def test_bloom_probe_incongruent_pointers_take_the_narrow_paths(lib):
+    """h1 and word at different offsets modulo 16 (every window scalar), and
+    an output that does not follow them modulo 4 (wide loads, byte
+    stores)."""
+    rng = np.random.default_rng(5)
+    n = 1001
+    a = torch.from_numpy(rng.integers(-2**31, 2**31, n + 3).astype(np.int32))
+    b = torch.from_numpy(rng.integers(1, 2**31, n + 3).astype(np.int32))
+    packed = torch.from_numpy(rng.integers(-2**31, 2**31, 64).astype(np.int32))
+    for oa, ob, oo in ((1, 2, 0), (0, 0, 1), (3, 3, 2)):
+        out = torch.full((n + 3,), 7, dtype=torch.uint8)
+        a_, b_, o_ = a[oa:oa + n], b[ob:ob + n], out[oo:oo + n]
+        assert lib.kbbq_bloom_probe_words(
+            packed.data_ptr(), 63, a_.data_ptr(), b_.data_ptr(),
+            o_.data_ptr(), n, None) == 0
+        want = tbloom.bloom_query_words_plain(packed, a_, b_)
+        assert torch.equal(o_, want.to(torch.uint8))
+        assert (out[oo + n:] == 7).all() and (out[:oo] == 7).all()
+
+
+TRUST_CASES = [
+    # N, L, k, T (None: k), tile_rows, threads, row offset of the base
+    # pointers, share of the error-free reads' windows that filter A holds
+    (70, 36, 8, None, 32, 128, 0, 0.5),       # narrow: k = 8, L = 36
+    (70, 36, 8, 5, 32, 128, 1, 0.5),          # T < k
+    (40, 150, 32, None, 32, 256, 0, 0.4),     # k = 32, L = 150
+    (41, 150, 32, 20, 8, 64, 1, 0.4),         # a halved tile, ragged, T < k
+    (33, 60, 17, None, 5, 32, 3, 0.6),
+    (20, 90, 31, 31, 1, 32, 2, 0.5),          # a read a block
+    (9, 32, 32, None, 32, 64, 0, 0.7),        # n = 1
+    (12, 300, 16, 12, 4, 96, 1, 0.4),         # n > 256: the masks' loop
+    (25, 40, 1, None, 32, 128, 0, 0.5),       # k = 1
+    (6, 20, 32, None, 32, 128, 0, 0.5),       # L < k: no launch
+]
+
+
+@pytest.mark.parametrize(
+    "case", TRUST_CASES,
+    ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}T{c[3]}r{c[4]}t{c[5]}")
+def test_bloom_probe_trust_logic_matches_plain(lib, case):
+    from kbbq_tpu_torch.ops.trusted import trusted_from_cache_plain
+    from kbbq_tpu_torch.oracle import coverage_thresholds
+    N, L, k, T, rows, threads, off, cover = case
+    rng = np.random.default_rng(N + L + k)
+    clean, codes = _reads(rng, N + off, L, n_rate=0.02)
+    ids = torch.arange(N + off, dtype=torch.int64)
+    h1, word, _ = hash_cache_chunk(torch.from_numpy(clean), ids, k, 7, 0)
+    held = (word != 0) & torch.from_numpy(
+        rng.random(tuple(word.shape)) < cover)
+    filt = tbloom.bloom_build_words_plain(h1, word, held, 16)
+    h1, word, _ = hash_cache_chunk(torch.from_numpy(codes), ids, k, 7, 0)
+    n = max(L - k + 1, 0)
+    h1, word = h1[off:], word[off:]
+    # the rule's table, capped at x so that short overlaps can be covered
+    # too (n = 1 and k = 1 would else trust nothing)
+    t = torch.minimum(torch.from_numpy(coverage_thresholds(0.2, k)),
+                      torch.arange(k + 1).clamp(min=1)).to(torch.int32)
+    out = torch.full((N, n), 7, dtype=torch.uint8)
+    rc = lib.kbbq_bloom_probe_trust(
+        filt.data_ptr(), filt.numel() - 1, h1.data_ptr(), word.data_ptr(),
+        t.data_ptr(), out.data_ptr(), N, n, k, k if T is None else T, rows,
+        threads, None)
+    assert rc == 0
+    if n == 0:
+        return
+    want = trusted_from_cache_plain(filt, h1, word, t, k, T)
+    assert torch.equal(out, want.to(torch.uint8))
+    if N > 8:
+        assert 0 < int(want.sum()) < want.numel()
+
+
 WALK_CASES = [
     # N, L, k, W, tile_rows, threads, row offset, error rate, share of the
     # error-free reads' windows that the filter holds
@@ -273,3 +381,18 @@ def test_tiles_that_do_not_fit_are_refused(lib):
     assert kernels._fit_tile_rows(lib.kbbq_hash_tile_bytes, 150, 32, 32) == 32
     with pytest.raises(ValueError):
         kernels._fit_tile_rows(lib.kbbq_walk_tile_bytes, 400_000, 32, 32)
+    # the fused trust probe: 32 reads of 150 bases fit, 1024 do not and are
+    # refused; the wrapper's choice halves them until they fit
+    def trust_bytes(L, k, rows):
+        return lib.kbbq_trust_tile_bytes(L, k, rows, kernels.TRUST_THREADS)
+    assert trust_bytes(150, 32, kernels.TRUST_TILE_ROWS) < 48 * 1024
+    assert lib.kbbq_bloom_probe_trust(
+        z.data_ptr(), 15, z.data_ptr(), z.data_ptr(), z.data_ptr(),
+        z.data_ptr(), 1024, 119, 32, 32, 1024, 256, None) != 0
+    assert lib.kbbq_bloom_probe_trust(
+        z.data_ptr(), 15, z.data_ptr(), z.data_ptr(), z.data_ptr(),
+        z.data_ptr(), 4, 119, 33, 33, 4, 256, None) != 0     # k > 32
+    rows = kernels._fit_tile_rows(trust_bytes, 150, 32, 1024)
+    assert trust_bytes(150, 32, rows) <= kernels.MAX_SHARED_BYTES \
+        < trust_bytes(150, 32, 2 * rows)
+    assert kernels._fit_tile_rows(trust_bytes, 10_000, 32, 32) < 32
