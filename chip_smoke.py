@@ -4,17 +4,25 @@
     python3 chip_smoke.py            # full size, needs one CUDA card and nvcc
     python3 chip_smoke.py --reads N  # a smaller main-path dataset (debugging)
 
-Builds the CUDA kernels from kbbq_tpu_torch/csrc, holds each against its
-plain PyTorch version on the card at the shapes the main path gives it, runs
+Builds the CUDA kernels and the host IO codec from kbbq_tpu_torch/csrc (one
+nvcc and one g++, started together), holds each kernel entry point against
+its plain PyTorch version on the card at the shapes its path gives it, runs
 the two golden checks and the report round trip (``report_out`` then
-``apply_report``) on the card, then drives the port's main path
-(FASTQ -> FASTQ through ``recalibrate_fastq``) at the size of BASELINE.json
-config 2: E. coli-like 4.6 Mb genome, 2x150 bp, ~50x, 1,533,333 reads made
-from a seed.  Any failed phase raises, so the exit code is non-zero; without
-a CUDA device the script exits 1 at once and prints no result.
+``apply_report``) on the card, then drives the port's two FASTQ paths at the
+size of BASELINE.json config 2 (E. coli-like 4.6 Mb genome, 2x150 bp, ~50x,
+1,533,333 reads made from a seed): the resident main path
+(``recalibrate_fastq``) and the streamed path
+(``recalibrate_fastq_streaming``, 12 windows), whose bytes must be equal, with
+the launches of each asserted by entry point.  Beside them: the native FASTQ
+codec against its NumPy versions on the same file, and the checkpoints
+(resume after pass 3 and inside pass 4, in memory, the fingerprint guard) on
+the midscale golden.  Any failed phase raises, so the exit code is non-zero;
+without a CUDA device the script exits 1 at once and prints no result.
 
 Output, last three lines: a JSON object {"kernels": [...]} (one entry per
-kernel entry point: launches on the main path, mismatches against the plain
+kernel entry point: launches on its path (``launches``: the resident main
+path's count, the streamed path's for the hash-only entry, whose only path
+it is; ``launches_streamed`` beside it in every entry), mismatches against the plain
 version, times in ms, the roofline bound; the probe's entries also
 "bound_l2_ms", the time its sector traffic took in this run when every
 filter read hit in L2, and the cached word test "ms_by_log2_m", its time
@@ -39,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -63,6 +72,9 @@ TWO_SIDED_LAUNCHES = 20
 # the fused trust probe on narrow reads: (read length, k, trust threshold)
 NARROW_TRUST_SHAPES = [(36, 8, None), (36, 8, 5), (44, 16, 9)]
 KERNEL_SOURCE = "kbbq_tpu_torch/csrc/kbbq_kernels.cu"
+CODEC_SOURCE = "kbbq_tpu_torch/csrc/kbbq_io.cc"
+STREAM_WINDOW = 131_072      # reads per window of the streamed path
+CKPT_CHUNK = 4096            # reads per chunk of the checkpoint runs
 DEVICE = "cuda"
 
 
@@ -126,6 +138,7 @@ def mismatches(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def phase_device():
     from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.io import native_lib
     log(f"[device] {smi_line()}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -133,10 +146,19 @@ def phase_device():
                           capture_output=True, text=True).stdout
     log("[device] nvcc " + " ".join(
         ln.strip() for ln in nvcc.splitlines() if "release" in ln))
-    # always from the sources of this checkout
+    gxx = subprocess.run([native_lib.CXX, "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    zlib_h = subprocess.run([native_lib.CXX, "-E", "-x", "c++", "-"],
+                            input="#include <zlib.h>\n", capture_output=True,
+                            text=True).returncode == 0
+    log(f"[device] {gxx}; zlib.h {'found' if zlib_h else 'MISSING'}")
+    # always from the sources of this checkout: both builds at once
     shutil.rmtree(kernels.BUILD_DIR, ignore_errors=True)
-    kernels.library()
-    log(f"[device] built {KERNEL_SOURCE} in {kernels.build_seconds:.1f} s")
+    with ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(kernels.library), ex.submit(native_lib.library)]:
+            f.result()
+    log(f"[device] built {KERNEL_SOURCE} in {kernels.build_seconds:.1f} s "
+        f"and {CODEC_SOURCE} in {native_lib.build_seconds:.1f} s, together")
     for line in kernels.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log("[device]   " + line.strip())
@@ -212,7 +234,8 @@ def phase_kernels(arrays, cfg):
     counts) and those qualities, int8 [N, L] on the host."""
     from kbbq_tpu_torch.ops import bloom as tb
     from kbbq_tpu_torch.ops.hash_cache import (hash_cache_build,
-                                               hash_cache_chunk)
+                                               hash_cache_chunk,
+                                               hash_windows_plain)
     from kbbq_tpu_torch.ops.inference import infer_errors, infer_errors_plain
     from kbbq_tpu_torch.ops.kmers import canonical_kmers_batch, u32_to_wide
     from kbbq_tpu_torch.ops.trusted import (trusted_from_cache,
@@ -286,7 +309,38 @@ def phase_kernels(arrays, cfg):
     log(f"[kernels] bloom_or_words fused (hash cache + filter A): mismatches "
         f"{mm_f} over {nwin} windows / {filt_a.numel()} words, {kept_a} "
         f"windows kept")
-    del p1, pw, pk, plain_a
+    # ---- the fused entry point's hash-only mode (passes 2 and 3 of the
+    # streamed path) on every read, against the plain hash pass
+    ho_h1, ho_word = kernels.hash_only(codes, k, h)
+    torch.cuda.synchronize()
+    mm_ho = mismatches(ho_h1, p1) + mismatches(ho_word, pw)
+    del ho_h1, ho_word, p1, pw, pk, plain_a
+    # timed at the streamed path's shape: one window of STREAM_WINDOW reads
+    wr_s = min(STREAM_WINDOW, N)
+    cw = codes[:wr_s]
+    ho_ms = cuda_ms(lambda: kernels.hash_only(cw, k, h))
+    ho_graph_ms = cuda_graph_ms(lambda: kernels.hash_only(cw, k, h),
+                                launches=5)
+    hash_windows_plain(cw, k, h)                    # warm the allocator
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hash_windows_plain(cw, k, h)
+    torch.cuda.synchronize()
+    ho_plain_ms = (time.time() - t0) * 1e3
+    nwin_s = wr_s * n
+    log(f"[kernels] hash-only mode: {mm_ho} mismatches over {nwin} windows "
+        f"(h1 and word against the plain hash pass); one window of {wr_s} "
+        f"reads {ho_ms:.4f} ms ({ho_graph_ms:.4f} from a graph)")
+    # ~140 integer operations per window: the fused build's less the
+    # sampling hash; bytes: 1 B per base read, 8 B per window written
+    record("bloom_or_words.hash_only", "hash_only",
+           "kbbq_tpu/pipeline/stream_resident.py:108 + "
+           "kbbq_tpu/pipeline/recalibrate.py:95",
+           mm_ho, ho_ms, ho_plain_ms,
+           bound(wr_s * L + nwin_s * 8, nwin_s * 140), n=nwin_s,
+           graph_ms=ho_graph_ms, windows_checked=nwin, path="streamed",
+           replaces_note="the XLA hash pass inside _p2_window and "
+                         "_step_trusted; no Pallas counterpart")
     scratch = torch.empty_like(filt_a)
     fused_ms = cuda_ms(
         lambda: kernels.hash_build(codes, scratch, 0, k, h, thr),
@@ -542,7 +596,8 @@ def phase_kernels(arrays, cfg):
     if bad:
         raise AssertionError(f"kernels disagree with plain versions: {bad}")
     order = ["bloom_probe", "bloom_probe.hashed", "bloom_probe.trust",
-             "walk_errors", "bloom_or_words", "bloom_or_words.hash_build"]
+             "walk_errors", "bloom_or_words", "bloom_or_words.hash_build",
+             "bloom_or_words.hash_only"]
     records.sort(key=lambda r: order.index(r["name"]))
     for r in records:
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms, plain "
@@ -662,7 +717,7 @@ def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
     chunks = -(-info["num_reads"] // DEFAULT_CHUNK_ROWS)
     want = {"bloom_probe_trust": 1, "bloom_probe_words": 1,
             "bloom_probe_hashed": 0, "hash_build": 1, "bloom_or_words": 1,
-            "walk_errors": chunks}
+            "hash_only": 0, "walk_errors": chunks}
     if by_entry != want or launches != {
             "bloom_probe": 2, "bloom_or_words": 2, "walk_errors": chunks}:
         raise AssertionError(f"main path launched {by_entry} ({launches}), "
@@ -707,6 +762,7 @@ def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
     with open(out1, "rb") as f, open(out2, "rb") as g:
         if f.read() != g.read():
             raise AssertionError("second run gave other bytes")
+    os.remove(out2)
 
     result = {"reads": info["num_reads"], "bases": info["total_bases"],
               "wall_s": wall, "reads_per_s": info["num_reads"] / wall,
@@ -719,7 +775,217 @@ def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
               "quals_differing_from_plain_pipeline": diff,
               "deterministic": True, "card": smi_line()}
     log("[main_path] " + json.dumps(result))
+    return by_entry, src, out1
+
+
+def phase_native_io(src, new_quals):
+    """The native FASTQ codec against its NumPy versions on the main path's
+    file: record scan + padded decode, and the quality write-back of the
+    qualities the main path wrote; then BGZF of the rendered file (native,
+    threaded) against the plain block-by-block deflate on its first 512
+    blocks, and back."""
+    from kbbq_tpu_torch.io import bgzf
+    from kbbq_tpu_torch.io import fastq as tfq
+
+    with open(src, "rb") as f:
+        data = f.read()
+    secs = {}
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        secs[name] = time.time() - t0
+        return out
+
+    fq = timed("parse_native", tfq.parse_fastq_bytes, data)
+    arrs = timed("extract_native", tfq.extract_padded_arrays, fq)
+    fqp = timed("parse_plain", tfq.parse_fastq_bytes_plain, data)
+    arrp = timed("extract_plain", tfq.extract_padded_arrays_plain, fqp)
+    for name in ("buf", "name_starts", "name_ends", "seq_starts",
+                 "seq_ends", "qual_starts", "qual_ends"):
+        if not np.array_equal(getattr(fq, name), getattr(fqp, name)):
+            raise AssertionError(f"native record scan differs: {name}")
+    for a, b, name in zip(arrs, arrp, ("codes", "quals", "mask", "lens")):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"native decode differs: {name}")
+    del arrp
+    out = timed("render_native", tfq.render_fastq_with_quals, fq, new_quals,
+                arrs[2])
+    outp = timed("render_plain", tfq.render_fastq_with_quals_plain, fqp,
+                 new_quals, arrs[2])
+    if out != outp:
+        raise AssertionError("native quality write-back differs")
+    del outp, fqp, arrs
+    gz = timed("bgzf_native", bgzf.compress, out)
+    head = out[:512 * bgzf.BLOCK_SIZE]
+    gz_head = timed("bgzf_plain_512_blocks", bgzf._compress_py, head)
+    if bgzf.compress(head) != gz_head or not gz.startswith(gz_head[:-28]):
+        raise AssertionError("native BGZF differs from the plain deflate")
+    if timed("unbgzf_native", bgzf.decompress, gz) != out:
+        raise AssertionError("BGZF round trip lost bytes")
+    log(f"[native_io] {fq.num_reads} reads, {len(data)} bytes: native scan "
+        f"+ decode and write-back equal the NumPy versions byte for byte; "
+        f"BGZF {len(gz)} bytes at level 2, its first 512 blocks equal the "
+        f"plain deflate's; seconds " + json.dumps(
+            {k: round(v, 3) for k, v in secs.items()}))
+    log(f"[native_io] {smi_line()}")
+    return secs
+
+
+def phase_streaming(tmp, src, out1, cfg, reads):
+    """The streamed path at full size with the default window: its bytes
+    are the resident main path's, launches asserted by entry point; then
+    once more with no device window cache and windows of 100,003 reads."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.pipeline import recalibrate_fastq_streaming
+    from kbbq_tpu_torch.pipeline.resident import DEFAULT_CHUNK_ROWS
+
+    with open(out1, "rb") as f:
+        want = f.read()
+    out_s = os.path.join(tmp, "streamed.fq")
+    timings: dict = {}
+    kernels.reset_launches()
+    t0 = time.time()
+    info = recalibrate_fastq_streaming(src, out_s, cfg, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    by_entry = dict(kernels.ENTRY_LAUNCHES)
+    peaks = {name[:-len("_peak_bytes")]: timings.pop(name)
+             for name in sorted(timings) if name.endswith("_peak_bytes")}
+    sizes = [min(STREAM_WINDOW, reads - s)
+             for s in range(0, reads, STREAM_WINDOW)]
+    W = len(sizes)
+    walks = sum(-(-n // DEFAULT_CHUNK_ROWS) for n in sizes)
+    want_launch = {"hash_build": W, "hash_only": 2 * W,
+                   "bloom_probe_trust": W, "bloom_or_words": W,
+                   "bloom_probe_words": W, "walk_errors": walks,
+                   "bloom_probe_hashed": 0}
+    if by_entry != want_launch or info["chunks"] != W:
+        raise AssertionError(f"streamed path launched {by_entry} over "
+                             f"{info['chunks']} windows, expected "
+                             f"{want_launch}")
+    with open(out_s, "rb") as f:
+        if f.read() != want:
+            raise AssertionError("streamed output differs from the resident "
+                                 "main path's")
+    os.remove(out_s)
+    log(f"[streaming] {reads} reads in {W} windows ({sizes[0]} .. "
+        f"{sizes[-1]} reads), output equal to the main path's byte for "
+        f"byte; launches by entry {json.dumps(by_entry)}")
+    log("[streaming] seconds by stage: " + json.dumps(timings))
+    log("[streaming] peak device bytes by stage: " + json.dumps(peaks))
+
+    # no device window cache, windows of 100,003 reads: every pass stages
+    # its windows anew from the host cache
+    out_n = os.path.join(tmp, "streamed_nocache.fq")
+    t_n: dict = {}
+    t1 = time.time()
+    recalibrate_fastq_streaming(src, out_n, cfg, chunk_reads=100_003,
+                                device_cache_bytes=0, timings=t_n)
+    torch.cuda.synchronize()
+    wall_n = time.time() - t1
+    with open(out_n, "rb") as f:
+        if f.read() != want:
+            raise AssertionError("streamed output (no window cache, 100,003 "
+                                 "reads a window) differs from the main "
+                                 "path's")
+    os.remove(out_n)
+    t_n = {k: v for k, v in t_n.items() if not k.endswith("_peak_bytes")}
+    log(f"[streaming] device window cache off, windows of 100003 reads, all "
+        f"{reads} reads: equal bytes; seconds by stage " + json.dumps(t_n))
+    result = {"reads": reads, "windows": W, "wall_s": wall,
+              "reads_per_s": reads / wall, "timings": timings,
+              "peak_device_bytes": peaks, "launches_by_entry": by_entry,
+              "nocache_wall_s": wall_n, "card": smi_line()}
+    log("[streaming] " + json.dumps(result))
     return by_entry
+
+
+def phase_checkpoint(tmp):
+    """Checkpoints on the midscale golden (20,000 reads, chunks of
+    CKPT_CHUNK): a streamed run with checkpoint_dir; a rerun from all three
+    pass artifacts that launches no kernel; a pass-4 resume from chunk 1
+    with the sink cut there; the in-memory run_pipeline with
+    checkpoint_dir.  All give the plain run's bytes; a changed k is
+    refused."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.io.batcher import ReadArrays
+    from kbbq_tpu_torch.io.stream import iter_fastq_chunks
+    from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_fastq,
+                                         recalibrate_fastq_streaming,
+                                         run_pipeline)
+    from kbbq_tpu_torch.utils.synth import to_fastq_bytes
+
+    ds, k, cov, golden = midscale_dataset()
+    src = os.path.join(tmp, "ck_in.fq")
+    with open(src, "wb") as f:
+        f.write(to_fastq_bytes(ds))
+    cfg = RecalConfig(k=k, coverage=cov)
+    plain, out = (os.path.join(tmp, n) for n in ("ck_plain.fq", "ck.fq"))
+    ck = os.path.join(tmp, "ck")
+    recalibrate_fastq(src, plain, cfg)
+    with open(plain, "rb") as f:
+        want = f.read()
+
+    def run_streamed(**kw):
+        recalibrate_fastq_streaming(src, out, cfg, chunk_reads=CKPT_CHUNK,
+                                    checkpoint_dir=ck, **kw)
+        torch.cuda.synchronize()
+        with open(out, "rb") as f:
+            return f.read() == want
+
+    def meta(update=None):
+        path = os.path.join(ck, "meta.json")
+        with open(path) as f:
+            m = json.load(f)
+        if update is not None:
+            update(m)
+            with open(path, "w") as f:
+                json.dump(m, f)
+        return m
+
+    ok = {"streamed": run_streamed()}
+    done = meta()["passes_done"]
+    chunks = meta()["pass4"]["chunks"]
+    # a rerun with passes 1-3 on disk and pass 4 to write from chunk 0
+    meta(lambda m: m.pop("pass4"))
+    kernels.reset_launches()
+    ok["from_passes"] = run_streamed()
+    launched = dict(kernels.ENTRY_LAUNCHES)
+    # pass 4 cut after its first chunk, garbage past that point
+    n0 = next(iter_fastq_chunks(src, CKPT_CHUNK)).buf.size
+    meta(lambda m: m.update(pass4={"chunks": 1, "bytes": n0}))
+    with open(out, "ab") as f:
+        f.write(b"GARBAGE")
+    ok["pass4_resume"] = run_streamed()
+    codes = np.stack([np.asarray(c) for c in ds.codes])
+    quals = np.stack([np.asarray(q).astype(np.int8) for q in ds.quals])
+    arrays = ReadArrays(codes, quals, np.ones(codes.shape, bool),
+                        np.asarray(ds.rgs, np.int32),
+                        np.asarray(ds.seconds, bool))
+    got = run_pipeline(arrays, cfg, checkpoint_dir=os.path.join(tmp, "ck_m"))
+    again = run_pipeline(arrays, cfg,
+                         checkpoint_dir=os.path.join(tmp, "ck_m"))
+    ok["in_memory"] = bool(np.array_equal(got, golden)
+                           and np.array_equal(again, golden))
+    try:
+        recalibrate_fastq_streaming(src, out, RecalConfig(k=k - 1,
+                                                          coverage=cov),
+                                    chunk_reads=CKPT_CHUNK, checkpoint_dir=ck)
+        guard = None
+    except ValueError as e:
+        guard = str(e)
+    if not all(ok.values()) or any(launched.values()) or \
+            done != ["rows_a", "rows_b", "covariates"] or guard is None or \
+            "different parameters" not in guard:
+        raise AssertionError(f"checkpoint runs: equal bytes {ok}, passes "
+                             f"{done}, launches of the rerun {launched}, "
+                             f"guard {guard!r}")
+    log(f"[checkpoint] midscale ({len(ds.codes)} reads, {chunks} chunks of "
+        f"{CKPT_CHUNK}): streamed with checkpoint_dir, rerun from the three "
+        f"pass files (no kernel launched), pass-4 resume from chunk 1 and "
+        f"in-memory run_pipeline(checkpoint_dir=) twice all give the plain "
+        f"run's bytes ({ok}); k={k - 1} refused: {guard.split(';')[0]}")
 
 
 def main(argv=None) -> int:
@@ -759,13 +1025,20 @@ def main(argv=None) -> int:
     try:
         phase_golden(tmp)
         phase_report(tmp)
-        launches = phase_main_path(tmp, fastq_bytes, true_err, expected, cfg,
-                                   read_len)
+        launches, src, out1 = phase_main_path(tmp, fastq_bytes, true_err,
+                                              expected, cfg, read_len)
+        del fastq_bytes
+        phase_native_io(src, expected)
+        del expected
+        streamed = phase_streaming(tmp, src, out1, cfg, args.reads)
+        phase_checkpoint(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     for r in records:
-        r["launches"] = launches[r["entry"]]
+        r["launches_streamed"] = streamed[r["entry"]]
+        r["launches"] = (streamed if r.get("path") == "streamed"
+                         else launches)[r["entry"]]
     log(f"[done] {time.time() - t_start:.0f} s in all")
     print(json.dumps({"kernels": records}), flush=True)
     print(smi_line(), flush=True)

@@ -8,13 +8,17 @@ names, same output bytes, PyTorch idiom inside.  It imports ``torch``,
 
 - ``oracle``   — the host-side pieces of the NumPy spec that the device path
                  needs (filter sizing, coverage thresholds, float64 delta math).
-- ``io``       — FASTQ reader/writer (NumPy paths), ``ReadArrays``.
+- ``io``       — FASTQ reader/writer (native C++ codec ``csrc/kbbq_io.cc``,
+                 built with g++ at first use), BGZF, chunked reads,
+                 ``ReadArrays``.
 - ``ops``      — tensor functions; the Bloom probe, the Bloom build and the
                  correction walk run as hand-written CUDA kernels on CUDA
                  tensors and as plain PyTorch on CPU tensors.
 - ``kernels``  — build, ctypes binding and wrappers of ``csrc/kbbq_kernels.cu``.
-- ``state``    — conversion of the JAX package's state (as numpy arrays).
-- ``pipeline`` — resident FASTQ -> FASTQ recalibration.
+- ``state``    — conversion of the JAX package's state (as numpy arrays),
+                 pass-boundary checkpoints.
+- ``pipeline`` — FASTQ -> FASTQ recalibration: resident, and streamed
+                 through the windowed engine.
 
 Every entry point takes ``device=None``, which means ``torch.device("cuda")``
 and raises without a card; the CPU is used only for ``device="cpu"``.

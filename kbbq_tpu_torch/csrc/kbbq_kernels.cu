@@ -459,7 +459,8 @@ __global__ void bloom_probe_trust_kernel(
 // Bound by: bytes.  Cached entry point: 9 B streamed per window (h1, word,
 //   keep) plus one access to a random 4-byte filter word per KEPT window;
 //   the 32 MiB filter is L2-resident, where atomics resolve.  Fused entry
-//   point: 1 B per base in, 9 B per window out, the same filter traffic;
+//   point: 1 B per base in, 9 B per window out, the same filter traffic
+//   (hash-only mode: 1 B per base in, 8 B per window out, no filter);
 //   about 150 integer operations per window stay under that.
 // Design: OR commutes and is idempotent, so the words equal the sort build's
 //   word for word whatever the thread order.  Sequencing data repeats (every
@@ -479,6 +480,15 @@ __global__ void bloom_probe_trust_kernel(
 //   planes are collected in shared memory and stored by the whole block, so
 //   the stores of the flat [N * n] arrays coalesce; kHashSeg is odd, which
 //   keeps the threads' shared-memory words on distinct banks.
+//   Hash-only mode of the fused entry point (kbbq_hash_only: passes 2 and 3
+//   of the windowed engine, where no window's hash cache outlives its pass;
+//   it replaces the hash pass inside kbbq_tpu/pipeline/stream_resident.py::
+//   _p2_window and kbbq_tpu/pipeline/recalibrate.py::_step_trusted): the same
+//   tile and rolls, writing h1 and word only, 1 B per base in and 8 B per
+//   window out.  It reads no ordinal and touches no filter: re-running the
+//   build against filter A would set no new bit (the keep bits depend only on
+//   the global ordinals) but would still cost every sampled window its
+//   atomic.
 // ---------------------------------------------------------------------------
 
 __global__ void bloom_or_words_kernel(uint32_t* __restrict__ packed,
@@ -493,9 +503,12 @@ __global__ void bloom_or_words_kernel(uint32_t* __restrict__ packed,
     if (keep[i]) or_word<true>(packed, block_mask, h1[i], word[i]);
 }
 
-// (h1, word, keep) of windows [j0, j1) of one read, and their inserts.
+// (h1, word, keep) of windows [j0, j1) of one read, and their inserts; in
+// hash-only mode (kInsert false: passes 2 and 3 of the windowed engine) the
+// pair (h1, word) alone, with no sampling, keep plane or filter.
 // c: the read's codes [L]; oh1, oword, okeep: the read's rows of the output
 // planes [n]; rid: the 32-bit pattern of the read's global ordinal.
+template <bool kInsert>
 __device__ __forceinline__ void hash_segment(
     const int8_t* c, int j0, int j1, int k, int num_hashes, uint32_t rid,
     uint32_t threshold, uint32_t* oh1, uint32_t* oword, uint8_t* okeep,
@@ -519,12 +532,14 @@ __device__ __forceinline__ void hash_segment(
     uint32_t h1, w;
     kmer_hash((uint32_t)(cn >> 32), (uint32_t)cn, num_hashes, h1, w);
     if (!valid) w = 0u;
-    const bool kp =
-        valid && fmix32(sr ^ ((uint32_t)j * kGolden)) <= threshold;
     oh1[j] = h1;
     oword[j] = w;
-    okeep[j] = kp ? 1 : 0;
-    if (kp) or_word<false>(packed, block_mask, h1, w);
+    if (kInsert) {
+      const bool kp =
+          valid && fmix32(sr ^ ((uint32_t)j * kGolden)) <= threshold;
+      okeep[j] = kp ? 1 : 0;
+      if (kp) or_word<false>(packed, block_mask, h1, w);
+    }
   }
 }
 
@@ -534,6 +549,7 @@ __host__ __device__ inline int hash_tile_bytes(int L, int n, int rows) {
          round16(rows * n + 16);
 }
 
+template <bool kInsert>
 __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
                                   uint32_t* __restrict__ packed,
                                   uint32_t block_mask,
@@ -552,7 +568,7 @@ __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
   const int R = left < tile_rows ? (int)left : tile_rows;
 
   const uint8_t* gcodes = reinterpret_cast<const uint8_t*>(codes) + r0 * L;
-  uint8_t* gkeep = keep + r0 * n;
+  uint8_t* gkeep = kInsert ? keep + r0 * n : nullptr;
   const int plane = round16(tile_rows * n * 4);
   uint8_t* sc = smem + ((uintptr_t)gcodes & 15u);
   uint32_t* sh1 =
@@ -569,10 +585,11 @@ __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
     const int r = item / nseg;
     const int j0 = (item - r * nseg) * kHashSeg;
     const int j1 = j0 + kHashSeg < n ? j0 + kHashSeg : n;
-    hash_segment(reinterpret_cast<const int8_t*>(sc) + r * L, j0, j1, k,
-                 num_hashes, (uint32_t)(uint64_t)(first_id + r0 + r),
-                 threshold, sh1 + r * n, sword + r * n, skeep + r * n, packed,
-                 block_mask);
+    hash_segment<kInsert>(reinterpret_cast<const int8_t*>(sc) + r * L, j0,
+                          j1, k, num_hashes,
+                          (uint32_t)(uint64_t)(first_id + r0 + r), threshold,
+                          sh1 + r * n, sword + r * n, skeep + r * n, packed,
+                          block_mask);
   }
   __syncthreads();
 
@@ -582,7 +599,7 @@ __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
     gh1[i] = sh1[i];
     gword[i] = sword[i];
   }
-  tile_copy(gkeep, skeep, R * n, tid, nthreads);
+  if (kInsert) tile_copy(gkeep, skeep, R * n, tid, nthreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -997,14 +1014,34 @@ int kbbq_hash_build(const void* codes, void* packed, uint32_t block_mask,
   if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
   if (tile_rows < 1) return (int)cudaErrorInvalidValue;
   const int smem = hash_tile_bytes(L, n, tile_rows);
-  const int rc = set_smem((const void*)hash_build_kernel, smem);
+  const int rc = set_smem((const void*)hash_build_kernel<true>, smem);
   if (rc != 0) return rc;
   const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
-  hash_build_kernel<<<(unsigned)blocks, kThreads, smem,
-                      (cudaStream_t)stream>>>(
+  hash_build_kernel<true><<<(unsigned)blocks, kThreads, smem,
+                            (cudaStream_t)stream>>>(
       (const int8_t*)codes, (uint32_t*)packed, block_mask, (uint32_t*)h1,
       (uint32_t*)word, (uint8_t*)keep, num_reads, first_id, L, k, num_hashes,
       threshold, tile_rows);
+  return (int)cudaGetLastError();
+}
+
+// The hash-only mode of the fused entry point: h1, word int32
+// [num_reads, L-k+1] written in full from the codes, nothing else read or
+// written (no filter, no keep plane, no ordinal).  tile_rows: reads per block.
+int kbbq_hash_only(const void* codes, void* h1, void* word,
+                   int64_t num_reads, int L, int k, int num_hashes,
+                   int tile_rows, void* stream) {
+  const int n = L - k + 1;
+  if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (tile_rows < 1) return (int)cudaErrorInvalidValue;
+  const int smem = hash_tile_bytes(L, n, tile_rows);
+  const int rc = set_smem((const void*)hash_build_kernel<false>, smem);
+  if (rc != 0) return rc;
+  const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
+  hash_build_kernel<false><<<(unsigned)blocks, kThreads, smem,
+                             (cudaStream_t)stream>>>(
+      (const int8_t*)codes, nullptr, 0u, (uint32_t*)h1, (uint32_t*)word,
+      nullptr, num_reads, 0, L, k, num_hashes, 0u, tile_rows);
   return (int)cudaGetLastError();
 }
 

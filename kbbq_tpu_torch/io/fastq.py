@@ -1,16 +1,19 @@
-"""Vectorized FASTQ reader/writer (plain or gzip), NumPy only.
+"""FASTQ reader/writer (plain, gzip or BGZF), native C++ on the hot path.
 
-Counterpart of ``kbbq_tpu/io/fastq.py`` without its native C++ fast paths:
-the whole file is scanned with NumPy — newline offsets in a single pass,
-sequence/quality lines sliced by offset arithmetic — with no per-read
-Python loop on the hot path.  The writer exploits the invariant that ONLY
-quality strings change: output = input buffer with the quality-line byte
-ranges overwritten, so names/sequences/comments are byte-identical by
-construction.
+Counterpart of ``kbbq_tpu/io/fastq.py`` with its native fast paths: the
+record scan (``parse_fastq_bytes``), the padded-array decode
+(``extract_padded_arrays``) and the quality write-back
+(``render_fastq_with_quals``) run in the threaded host codec
+(``io/native_lib.py``, ``csrc/kbbq_io.cc``), which is built at first use and
+raises when it cannot be: nothing falls back.  Beside each is its NumPy
+version (``*_plain``: newline offsets in one pass, fields sliced by offset
+arithmetic), which the tests hold the codec against.  The writer exploits
+the invariant that ONLY quality strings change: output = input buffer with
+the quality bytes overwritten, so names/sequences/comments are
+byte-identical by construction.
 
-A ``*.gz`` output is written as one standard gzip member (mtime 0, so the
-same input gives the same bytes); the JAX package writes BGZF blocks, which
-decompress to the same FASTQ.
+A ``*.gz`` output is BGZF at deflate level 2 (``io/bgzf.py``): the JAX
+package's bytes.
 """
 
 from __future__ import annotations
@@ -23,10 +26,12 @@ import numpy as np
 
 from ..constants import PHRED_OFFSET
 from ..oracle.kmers import _ENCODE_LUT  # shared bit-exact encode LUT
+from ..utils.mem import hugepage_empty
+from . import bgzf, native_lib
 
 _NL = 10  # ord('\n')
 _ROW_CHUNK = 65536  # rows per gather/scatter step: bounds the index temporaries
-_GZIP_LEVEL = 6
+_NAME_COLS = 128    # name bytes gathered per record by seconds_mask
 
 
 @dataclasses.dataclass
@@ -70,54 +75,89 @@ class FastqData:
     def seconds_mask(self) -> np.ndarray:
         """Second-in-pair per DECISIONS.md D11: name (sans comment) ends '/2'.
 
-        Vectorized: the name's first token ends at the first whitespace
-        byte of the name line, found by one searchsorted over the
-        whitespace positions of the buffer.  Names that START with
-        whitespace (where ``bytes.split`` skips it) take the per-record
-        loop, as does nothing else.
+        Vectorized over the name lines alone, in row chunks: the first
+        ``_NAME_COLS`` bytes of every name are gathered, and the name's first
+        token ends at its first whitespace byte (or at the name's end).
+        Names whose first token runs past those columns, and names that
+        START with whitespace (where ``bytes.split`` skips it), take the
+        per-record loop.
         """
         n = self.num_reads
         out = np.zeros(n, dtype=bool)
-        if n == 0:
-            return out
         buf = self.buf
-        s, e = self.name_starts, self.name_ends
-        is_ws = (buf == 32) | ((buf >= 9) & (buf <= 13))
-        ws = np.flatnonzero(is_ws)
-        first = np.searchsorted(ws, s)
-        tok_end = np.where(first < ws.size,
-                           ws[np.minimum(first, ws.size - 1)], buf.size)
-        tok_end = np.minimum(tok_end, e)
-        ok = tok_end - s >= 2
-        i2 = np.where(ok, tok_end - 2, 0)
-        i1 = np.where(ok, tok_end - 1, 0)
-        out = ok & (buf[i2] == ord("/")) & (buf[i1] == ord("2"))
-        odd = np.flatnonzero((e > s) & is_ws[np.minimum(s, buf.size - 1)])
-        for i in odd:
-            tok = buf[int(s[i]):int(e[i])].tobytes().split()
+        cols = np.arange(_NAME_COLS)
+        slow = []
+        for a in range(0, n, _ROW_CHUNK):
+            b = min(n, a + _ROW_CHUNK)
+            s = self.name_starts[a:b]
+            ln = self.name_ends[a:b] - s
+            w = min(int(ln.max(initial=0)), _NAME_COLS)
+            if w == 0:
+                continue
+            c = buf[np.minimum(s[:, None] + cols[:w], buf.size - 1)]
+            ws = (cols[:w] < ln[:, None]) & ((c == 32) | ((c >= 9) & (c <= 13)))
+            has = ws.any(axis=1)
+            tok = np.where(has, ws.argmax(axis=1), ln)   # first token's end
+            slow.append(a + np.flatnonzero((~has & (ln > w)) | ws[:, 0]))
+            r = np.arange(b - a)
+            ok = (tok >= 2) & (tok <= w)
+            i2, i1 = np.where(ok, tok - 2, 0), np.where(ok, tok - 1, 0)
+            out[a:b] = ok & (c[r, i2] == ord("/")) & (c[r, i1] == ord("2"))
+        for i in np.concatenate(slow) if slow else ():
+            tok = buf[self.name_starts[i]:self.name_ends[i]].tobytes().split()
             out[i] = bool(tok) and tok[0].endswith(b"/2")
         return out
 
 
 def _load_bytes(path: str) -> np.ndarray:
+    """The file's text as a writable uint8 array (gzip decompressed); a
+    plain file is read straight into the array."""
     with open(path, "rb") as f:
         head = f.read(2)
         f.seek(0)
         if head == b"\x1f\x8b":
-            data = gzip.decompress(f.read())
-        else:
-            data = f.read()
-    return np.frombuffer(data, dtype=np.uint8).copy()
+            return np.frombuffer(gzip.decompress(f.read()),
+                                 dtype=np.uint8).copy()
+        buf = hugepage_empty(os.fstat(f.fileno()).st_size, np.uint8)
+        return buf[:f.readinto(buf)]
 
 
-def parse_fastq_bytes(data: bytes | np.ndarray) -> FastqData:
+def _as_buffer(data: bytes | np.ndarray) -> np.ndarray:
+    """uint8 buffer of the FASTQ text, ending in a newline."""
     if isinstance(data, (bytes, bytearray)):
         buf = np.frombuffer(bytes(data), dtype=np.uint8).copy()
     else:
         buf = np.asarray(data, dtype=np.uint8)
     if buf.size and buf[-1] != _NL:
         buf = np.concatenate([buf, np.array([_NL], dtype=np.uint8)])
+    return buf
 
+
+def parse_fastq_bytes(data: bytes | np.ndarray) -> FastqData:
+    """Record offsets of a FASTQ text by the native scanner.  Malformed
+    input raises the plain version's ValueError (which names the fault);
+    where the plain version accepts what the scanner refuses (a third line
+    without its '+'), the scanner's own error, with the byte offset."""
+    buf = _as_buffer(data)
+    try:
+        idx = native_lib.fastq_index(buf)
+    except ValueError as e:
+        _parse_buffer_plain(buf)        # raises its own message
+        raise ValueError(f"FASTQ parse error: {e}") from None
+    return FastqData(
+        buf=buf,
+        name_starts=idx[:, 0], name_ends=idx[:, 1],
+        seq_starts=idx[:, 2], seq_ends=idx[:, 3],
+        qual_starts=idx[:, 6], qual_ends=idx[:, 7],
+    )
+
+
+def parse_fastq_bytes_plain(data: bytes | np.ndarray) -> FastqData:
+    """NumPy version of ``parse_fastq_bytes``."""
+    return _parse_buffer_plain(_as_buffer(data))
+
+
+def _parse_buffer_plain(buf: np.ndarray) -> FastqData:
     nl = np.flatnonzero(buf == _NL)
     if nl.size % 4 != 0:
         raise ValueError(
@@ -146,21 +186,38 @@ def read_fastq(path: str) -> FastqData:
     return parse_fastq_bytes(_load_bytes(path))
 
 
-def extract_padded_arrays(fq: FastqData, max_len: int | None = None):
-    """Fixed-shape [N, Lmax] (codes int8, quals int8, mask bool) arrays.
-
-    Vectorized: one fancy-gather per field using offset arithmetic, in row
-    chunks so the index temporaries stay small; padding is code BASE_N /
-    qual 0 / mask False.
-    """
+def _extract_shape(fq: FastqData, max_len: int | None):
     n = fq.num_reads
     lens = fq.lengths.astype(np.int64)
     L = int(max_len or (lens.max() if n else 1) or 1)
+    if int(lens.max(initial=0)) > L:
+        raise ValueError(f"read length {int(lens.max())} exceeds max_len {L}")
+    return n, L, lens
+
+
+def extract_padded_arrays(fq: FastqData, max_len: int | None = None):
+    """Fixed-shape [N, Lmax] (codes int8, quals int8, mask bool) arrays and
+    the read lengths int64 [N], decoded by the native codec in one threaded
+    pass into huge-page buffers; padding is code BASE_N / qual 0 / mask
+    False.  `mask` is the codec's uint8 array viewed as bool."""
+    n, L, lens = _extract_shape(fq, max_len)
+    codes = hugepage_empty((n, L), np.int8)
+    quals = hugepage_empty((n, L), np.int8)
+    mask = hugepage_empty((n, L), np.uint8)
+    if n:
+        native_lib.fastq_extract(fq.buf, fq.seq_starts, fq.qual_starts, lens,
+                                 L, _ENCODE_LUT, codes, quals, mask)
+    return codes, quals, mask.view(bool), lens
+
+
+def extract_padded_arrays_plain(fq: FastqData, max_len: int | None = None):
+    """NumPy version of ``extract_padded_arrays``: one fancy-gather per
+    field using offset arithmetic, in row chunks so the index temporaries
+    stay small."""
+    n, L, lens = _extract_shape(fq, max_len)
     if n == 0:
         return (np.zeros((0, L), np.int8), np.zeros((0, L), np.int8),
                 np.zeros((0, L), bool), lens)
-    if int(lens.max(initial=0)) > L:
-        raise ValueError(f"read length {int(lens.max())} exceeds max_len {L}")
     codes = np.empty((n, L), np.int8)
     quals = np.empty((n, L), np.int8)
     mask = np.empty((n, L), bool)
@@ -190,27 +247,29 @@ def is_gz_path(p) -> bool:
 
 
 class GzipFastqSink:
-    """File-like sink that gzip-compresses everything written through it
-    (one gzip member, mtime 0: the same bytes in give the same bytes out)."""
+    """File-like sink that BGZF-compresses everything written through it
+    (``bgzf.BGZFStreamWriter`` at level 2: the bytes of ``bgzf.compress``
+    of all that was written, so of the in-memory writer too)."""
 
     def __init__(self, path):
         self.f = open(path, "wb")
-        self.w = gzip.GzipFile(filename="", mode="wb", fileobj=self.f,
-                               compresslevel=_GZIP_LEVEL, mtime=0)
+        self.w = bgzf.BGZFStreamWriter(self.f)
 
     def write(self, data) -> None:
-        self.w.write(bytes(data))
+        self.w.write(data)
 
     def flush(self) -> None:
-        self.w.flush()
+        pass                      # blocks are cut by size; close ends them
 
     def close(self) -> None:
-        self.w.close()
-        self.f.close()
+        try:
+            self.w.close()
+        finally:
+            self.f.close()
 
 
 def open_fastq_sink(path):
-    """Open a FASTQ output path: gzip-compressing sink for *.gz names,
+    """Open a FASTQ output path: BGZF-compressing sink for *.gz names,
     plain binary file otherwise."""
     return GzipFastqSink(path) if is_gz_path(path) else open(path, "wb")
 
@@ -219,11 +278,10 @@ def _write_out(buf: bytes, path_or_file) -> None:
     if isinstance(path_or_file, os.PathLike):
         path_or_file = os.fspath(path_or_file)
     if isinstance(path_or_file, (str, bytes)):
-        sink = open_fastq_sink(path_or_file)
-        try:
-            sink.write(buf)
-        finally:
-            sink.close()
+        if is_gz_path(path_or_file):
+            buf = bgzf.compress(buf)
+        with open(path_or_file, "wb") as f:
+            f.write(buf)
     else:
         path_or_file.write(buf)
 
@@ -231,7 +289,25 @@ def _write_out(buf: bytes, path_or_file) -> None:
 def render_fastq_with_quals(fq: FastqData, new_quals: np.ndarray,
                             mask: np.ndarray) -> bytes:
     """The input FASTQ bytes with quality lines replaced (only-quals-
-    change invariant) — the render half of write_fastq_with_quals."""
+    change invariant) — the render half of write_fastq_with_quals — by the
+    native write-back.  `mask` is the prefix mask of
+    ``extract_padded_arrays`` (row i true on its first len_i columns, as on
+    every path of the port), so each record's whole quality line is taken
+    from the first len_i entries of its row."""
+    mask = np.asarray(mask)
+    if mask.shape != np.shape(new_quals) or mask.shape[0] != fq.num_reads:
+        raise ValueError("new_quals and mask must be [N, L] of one shape")
+    out = fq.buf.copy()
+    if fq.num_reads:
+        native_lib.fastq_write_quals(out, fq.qual_starts, fq.lengths,
+                                     new_quals)
+    return out.tobytes()
+
+
+def render_fastq_with_quals_plain(fq: FastqData, new_quals: np.ndarray,
+                                  mask: np.ndarray) -> bytes:
+    """NumPy version of ``render_fastq_with_quals``: a scatter of the
+    masked entries, in row chunks."""
     out = fq.buf.copy()
     n = fq.num_reads
     if n:
@@ -251,7 +327,7 @@ def render_fastq_with_quals(fq: FastqData, new_quals: np.ndarray,
 def write_fastq_with_quals(fq: FastqData, new_quals: np.ndarray,
                            mask: np.ndarray, path_or_file) -> None:
     """Write the input FASTQ with quality lines replaced.  new_quals:
-    int [N, Lmax] phred values; mask: bool [N, Lmax].  A *.gz output
-    path is gzip-compressed."""
+    int [N, Lmax] phred values; mask: bool [N, Lmax], the extract's.  A
+    *.gz output path is BGZF-compressed (gzip-readable)."""
     _write_out(render_fastq_with_quals(fq, new_quals, mask),
                path_or_file)

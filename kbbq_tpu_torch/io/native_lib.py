@@ -1,0 +1,199 @@
+"""Build and ctypes binding of the host IO codec ``csrc/kbbq_io.cc``.
+
+``build()`` compiles the codec with g++ into
+``kbbq_tpu_torch/build/libkbbq_io.so`` at first use, and again when the
+source is newer than the library; a build writes a temporary file and
+renames it, so a concurrent build in another process never loads half a
+library.  A failed build raises with the compiler's output: there is no
+fallback.  The NumPy versions beside the callers (``io/fastq.py``'s
+``*_plain``, ``io/bgzf.py``'s ``_compress_py``) exist for the tests.
+
+Counterpart of ``kbbq_tpu/io/native_lib.py`` for the functions the port
+uses (the JAX package's copy of the library is never loaded).  Nothing here
+runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "kbbq_io.cc")
+BUILD_DIR = os.path.join(_PKG, "build")
+LIBRARY = os.path.join(BUILD_DIR, "libkbbq_io.so")
+CXX = "g++"
+CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-shared"]
+LD_FLAGS = ["-lz", "-pthread"]
+
+_lib = None
+build_log = ""       # the compiler's output of the last build
+build_seconds = 0.0  # wall time of the last build, 0 when the library was fresh
+
+
+def build() -> str:
+    """Compile the codec if the library is missing or older than the
+    source; returns the library's path.  Raises on a failed build."""
+    global build_log, build_seconds
+    if (os.path.isfile(LIBRARY)
+            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
+        return LIBRARY
+    cxx = shutil.which(CXX)
+    if cxx is None:
+        raise RuntimeError(f"C++ compiler {CXX!r} not found: the host IO "
+                           f"codec of kbbq_tpu_torch ({SOURCE}) cannot be "
+                           f"built")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    cmd = [cxx, *CXX_FLAGS, "-o", tmp, SOURCE, *LD_FLAGS]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.time() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"{CXX} failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{build_log}")
+    os.replace(tmp, LIBRARY)   # atomic: a concurrent build never half-loads
+    return LIBRARY
+
+
+def _bind(lib) -> None:
+    p, i32, i64, sz = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+                       ctypes.c_size_t)
+    lib.kbbq_bgzf_size.argtypes = [p, sz]
+    lib.kbbq_bgzf_size.restype = i64
+    lib.kbbq_bgzf_decompress.argtypes = [p, sz, p, sz, i32]
+    lib.kbbq_bgzf_decompress.restype = i32
+    lib.kbbq_bgzf_compress.argtypes = [p, sz, p, sz, i32, i32]
+    lib.kbbq_bgzf_compress.restype = i64
+    lib.kbbq_fastq_index.argtypes = [p, sz, p, sz]
+    lib.kbbq_fastq_index.restype = i64
+    lib.kbbq_fastq_extract.argtypes = [p, p, p, p, i64, i32, p, p, p, p, i32]
+    lib.kbbq_fastq_extract.restype = None
+    lib.kbbq_fastq_write_quals.argtypes = [p, p, p, p, i64, i32, i32]
+    lib.kbbq_fastq_write_quals.restype = None
+
+
+def library():
+    """The loaded codec (built at first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        _bind(lib)
+        _lib = lib
+    return _lib
+
+
+def default_threads() -> int:
+    """Threads of every threaded codec call: all cores but one."""
+    return max(1, (os.cpu_count() or 2) - 1)
+
+
+def _u8(data) -> np.ndarray:
+    """A contiguous uint8 view of bytes-like or array data (no copy where
+    the data already is one)."""
+    if isinstance(data, np.ndarray):
+        return np.ascontiguousarray(data).view(np.uint8).reshape(-1)
+    return np.frombuffer(data, dtype=np.uint8)
+
+
+def bgzf_decompress(data) -> bytes:
+    """Decompress a whole BGZF stream (all blocks); ValueError when it is
+    not one or a block fails its CRC."""
+    src = _u8(data)
+    lib = library()
+    size = lib.kbbq_bgzf_size(src.ctypes.data, src.size)
+    if size < 0:
+        raise ValueError("native BGZF scan failed")
+    out = np.empty(size, dtype=np.uint8)
+    rc = lib.kbbq_bgzf_decompress(src.ctypes.data, src.size,
+                                  out.ctypes.data, size, default_threads())
+    if rc != 0:
+        raise ValueError(f"native BGZF decompress failed (code {rc})")
+    return out.tobytes()
+
+
+def bgzf_compress(data, level: int) -> bytes:
+    """BGZF blocks of 0xff00 input bytes each at deflate `level`, then the
+    EOF marker."""
+    src = _u8(data)
+    cap = src.size + (src.size // 0xFF00 + 2) * 64 + 1024
+    out = np.empty(cap, dtype=np.uint8)
+    n = library().kbbq_bgzf_compress(src.ctypes.data, src.size,
+                                     out.ctypes.data, cap, int(level),
+                                     default_threads())
+    if n < 0:
+        raise ValueError(f"native BGZF compress failed ({n})")
+    return out[:n].tobytes()
+
+
+def fastq_index(buf: np.ndarray) -> np.ndarray:
+    """int64 [N, 8] record offsets of a FASTQ buffer (uint8, ending in a
+    newline).  Raises ValueError naming the byte offset of the first
+    malformed record."""
+    buf = _u8(buf)
+    lib = library()
+    n = lib.kbbq_fastq_index(buf.ctypes.data, buf.size, None, 0)
+    if n < 0:
+        raise ValueError(f"malformed FASTQ record at byte {-1 - n}")
+    out = np.empty((int(n), 8), dtype=np.int64)
+    lib.kbbq_fastq_index(buf.ctypes.data, buf.size, out.ctypes.data, int(n))
+    return out
+
+
+def fastq_extract(buf: np.ndarray, seq_starts: np.ndarray,
+                  qual_starts: np.ndarray, lens: np.ndarray, stride: int,
+                  enc_lut: np.ndarray, codes: np.ndarray, quals: np.ndarray,
+                  mask: np.ndarray) -> None:
+    """Decode records into the padded arrays codes, quals (int8) and mask
+    (uint8), each C-contiguous [n, stride], written in full."""
+    ss = np.ascontiguousarray(seq_starts, np.int64)
+    qs = np.ascontiguousarray(qual_starts, np.int64)
+    ln = np.ascontiguousarray(lens, np.int64)
+    lut = np.ascontiguousarray(enc_lut, np.int8)
+    n = ss.size
+    if lut.size != 256 or qs.size != n or ln.size != n:
+        raise ValueError("need a 256-entry table and one offset per record")
+    for a, dt in ((codes, np.int8), (quals, np.int8), (mask, np.uint8)):
+        if a.dtype != dt or a.shape != (n, stride) or \
+                not a.flags.c_contiguous:
+            raise ValueError(f"outputs must be C-contiguous {dt.__name__} "
+                             f"[{n}, {stride}]")
+    src = _u8(buf)
+    if n and int(ln.max()) > stride:
+        raise ValueError("a record is longer than the stride")
+    if n and (min(int(ss.min()), int(qs.min()), int(ln.min())) < 0
+              or int(max((ss + ln).max(), (qs + ln).max())) > src.size):
+        raise ValueError("a record's bytes fall outside the buffer")
+    library().kbbq_fastq_extract(
+        src.ctypes.data, ss.ctypes.data, qs.ctypes.data, ln.ctypes.data,
+        n, int(stride), lut.ctypes.data, codes.ctypes.data, quals.ctypes.data,
+        mask.ctypes.data, default_threads())
+
+
+def fastq_write_quals(out: np.ndarray, qual_starts: np.ndarray,
+                      lens: np.ndarray, new_quals: np.ndarray) -> None:
+    """Overwrite the quality bytes of `out` (uint8, C-contiguous, written
+    in place): record i's lens[i] bytes from qual_starts[i] become
+    new_quals[i, :lens[i]] + 33."""
+    qs = np.ascontiguousarray(qual_starts, np.int64)
+    ln = np.ascontiguousarray(lens, np.int64)
+    q = np.ascontiguousarray(new_quals, np.int8)
+    n = qs.size
+    if out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError("out must be a C-contiguous uint8 array")
+    if ln.size != n or q.ndim != 2 or q.shape[0] != n:
+        raise ValueError("need one offset, length and row per record")
+    if n and (int(ln.max()) > q.shape[1]
+              or int((qs + ln).max()) > out.size):
+        raise ValueError("a record's qualities fall outside the buffer")
+    library().kbbq_fastq_write_quals(
+        out.ctypes.data, qs.ctypes.data, ln.ctypes.data, q.ctypes.data, n,
+        q.shape[1], default_threads())

@@ -1,9 +1,8 @@
 """Build, ctypes binding and wrappers of ``csrc/kbbq_kernels.cu``.
 
 The three kernels (``bloom_probe`` with three entry points,
-``bloom_or_words`` with two, ``walk_errors``) are CUDA C++ for sm_90a with a
-plain C
-interface.  ``build()`` compiles them with nvcc into
+``bloom_or_words`` with two, the fused one also in a hash-only mode,
+``walk_errors``) are CUDA C++ for sm_90a with a plain C interface.  ``build()`` compiles them with nvcc into
 ``kbbq_tpu_torch/build/libkbbq_kernels.so`` at first use (and again when
 the source is newer); the library is loaded with ctypes.  Nothing here
 runs at import time, so the module imports on a machine without nvcc or a
@@ -39,7 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"bloom_probe": 0, "bloom_or_words": 0, "walk_errors": 0}
 ENTRY_LAUNCHES = {"bloom_probe_hashed": 0, "bloom_probe_words": 0,
                   "bloom_probe_trust": 0, "bloom_or_words": 0,
-                  "hash_build": 0, "walk_errors": 0}
+                  "hash_build": 0, "hash_only": 0, "walk_errors": 0}
 
 # reads per block of the tiled kernels and threads per block of the walk and
 # of the fused trust probe (in both a warp works on one read at a time),
@@ -114,6 +113,7 @@ def _bind(lib) -> None:
     lib.kbbq_bloom_or_words.argtypes = [p, u32, p, p, p, i64, p]
     lib.kbbq_hash_build.argtypes = [p, p, u32, p, p, p, i64, i64, i, i, i,
                                     u32, i, p]
+    lib.kbbq_hash_only.argtypes = [p, p, p, i64, i, i, i, i, p]
     lib.kbbq_walk_errors.argtypes = [p, p, p, u32, p, i64, i, i, i, i, i, i,
                                      p]
     lib.kbbq_walk_tile_bytes.argtypes = [i, i, i]
@@ -122,7 +122,7 @@ def _bind(lib) -> None:
     lib.kbbq_empty_launch.argtypes = [p]
     for fn in (lib.kbbq_bloom_probe_hashed, lib.kbbq_bloom_probe_words,
                lib.kbbq_bloom_probe_trust, lib.kbbq_bloom_or_words,
-               lib.kbbq_hash_build, lib.kbbq_walk_errors,
+               lib.kbbq_hash_build, lib.kbbq_hash_only, lib.kbbq_walk_errors,
                lib.kbbq_walk_tile_bytes, lib.kbbq_hash_tile_bytes,
                lib.kbbq_trust_tile_bytes, lib.kbbq_empty_launch):
         fn.restype = ctypes.c_int
@@ -342,6 +342,40 @@ def hash_build(codes: torch.Tensor, packed: torch.Tensor, first_id: int,
     _raise_on(rc, "bloom_or_words (hash_build)")
     _count("bloom_or_words", "hash_build")
     return h1, word, keep
+
+
+def hash_only(codes: torch.Tensor, k: int, num_hashes: int):
+    """Kernel bloom_or_words, fused entry point in its hash-only mode: the
+    (h1, word) pair of every window of `codes`, with no sampling and no
+    filter (passes 2 and 3 of the windowed engine re-hash each window).
+
+    codes int8 [N, L] with everything past a read's end code 4.  Returns
+    int32 patterns [N, n] x2, n = L-k+1 (n <= 0: empty [N, 0] tensors and
+    no launch); word == 0 marks a window with an N, whose h1 is the hash of
+    the window with each N read as base 0 — the h1 and word of
+    ``hash_build``."""
+    dev = codes.device
+    _check(codes, "codes", torch.int8, dev)
+    if codes.dim() != 2:
+        raise ValueError("codes must be [N, L]")
+    if not 1 <= k <= 32 or num_hashes < 1:
+        raise ValueError("need 1 <= k <= 32 and num_hashes >= 1")
+    N, L = codes.shape
+    n = max(L - k + 1, 0)
+    h1 = torch.empty((N, n), dtype=torch.int32, device=dev)
+    word = torch.empty((N, n), dtype=torch.int32, device=dev)
+    if N == 0 or n == 0:
+        return h1, word
+    with torch.cuda.device(dev):
+        lib = library()
+        rows = _fit_tile_rows(lib.kbbq_hash_tile_bytes, L, int(k),
+                              HASH_TILE_ROWS)
+        rc = lib.kbbq_hash_only(codes.data_ptr(), h1.data_ptr(),
+                                word.data_ptr(), N, L, int(k),
+                                int(num_hashes), rows, _stream())
+    _raise_on(rc, "bloom_or_words (hash_only)")
+    _count("bloom_or_words", "hash_only")
+    return h1, word
 
 
 def walk_errors(codes: torch.Tensor, trusted0: torch.Tensor,

@@ -179,6 +179,20 @@ def bloom_build_words_plain(h1: torch.Tensor, word: torch.Tensor,
     return wide_to_u32(packed)
 
 
+def bloom_or_words_into(packed: torch.Tensor, h1: torch.Tensor,
+                        word: torch.Tensor, keep: torch.Tensor
+                        ) -> torch.Tensor:
+    """``packed[h1 & mask] |= word`` for every entry where `keep`, IN PLACE
+    on `packed` (int32 [m/32], zeroed or partly built), which it returns.
+    CUDA tensors go through the ``bloom_or_words`` kernel (cached entry
+    point), CPU tensors through ``bloom_build_words_plain``."""
+    if packed.is_cuda:
+        from .. import kernels
+        return kernels.bloom_or_words(packed, h1, word, keep)
+    packed |= bloom_build_words_plain(h1, word, keep, _log2_m_of(packed))
+    return packed
+
+
 def bloom_build_words(h1: torch.Tensor, word: torch.Tensor,
                       keep: torch.Tensor, log2_m: int) -> torch.Tensor:
     """Packed filter (int32 [m/32]) with ``packed[h1 & mask] |= word`` for
@@ -192,8 +206,7 @@ def bloom_build_words(h1: torch.Tensor, word: torch.Tensor,
     zeroed filter.
     """
     if h1.is_cuda:
-        from .. import kernels
         out = torch.zeros(1 << (log2_m - 5), dtype=torch.int32,
                           device=h1.device)
-        return kernels.bloom_or_words(out, h1, word, keep)
+        return bloom_or_words_into(out, h1, word, keep)
     return bloom_build_words_plain(h1, word, keep, log2_m)

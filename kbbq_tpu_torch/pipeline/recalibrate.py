@@ -2,8 +2,11 @@
 
 Counterpart of ``kbbq_tpu/pipeline/recalibrate.py``: ``RecalConfig``,
 ``run_pipeline``, the pass-4-only ``apply_table_arrays`` and the FASTQ ->
-FASTQ entry point ``recalibrate_fastq`` with its GATKReport options.
-Bit-exact parity authority: the NumPy oracle of the JAX package.
+FASTQ entry point ``recalibrate_fastq`` with its GATKReport and checkpoint
+options.  ``run_pipeline`` takes the resident path when the data fits the
+card and nothing asks for the windowed engine (a checkpoint directory, a
+first ordinal other than 0).  Bit-exact parity authority: the NumPy oracle
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..constants import (
     DEFAULT_K,
@@ -40,9 +44,10 @@ class RecalConfig:
     # floor on both filters' log2_m; bit-exact-spec relevant: filter size
     # changes FP sets, so every pipeline compared must set it identically
     min_log2_m: int | None = None
-    # rows per batch of the batched pipeline, which is not ported yet; the
-    # resident path cuts the dataset by its own `chunk_rows` and does not
-    # read this field (the result depends on neither)
+    # rows per window of the windowed engine over in-memory arrays, at least
+    # DEFAULT_CHUNK_READS (io/stream.py); the resident path cuts the dataset
+    # by its own `chunk_rows` and does not read it (the result depends on
+    # neither)
     batch_size: int = 512
 
     def resolve_alpha(self, total_bases: int) -> tuple[float, float]:
@@ -57,21 +62,49 @@ class RecalConfig:
         return alpha, cov
 
 
+# device bytes the resident path holds at its peak, per padded base: pass 3
+# of 1,533,333 x 150 bases peaked at 3,327,267,328 B on an NVIDIA H100 80GB
+# HBM3 (chip_smoke.py, PERF.md)
+RESIDENT_BYTES_PER_BASE = 14.47
+
+
+def fits_resident(arrays: ReadArrays, dev) -> bool:
+    """Whether the resident path's peak fits the card's free memory (always
+    on the CPU)."""
+    if dev.type != "cuda":
+        return True
+    need = arrays.num_reads * arrays.max_len * RESIDENT_BYTES_PER_BASE
+    return need <= torch.cuda.mem_get_info(dev)[0]
+
+
 def run_pipeline(arrays: ReadArrays, config: RecalConfig,
                  device=None, timings: dict | None = None,
-                 chunk_rows: int | None = None) -> np.ndarray:
+                 chunk_rows: int | None = None,
+                 checkpoint_dir: str | None = None,
+                 start_ordinal: int = 0) -> np.ndarray:
     """Recalibrate in-memory arrays on one device -> new quals int8 [N, L].
 
-    device=None means the CUDA device and raises without one; pass
-    device="cpu" to run on the CPU.
+    The resident path, unless checkpoint_dir is set (pass-boundary saves,
+    resume), start_ordinal is not 0 (row r samples as ordinal
+    start_ordinal + r), or the data does not fit the card: then the
+    windowed engine (``stream_resident.recalibrate_arrays_windowed``),
+    which gives the same bytes.  device=None means the CUDA device and
+    raises without one; pass device="cpu" to run on the CPU.
     """
     from .. import resolve_device
     dev = resolve_device(device)
     if arrays.num_reads == 0:
         return np.zeros((0, arrays.max_len), np.int8)
-    from .resident import recalibrate_arrays_resident
-    return recalibrate_arrays_resident(arrays, config, timings=timings,
-                                       device=dev, chunk_rows=chunk_rows)
+    if checkpoint_dir is None and start_ordinal == 0 and \
+            fits_resident(arrays, dev):
+        from .resident import recalibrate_arrays_resident
+        return recalibrate_arrays_resident(arrays, config, timings=timings,
+                                           device=dev, chunk_rows=chunk_rows)
+    from .stream_resident import recalibrate_arrays_windowed
+    return recalibrate_arrays_windowed(
+        arrays, config, start_ordinal=start_ordinal,
+        checkpoint_dir=checkpoint_dir, device=dev, timings=timings,
+        chunk_rows=chunk_rows)
 
 
 def apply_table_arrays(arrays: ReadArrays, recal_table: np.ndarray,
@@ -182,19 +215,25 @@ def recalibrate_fastq(in_paths, out_paths, config: RecalConfig,
                       interleaved: bool = False, device=None,
                       timings: dict | None = None,
                       report_out: str | None = None,
-                      apply_report: str | None = None) -> dict:
-    """FASTQ -> FASTQ recalibration (the reference CLI's main flow).
+                      apply_report: str | None = None,
+                      checkpoint_dir: str | None = None) -> dict:
+    """FASTQ -> FASTQ recalibration (the reference CLI's main flow), with
+    the whole input in host memory (``recalibrate_fastq_streaming`` reads
+    it chunk by chunk).
 
     Accepts one path or a list; each input file is its own read group
     (DECISIONS.md D8).  out_paths: matching list, a single path, or a
-    writable (outputs concatenated in input order).  Plain or ``.gz`` on
-    both sides.  device=None means the CUDA device (raises without one).
-    `timings`, when given, also gets ``read`` and ``write`` (host IO, s).
+    writable (outputs concatenated in input order).  Plain or gzip input,
+    plain or BGZF (``.gz``) output.  device=None means the CUDA device
+    (raises without one).  `timings`, when given, also gets ``read`` and
+    ``write`` (host IO, s).
 
     report_out: also write the computed covariates as a GATKReport.
     apply_report: SKIP passes 1-3 and recalibrate from a previously
     written report instead (ApplyBQSR-equivalent; read groups match by
     input path, so pass the same inputs in the same order).
+    checkpoint_dir: save passes 1-3 at their boundaries and resume from
+    the first one not saved (``run_pipeline``).
     """
     import time
 
@@ -207,7 +246,7 @@ def recalibrate_fastq(in_paths, out_paths, config: RecalConfig,
     t1 = time.time()
     new_quals = _run_or_apply(arrays, config, [str(p) for p in in_paths],
                               report_out, apply_report, device=dev,
-                              timings=timings)
+                              timings=timings, checkpoint_dir=checkpoint_dir)
     t2 = time.time()
     _write_fastq_outputs(fqs, mask_l, new_quals, out_paths)
     if timings is not None:

@@ -63,18 +63,47 @@ def arrays_to_device(arrays: ReadArrays, dev):
     return codes, quals, mask, rgs, seconds
 
 
-def apply_table_on_device(recal_host: np.ndarray, codes, quals, mask, rgs,
-                          seconds, rows: int) -> np.ndarray:
-    """Pass 4: one flat gather per base from the Q' table, `rows` rows at a
-    time -> new quals int8 [N, L] on the host."""
+def apply_table_on_device(recal, codes, quals, mask, rgs, seconds,
+                          rows: int) -> np.ndarray:
+    """Pass 4: one flat gather per base from the Q' table (int8, a numpy
+    array or a tensor), `rows` rows at a time -> new quals int8 [N, L] on
+    the host."""
     N, L = codes.shape
-    recal = torch.from_numpy(recal_host).to(codes.device)
+    recal = torch.as_tensor(recal).to(codes.device)
     out = torch.empty((N, L), dtype=torch.int8, device=codes.device)
     for s in range(0, N, rows):
         e = min(N, s + rows)
         out[s:e] = apply_recal_table(recal, codes[s:e], quals[s:e],
                                      mask[s:e], rgs[s:e], seconds[s:e])
     return out.cpu().numpy()
+
+
+class StageClock:
+    """Per-stage wall times into `timings` (None: records nothing and
+    never synchronises).  ``mark(name)`` closes the stage that began at the
+    last mark: on a CUDA device it synchronises first and also records the
+    peak of allocated device memory while the stage ran
+    (``<name>_peak_bytes``)."""
+
+    def __init__(self, timings: dict | None, dev):
+        self.timings = timings
+        self.cuda = dev.type == "cuda"
+        self.dev = dev
+        self.last = time.time()
+        if timings is not None and self.cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def mark(self, name: str) -> None:
+        if self.timings is None:
+            return
+        if self.cuda:
+            torch.cuda.synchronize(self.dev)
+            self.timings[name + "_peak_bytes"] = \
+                torch.cuda.max_memory_allocated(self.dev)
+            torch.cuda.reset_peak_memory_stats(self.dev)
+        now = time.time()
+        self.timings[name] = round(now - self.last, 3)
+        self.last = now
 
 
 def recalibrate_arrays_resident(arrays: ReadArrays, config,
@@ -95,20 +124,7 @@ def recalibrate_arrays_resident(arrays: ReadArrays, config,
     ``config.batch_size`` is not read here.
     """
     dev = resolve_device(device)
-    t_last = [time.time()]
-    if timings is not None and dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-
-    def _mark(name):
-        if timings is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-                timings[name + "_peak_bytes"] = \
-                    torch.cuda.max_memory_allocated(dev)
-                torch.cuda.reset_peak_memory_stats(dev)
-            now = time.time()
-            timings[name] = round(now - t_last[0], 3)
-            t_last[0] = now
+    _mark = StageClock(timings, dev).mark
 
     k, h = config.k, config.num_hashes
     N, L = arrays.num_reads, arrays.max_len

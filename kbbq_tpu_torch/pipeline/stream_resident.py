@@ -1,0 +1,499 @@
+"""Windowed single-device engine: out-of-core FASTQ, checkpoints, ordinals.
+
+Counterpart of the FASTQ half of ``kbbq_tpu/pipeline/stream_resident.py``
+(``_HostChunkCache``, ``FastqWindowSource``, ``StreamResidentEngine``,
+``recalibrate_fastq_stream_resident``) and of the in-memory
+``kbbq_tpu/pipeline/recalibrate.py::recalibrate_arrays``.  The input goes
+through the card in WINDOWS of reads; every tensor of a window lives on the
+card, and the passes run the resident path's kernels on it:
+
+  pass 1  hash cache of the window + its sampled windows ORed into filter A
+          (``bloom_or_words`` fused entry point, ``first_id`` = the window's
+          global ordinal: sampling keys on global ordinals, DECISIONS D5,
+          so the output does not depend on the window size)
+  pass 2  re-hash (the fused entry point's hash-only mode), trust against A
+          (``bloom_probe_trust``), filter B |= the trusted windows
+          (``bloom_or_words``)
+  pass 3  re-hash, initial trust against B (``bloom_probe``), the walk per
+          65,536-row chunk (``walk_errors``), one covariate state on the
+          device for all windows
+  host    float64 delta math -> int8 Q' table
+  pass 4  the device gather per window, back to the host; FASTQ windows are
+          rendered by the native codec and written in order on one thread
+
+No window's hash cache outlives its pass, so device memory is O(window +
+filters).  When every window's tensors fit ``device_cache_bytes`` they are
+kept on the card from pass 1 to pass 4; decoded FASTQ chunks are kept on
+the host under ``host_cache_bytes``.  Neither changes a byte of output.
+
+Pass boundaries are checkpoints (``state/checkpoint.py``: the JAX package's
+files), and a streamed FASTQ run into one plain file resumes pass 4 at the
+chunk it had reached.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..io.batcher import ReadArrays
+from ..io.fastq import (is_gz_path, open_fastq_sink,
+                        render_fastq_with_quals)
+from ..io.stream import (
+    DEFAULT_CHUNK_READS,
+    chunk_to_batch_arrays,
+    iter_fastq_chunks,
+    prefetch_iter,
+    scan_fastq_files,
+)
+from ..ops.bloom import bloom_or_words_into, bloom_query_words
+from ..ops.covariate import accumulate_covariates, new_covariate_state
+from ..ops.hash_cache import hash_cache_into, hash_windows
+from ..ops.inference import infer_errors
+from ..ops.trusted import trusted_from_cache
+from ..oracle.bloom import check_layout_capacity
+from ..oracle.covariate import CovariateTables
+from ..oracle.gatk import build_recal_table
+from ..oracle.kmers import alpha_threshold
+from ..oracle.lighter import coverage_thresholds
+from ..oracle.pipeline import bloom_params_for
+from ..state.convert import bloom_from_numpy, bloom_to_numpy
+from .resident import (DEFAULT_CHUNK_ROWS, StageClock,
+                       apply_table_on_device, arrays_to_device)
+
+# decoded FASTQ chunks kept on the host across passes, at most (the JAX
+# package's figure); a larger input re-reads its files every pass
+DEFAULT_HOST_CACHE_BYTES = 8 << 30
+
+
+class _HostChunkCache:
+    """Memo of a window source's decoded chunks under a byte budget.  An
+    input whose chunks exceed the budget drops the memo and re-reads its
+    files every pass."""
+
+    def __init__(self, budget: int):
+        self.budget = budget
+        self.items: list = []
+        self.nbytes = 0
+        self.complete = False
+        self.enabled = budget > 0
+
+    def restart(self) -> None:
+        """A fresh stream begins: drop any partial fill."""
+        if not self.complete:
+            self.items.clear()
+            self.nbytes = 0
+
+    def add(self, item, nbytes: int) -> None:
+        if not self.enabled or self.complete:
+            return
+        self.nbytes += int(nbytes)
+        if self.nbytes > self.budget:
+            self.items.clear()
+            self.enabled = False
+            return
+        self.items.append(item)
+
+    def finish(self) -> None:
+        if self.enabled:
+            self.complete = True
+
+
+class FastqWindowSource:
+    """Windows over FASTQ files: one window per chunk of `chunk_reads`
+    records (a file's last chunk may be shorter; each file is its own read
+    group, ordinals run on across files).  Items: (ordinal, arrays, file
+    index, FastqData) with arrays = ``chunk_to_batch_arrays``'s."""
+
+    def __init__(self, in_paths, scan, interleaved: bool, chunk_reads: int,
+                 host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES):
+        self.in_paths = list(in_paths)
+        self.scan = scan
+        self.interleaved = interleaved
+        self.chunk_reads = int(chunk_reads)
+        self.num_rg = len(self.in_paths)
+        self.num_reads = scan.num_reads
+        self.max_len = scan.max_len
+        self.total_bases = scan.total_bases
+        self._cache = _HostChunkCache(host_cache_bytes)
+
+    def total_kmers(self, k: int) -> int:
+        return self.scan.total_kmers(k)
+
+    def windows(self):
+        if self._cache.complete:
+            yield from self._cache.items
+            return
+        self._cache.restart()
+
+        def parsed():
+            # read + record scan on their own thread, beside the extract
+            for fi, path in enumerate(self.in_paths):
+                for fq in iter_fastq_chunks(path, self.chunk_reads):
+                    yield fi, fq
+
+        ordinal = 0
+        for fi, fq in prefetch_iter(parsed(), depth=2):
+            arrs = chunk_to_batch_arrays(fq, self.max_len, fi, ordinal,
+                                         self.interleaved)
+            item = (ordinal, arrs, fi, fq)
+            self._cache.add(item, fq.buf.nbytes
+                            + sum(a.nbytes for a in arrs))
+            yield item
+            ordinal += fq.num_reads
+        self._cache.finish()
+
+
+class ArraysWindowSource:
+    """Windows of `window_rows` rows over in-memory ReadArrays; row r has
+    the global ordinal start_ordinal + r."""
+
+    def __init__(self, arrays: ReadArrays, window_rows: int,
+                 start_ordinal: int = 0):
+        self.arrays = arrays
+        self.window_rows = int(window_rows)
+        self.start_ordinal = int(start_ordinal)
+        self.num_rg = int(arrays.rgs.max(initial=0)) + 1
+        self.num_reads = arrays.num_reads
+        self.max_len = arrays.max_len
+        self.lens = arrays.mask.sum(axis=1)
+        self.total_bases = int(self.lens.sum())
+
+    def total_kmers(self, k: int) -> int:
+        return int(np.maximum(self.lens - k + 1, 0).sum())
+
+    def windows(self):
+        a = self.arrays
+        for s in range(0, a.num_reads, self.window_rows):
+            e = min(a.num_reads, s + self.window_rows)
+            arrs = (a.codes[s:e], a.quals[s:e], a.mask[s:e], a.rgs[s:e],
+                    a.seconds[s:e])
+            yield self.start_ordinal + s, arrs, None, None
+
+
+def default_device_cache_bytes(dev) -> int:
+    """Half of the card's free memory when the engine starts; on the CPU the
+    host cache's budget."""
+    if dev.type == "cuda":
+        return torch.cuda.mem_get_info(dev)[0] // 2
+    return DEFAULT_HOST_CACHE_BYTES
+
+
+class StreamResidentEngine:
+    """Per-window staging and the four passes over a window source.
+
+    `source` gives num_rg, num_reads, max_len, total_bases,
+    total_kmers(k) and a re-iterable windows() of (ordinal, host arrays,
+    file index, FastqData) items."""
+
+    def __init__(self, source, config, dev, device_cache_bytes=None,
+                 chunk_rows: int | None = None):
+        self.source = source
+        self.config = config
+        self.dev = dev
+        self.L = source.max_len
+        self.num_rg = source.num_rg
+        self.rows = int(chunk_rows or DEFAULT_CHUNK_ROWS)
+        k = config.k
+        alpha, coverage = config.resolve_alpha(source.total_bases)
+        self.threshold = int(alpha_threshold(alpha))
+        self.t_table = torch.from_numpy(
+            coverage_thresholds(alpha, k).astype(np.int32)).to(dev)
+        params_a, params_b = bloom_params_for(
+            config, source.total_kmers(k), alpha, coverage)
+        for p in (params_a, params_b):
+            # the device holds packed words only (m/8 bytes per filter)
+            check_layout_capacity(p, 33, "single-device windowed",
+                                  "lower the bits per key or split the "
+                                  "input")
+        self.la, self.lb = params_a.log2_m, params_b.log2_m
+        self.filt_a = self.filt_b = self.tables = None
+        # codes, quals, mask: 3 B per padded base; rgs 8 B, seconds 1 B a read
+        budget = (default_device_cache_bytes(dev)
+                  if device_cache_bytes is None else device_cache_bytes)
+        self._cache_on = source.num_reads * (3 * self.L + 9) <= budget
+        self._dev_cache: list = []
+        self._cache_complete = False
+
+    def _windows(self, host: bool = False):
+        """(ordinal, device tensors (codes, quals, mask, rgs, seconds),
+        source item or None) per window.  Pass 1's staged windows are kept
+        when the device cache is on; a later pass replays them, re-reading
+        the source only when it needs the host side (`host`)."""
+        if self._cache_complete:
+            if not host:
+                for ordinal, w in self._dev_cache:
+                    yield ordinal, w, None
+                return
+            for (ordinal, w), item in zip(self._dev_cache,
+                                          self.source.windows()):
+                yield ordinal, w, item
+            return
+        self._dev_cache.clear()                    # drop any partial fill
+        for item in self.source.windows():
+            ordinal, (codes, quals, mask, rgs, seconds) = item[0], item[1][:5]
+            w = arrays_to_device(ReadArrays(codes, quals, mask, rgs,
+                                            seconds), self.dev)
+            if self._cache_on:
+                self._dev_cache.append((ordinal, w))
+            yield ordinal, w, item
+        if self._cache_on:
+            self._cache_complete = True
+
+    def _zeros(self, log2_m: int) -> torch.Tensor:
+        return torch.zeros(1 << (log2_m - 5), dtype=torch.int32,
+                           device=self.dev)
+
+    def run_pass1(self) -> None:
+        k, h = self.config.k, self.config.num_hashes
+        filt = self._zeros(self.la)
+        for ordinal, w, _ in self._windows():
+            hash_cache_into(w[0], filt, ordinal, k, h, self.threshold)
+        self.filt_a = filt
+
+    def run_pass2(self) -> None:
+        k, h = self.config.k, self.config.num_hashes
+        filt = self._zeros(self.lb)
+        for _, w, _ in self._windows():
+            h1, word = hash_windows(w[0], k, h)
+            trusted = trusted_from_cache(self.filt_a, h1, word, self.t_table,
+                                         k, self.config.trust_threshold)
+            bloom_or_words_into(filt, h1, word, trusted)
+        self.filt_b = filt
+
+    def run_pass3(self) -> None:
+        k, h = self.config.k, self.config.num_hashes
+        cov = new_covariate_state(self.num_rg, self.L, self.dev)
+        for _, (codes, quals, mask, rgs, seconds), _ in self._windows():
+            h1, word = hash_windows(codes, k, h)
+            tr0 = bloom_query_words(self.filt_b, h1, word)
+            del h1, word
+            for s in range(0, codes.shape[0], self.rows):
+                e = min(codes.shape[0], s + self.rows)
+                err = infer_errors(self.filt_b, codes[s:e], k, h,
+                                   self.config.ext_cap, trusted0=tr0[s:e])
+                accumulate_covariates(cov, codes[s:e], quals[s:e], mask[s:e],
+                                      rgs[s:e], seconds[s:e], err)
+        self.tables = CovariateTables(
+            self.num_rg, self.L,
+            *(cov[name].cpu().numpy() for name in
+              ("cyc_total", "cyc_errors", "din_total", "din_errors")))
+
+    def run_passes_1_to_3(self, ckpt, mark) -> np.ndarray:
+        """Passes 1-3 (each loaded from `ckpt` where it holds the pass),
+        then the Q' table; `mark` closes each stage."""
+        rows = ckpt.load_array("rows_a") if ckpt else None
+        if rows is not None:
+            self.filt_a = bloom_from_numpy(rows, self.dev)
+        else:
+            self.run_pass1()
+            if ckpt:
+                ckpt.save_array("rows_a", bloom_to_numpy(self.filt_a))
+        mark("pass1")
+        rows = ckpt.load_array("rows_b") if ckpt else None
+        if rows is not None:
+            self.filt_b = bloom_from_numpy(rows, self.dev)
+        else:
+            self.run_pass2()
+            if ckpt:
+                ckpt.save_array("rows_b", bloom_to_numpy(self.filt_b))
+        self.filt_a = None
+        mark("pass2")
+        loaded = ckpt.load_covariates() if ckpt else None
+        if loaded is not None:
+            self.tables = loaded
+        else:
+            self.run_pass3()
+            if ckpt:
+                ckpt.save_covariates(self.tables)
+        self.filt_b = None
+        mark("pass3")
+        recal = build_recal_table(self.tables)
+        mark("deltas")
+        return recal
+
+    def gathered(self, recal: np.ndarray, host: bool = False):
+        """Pass 4: (ordinal, new quals int8 [n, L] on the host, source item
+        or None) per window."""
+        recal_dev = torch.from_numpy(np.ascontiguousarray(recal)).to(self.dev)
+        for ordinal, w, item in self._windows(host):
+            yield ordinal, apply_table_on_device(recal_dev, *w,
+                                                 self.rows), item
+
+
+def recalibrate_arrays_windowed(arrays: ReadArrays, config,
+                                start_ordinal: int = 0,
+                                checkpoint_dir: str | None = None,
+                                device=None, timings: dict | None = None,
+                                chunk_rows: int | None = None
+                                ) -> np.ndarray:
+    """Full pipeline over in-memory arrays through the windowed engine ->
+    new quals int8 [N, L]; windows of ``max(config.batch_size,
+    DEFAULT_CHUNK_READS)`` rows.  Row r samples as global ordinal
+    start_ordinal + r.  With checkpoint_dir, passes 1-3 are saved at their
+    boundaries under ``run_fingerprint`` and a rerun resumes from the first
+    pass not saved.  device=None means the CUDA device (raises without
+    one)."""
+    from ..state.checkpoint import Checkpoint, run_fingerprint
+
+    dev = resolve_device(device)
+    clock = StageClock(timings, dev)
+    ckpt = None
+    if checkpoint_dir:
+        ckpt = Checkpoint(checkpoint_dir)
+        ckpt.check_fingerprint(run_fingerprint(config, arrays))
+    src = ArraysWindowSource(arrays, max(int(config.batch_size),
+                                         DEFAULT_CHUNK_READS), start_ordinal)
+    eng = StreamResidentEngine(src, config, dev, chunk_rows=chunk_rows)
+    clock.mark("setup")
+    recal = eng.run_passes_1_to_3(ckpt, clock.mark)
+    out = np.empty((arrays.num_reads, arrays.max_len), dtype=np.int8)
+    for ordinal, nq, _ in eng.gathered(recal):
+        s = ordinal - start_ordinal
+        out[s:s + nq.shape[0]] = nq
+    clock.mark("pass4")
+    return out
+
+
+def _open_sinks(out_paths, in_paths, done_chunks: int, p4):
+    """(sinks, opened, single_sink): the pass-4 sinks (one, or one per
+    input) and those this run opened.  A resumed single plain sink is
+    truncated to the bytes checkpointed and continues there."""
+    single_sink = not isinstance(out_paths, (list, tuple))
+    opened: list = []
+    if single_sink:
+        if not isinstance(out_paths, (str, bytes)):
+            return [out_paths], opened, True
+        if done_chunks:
+            f = open(out_paths, "r+b")
+            f.truncate(int(p4["bytes"]))
+            f.seek(int(p4["bytes"]))
+        else:
+            f = open_fastq_sink(out_paths)
+        opened.append(f)
+        return [f], opened, True
+    if len(out_paths) != len(in_paths):
+        raise ValueError("need one output per input (or one sink)")
+    sinks = []
+    try:
+        for o in out_paths:
+            if isinstance(o, (str, bytes)):
+                f = open_fastq_sink(o)
+                opened.append(f)
+                sinks.append(f)
+            else:
+                sinks.append(o)
+    except BaseException:
+        for f in opened:
+            f.close()
+        raise
+    return sinks, opened, False
+
+
+def recalibrate_fastq_stream_resident(
+        in_paths, out_paths, config, checkpoint_dir: str | None = None,
+        interleaved: bool = False, chunk_reads: int = DEFAULT_CHUNK_READS,
+        timings: dict | None = None, report_out: str | None = None,
+        apply_report: str | None = None, device=None,
+        host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES,
+        device_cache_bytes: int | None = None) -> dict:
+    """FASTQ -> FASTQ recalibration through the windowed engine, with host
+    memory O(window) when the host cache is off or overflows; the output
+    bytes equal ``recalibrate_fastq``'s for any `chunk_reads` (and the JAX
+    package's streamed bytes).  Public as
+    ``pipeline.recalibrate_fastq_streaming``.
+
+    Output semantics as ``recalibrate_fastq``: a single path or writable is
+    one concatenated sink, a list one output per input.  Interleaved
+    pairing takes the parity of the global ordinal across files (the JAX
+    package's streamed rule).  report_out / apply_report as in
+    ``recalibrate_fastq``.  checkpoint_dir: pass-boundary checkpoints under
+    ``stream_fingerprint`` (with chunk_reads and interleaved); into one
+    plain output file pass 4 is written synchronously and resumes at the
+    chunk recorded in ``meta["pass4"]`` (a ``.gz`` sink restarts pass 4).
+    host_cache_bytes: decoded chunks kept on the host across passes (0:
+    re-read the files every pass); device_cache_bytes: the budget under
+    which every window's tensors stay on the card from pass 1 to pass 4
+    (default: half its free memory).  `timings` gets per-stage seconds
+    and, on a card, peak device bytes (scan, setup, pass1-4, deltas).
+    device=None means the CUDA device (raises without one).
+    """
+    dev = resolve_device(device)
+    clock = StageClock(timings, dev)
+    if isinstance(in_paths, (str, bytes)):
+        in_paths = [in_paths]
+    scan = scan_fastq_files(in_paths, config.k, chunk_reads)
+    clock.mark("scan")
+    src = FastqWindowSource(in_paths, scan, interleaved, chunk_reads,
+                            host_cache_bytes)
+    eng = StreamResidentEngine(src, config, dev, device_cache_bytes)
+
+    ckpt = None
+    if checkpoint_dir:
+        from ..state.checkpoint import Checkpoint, stream_fingerprint
+        ckpt = Checkpoint(checkpoint_dir)
+        fp = stream_fingerprint(config, in_paths, scan)
+        # pass 4 resumes by chunk, and pairing changes the covariates
+        fp["chunk_reads"] = int(chunk_reads)
+        fp["interleaved"] = bool(interleaved)
+        ckpt.check_fingerprint(fp)
+    rg_names = [str(p) for p in in_paths]
+    clock.mark("setup")
+
+    if apply_report is not None:
+        from ..gatk_report import read_gatk_report, recal_table_from_report
+        recal = recal_table_from_report(read_gatk_report(apply_report),
+                                        rg_names, eng.L)
+    else:
+        recal = eng.run_passes_1_to_3(ckpt, clock.mark)
+        if report_out is not None:
+            from ..gatk_report import write_gatk_report
+            write_gatk_report(eng.tables, rg_names, report_out)
+
+    # ---- pass 4: gather on the card, render + write in order on one thread
+    p4 = ckpt.load_meta().get("pass4") if ckpt else None
+    # a byte-offset resume needs one seekable plain sink; a .gz sink is a
+    # compressed stream, so its pass 4 restarts from chunk 0
+    resumable = (ckpt is not None and isinstance(out_paths, (str, bytes))
+                 and not is_gz_path(out_paths))
+    done_chunks = int(p4["chunks"]) if resumable and p4 else 0
+    sinks, opened, single_sink = _open_sinks(out_paths, in_paths,
+                                             done_chunks, p4)
+    writer = ThreadPoolExecutor(1)
+    pending: list = []
+    chunk_idx = 0
+    try:
+        for _, nq, (_, arrs, fi, fq) in eng.gathered(recal, host=True):
+            if chunk_idx < done_chunks:
+                chunk_idx += 1
+                continue
+            sink = sinks[0] if single_sink else sinks[fi]
+            if resumable:
+                sink.write(render_fastq_with_quals(fq, nq, arrs[2]))
+                sink.flush()
+                meta = ckpt.load_meta()
+                meta["pass4"] = {"chunks": chunk_idx + 1,
+                                 "bytes": sink.tell()}
+                ckpt.save_meta(meta)
+            else:
+                if len(pending) >= 2:    # at most two windows wait to be written
+                    pending.pop(0).result()
+                pending.append(writer.submit(
+                    lambda f=fq, q=nq, m=arrs[2], s=sink:
+                    s.write(render_fastq_with_quals(f, q, m))))
+            chunk_idx += 1
+    finally:
+        try:
+            for f in pending:     # every queued write, before the sinks close
+                f.result()
+        finally:
+            writer.shutdown(wait=True)
+            for f in opened:
+                f.close()
+    clock.mark("pass4")
+    return {"num_reads": scan.num_reads, "total_bases": scan.total_bases,
+            "read_groups": eng.num_rg, "streamed": True,
+            "engine": "resident-window", "chunks": chunk_idx}

@@ -3,7 +3,8 @@
 The native IO codec (kbbq_tpu/io/native) builds lazily via make on first
 use; no build step is required here (and no pybind11 — ctypes bindings).
 The PyTorch/CUDA port (kbbq_tpu_torch, extra "torch") ships its CUDA source
-and builds it with nvcc at first use, also bound with ctypes.
+and its C++ IO codec and builds them at first use (nvcc, g++ with zlib),
+also bound with ctypes.
 """
 
 from setuptools import find_packages, setup
@@ -16,7 +17,7 @@ setup(
     packages=find_packages(include=["kbbq_tpu", "kbbq_tpu.*",
                                     "kbbq_tpu_torch", "kbbq_tpu_torch.*"]),
     package_data={"kbbq_tpu.io": ["native/Makefile", "native/*.cc"],
-                  "kbbq_tpu_torch": ["csrc/*.cu"]},
+                  "kbbq_tpu_torch": ["csrc/*.cu", "csrc/*.cc"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy"],
     extras_require={"plot": ["matplotlib"],

@@ -157,7 +157,9 @@ def test_fused_kernel_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError):
         kernels.bloom_or_words(packed, packed[:4], packed[:4],
                                torch.ones(4, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        kernels.hash_only(codes, 16, 7)
     assert set(kernels.ENTRY_LAUNCHES) == {
         "bloom_probe_hashed", "bloom_probe_words", "bloom_probe_trust",
-        "bloom_or_words", "hash_build", "walk_errors"}
+        "bloom_or_words", "hash_build", "hash_only", "walk_errors"}
     assert not any(kernels.LAUNCHES.values())

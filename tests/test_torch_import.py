@@ -24,8 +24,12 @@ import kbbq_tpu_torch
 from kbbq_tpu_torch import (gatk_report, io, kernels, ops, oracle, pipeline,
                             state)
 from kbbq_tpu_torch.ops import hash_cache, trusted
-from kbbq_tpu_torch.utils import synth
-from kbbq_tpu_torch.pipeline import RecalConfig, recalibrate_fastq
+from kbbq_tpu_torch.io import bgzf, native_lib, stream
+from kbbq_tpu_torch.state import checkpoint
+from kbbq_tpu_torch.utils import mem, synth
+from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_fastq,
+                                     recalibrate_fastq_streaming,
+                                     stream_resident, streaming)
 from kbbq_tpu_torch.pipeline.recalibrate import apply_table_arrays
 cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
 src = {os.path.join(REPO, 'tests', 'data', 'tiny.fq')!r}
@@ -34,11 +38,17 @@ recalibrate_fastq(src, {str(tmp_path / 'direct.fq')!r}, cfg, device="cpu",
 info = recalibrate_fastq(src, {str(tmp_path / 'out.fq')!r}, cfg,
                          device="cpu",
                          apply_report={str(tmp_path / 'recal.report')!r})
+recalibrate_fastq_streaming(src, {str(tmp_path / 'streamed.fq.gz')!r}, cfg,
+                            chunk_reads=50, device="cpu",
+                            checkpoint_dir={str(tmp_path / 'ck')!r})
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "kbbq_tpu" or m.startswith("kbbq_tpu."))
+libs = sorted(set(ln.split()[-1] for ln in open("/proc/self/maps")
+                  if "kbbq" in ln and ln.rstrip().endswith(".so")))
 print("READS", info["num_reads"])
 print("BAD", bad)
+print("LIBS", libs)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", prog], cwd=REPO, env=env,
@@ -50,6 +60,12 @@ print("BAD", bad)
                              "tiny.recal.golden.fq"), "rb").read()
     assert (tmp_path / "out.fq").read_bytes() == want
     assert (tmp_path / "direct.fq").read_bytes() == want
+    import gzip
+    assert gzip.decompress((tmp_path / "streamed.fq.gz").read_bytes()) == want
+    # the port's own codec is loaded, never the JAX package's build of its
+    libs = res.stdout.split("LIBS ")[1]
+    assert "kbbq_tpu_torch/build/libkbbq_io.so" in libs
+    assert "kbbq_tpu/io/native" not in libs
 
 
 def _port_sources():
@@ -72,7 +88,9 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["run_pipeline", "recalibrate_fastq",
-                                   "recalibrate_arrays_resident"])
+                                   "recalibrate_arrays_resident",
+                                   "recalibrate_fastq_streaming",
+                                   "recalibrate_arrays_windowed"])
 def test_entry_points_default_to_the_card_and_raise_without_one(
         entry, tmp_path, monkeypatch):
     """device=None means CUDA; with no CUDA device the call raises (and
@@ -82,6 +100,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
     from kbbq_tpu_torch import resolve_device
     from kbbq_tpu_torch.io.batcher import ReadArrays
     from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_fastq,
+                                         recalibrate_arrays_windowed,
+                                         recalibrate_fastq_streaming,
                                          run_pipeline)
     from kbbq_tpu_torch.pipeline.resident import recalibrate_arrays_resident
     arrays = ReadArrays(np.zeros((2, 20), np.int8), np.full((2, 20), 30,
@@ -96,6 +116,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
         elif entry == "recalibrate_fastq":
             recalibrate_fastq(os.path.join(REPO, "tests", "data", "tiny.fq"),
                               str(out), cfg)
+        elif entry == "recalibrate_fastq_streaming":
+            recalibrate_fastq_streaming(
+                os.path.join(REPO, "tests", "data", "tiny.fq"), str(out), cfg)
+        elif entry == "recalibrate_arrays_windowed":
+            recalibrate_arrays_windowed(arrays, cfg)
         else:
             recalibrate_arrays_resident(arrays, cfg)
     assert not out.exists()
@@ -121,6 +146,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         kernels.bloom_or_words(packed, x, x, keep)
     with pytest.raises(ValueError):
+        kernels.hash_only(torch.zeros((2, 40), dtype=torch.int8), 16, 7)
+    with pytest.raises(ValueError):
         kernels.walk_errors(torch.zeros((2, 40), dtype=torch.int8),
                             torch.zeros((2, 25), dtype=torch.bool), packed,
                             16, 16, 7)
@@ -138,7 +165,7 @@ def test_kernel_source_holds_the_three_kernels_and_their_notes():
         assert f"__global__ void {name}(" in src
     for fn in ("kbbq_bloom_probe_hashed", "kbbq_bloom_probe_words",
                "kbbq_bloom_probe_trust", "kbbq_bloom_or_words",
-               "kbbq_hash_build", "kbbq_walk_errors"):
+               "kbbq_hash_build", "kbbq_hash_only", "kbbq_walk_errors"):
         assert re.search(rf"\bint {fn}\(", src)
     assert src.count("// Replaces:") == 3 and src.count("// Bound by:") == 3
     assert "torch/extension.h" not in src

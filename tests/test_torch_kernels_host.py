@@ -24,7 +24,7 @@ import torch
 
 from kbbq_tpu_torch import kernels
 from kbbq_tpu_torch.ops import bloom as tbloom
-from kbbq_tpu_torch.ops.hash_cache import hash_cache_chunk
+from kbbq_tpu_torch.ops.hash_cache import hash_cache_chunk, hash_windows_plain
 from kbbq_tpu_torch.ops.inference import infer_errors_plain
 from kbbq_tpu_torch.utils.synth import make_two_sided_reads
 
@@ -53,8 +53,8 @@ def _host_source(cuda_source: str) -> str:
         grid, threads = _split_top(m.group(2))[:2]
         tail = ")" if m.group(3) else ", "
         return f"LAUNCH({m.group(1)}, {grid}, {threads}{tail}"
-    src = re.sub(r"(\w+)<<<(.*?)>>>\(\s*(\))?", launch, cuda_source,
-                 flags=re.S)
+    src = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(\s*(\))?", launch,
+                 cuda_source, flags=re.S)
     return src.replace("extern __shared__ uint4 smem4[];", "")
 
 
@@ -134,6 +134,44 @@ def test_hash_build_logic_matches_plain(lib, case):
     assert torch.equal(word, want[1])
     assert torch.equal(keep.view(torch.uint8), want[2].view(torch.uint8))
     assert torch.equal(packed, want_f)
+
+
+@pytest.mark.parametrize("case", HASH_CASES, ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}")
+def test_hash_only_mode_matches_plain(lib, case):
+    """The hash-only mode of the fused entry point (passes 2 and 3 of the
+    windowed engine): h1 and word of every window equal the plain hash
+    pass's, on ragged last tiles, k = 32 and k < 17, reads with N and base
+    pointers 1-3 rows into the codes.  Its C entry point takes no filter and
+    no keep plane, so there is nothing of either it could touch; the
+    (h1, word) planes are the fused build's, whatever the filter held."""
+    N, L, k, first_id, rows, off, thr = case
+    rng = np.random.default_rng(N * L + k + 1)
+    _, codes = _reads(rng, N + off, L, n_rate=0.03)
+    c = torch.from_numpy(codes)[off:]
+    n = max(L - k + 1, 0)
+    want_h1, want_word, _ = hash_cache_chunk(
+        c, torch.arange(first_id, first_id + N, dtype=torch.int64), k, 7,
+        thr)
+    assert len(lib.kbbq_hash_only.argtypes) == 9       # codes, h1, word, ...
+    h1 = torch.full((N, n), 77, dtype=torch.int32)
+    word = h1.clone()
+    rc = lib.kbbq_hash_only(c.data_ptr(), h1.data_ptr(), word.data_ptr(), N,
+                            L, k, 7, rows, None)
+    assert rc == 0
+    assert torch.equal(h1, want_h1) and torch.equal(word, want_word)
+    p1, pw = hash_windows_plain(c, k, 7, chunk_rows=7)
+    assert torch.equal(p1, want_h1) and torch.equal(pw, want_word)
+    if n:
+        # the same planes as the fused build writes into a filter it fills
+        packed = torch.zeros(1 << 11, dtype=torch.int32)
+        b1, bw, bk = (torch.empty((N, n), dtype=torch.int32),
+                      torch.empty((N, n), dtype=torch.int32),
+                      torch.empty((N, n), dtype=torch.bool))
+        assert lib.kbbq_hash_build(c.data_ptr(), packed.data_ptr(),
+                                   packed.numel() - 1, b1.data_ptr(),
+                                   bw.data_ptr(), bk.data_ptr(), N, first_id,
+                                   L, k, 7, thr, rows, None) == 0
+        assert torch.equal(b1, h1) and torch.equal(bw, word)
 
 
 @pytest.mark.parametrize("n", [1, 255, 3000, 10000])
