@@ -16,13 +16,24 @@ size of BASELINE.json config 2 (E. coli-like 4.6 Mb genome, 2x150 bp, ~50x,
 the launches of each asserted by entry point.  Beside them: the native FASTQ
 codec against its NumPy versions on the same file, and the checkpoints
 (resume after pass 3 and inside pass 4, in memory, the fingerprint guard) on
-the midscale golden.  Any failed phase raises, so the exit code is non-zero;
-without a CUDA device the script exits 1 at once and prints no result.
+the midscale golden.  Then the BAM routes at the size of BASELINE.json
+config 3: the same reads written as a coordinate-sorted BGZF BAM (three read
+groups, half the records on the reverse strand, ~1 % secondary and
+supplementary copies), decoded back exactly, recalibrated by
+``recalibrate_bam(set_oq=True)`` (qualities equal ``run_pipeline``'s on the
+same arrays; every other byte, the OQ tags and the pass-through records as
+required; a second run gives the same bytes), by
+``recalibrate_bam_streaming`` (the same bytes), and again with
+``use_oq=True`` from that output (the same qualities); launches asserted by
+entry point on both routes, the native BAM codec timed against its NumPy
+versions.  Any failed phase raises, so the exit code is non-zero; without a
+CUDA device the script exits 1 at once and prints no result.
 
 Output, last three lines: a JSON object {"kernels": [...]} (one entry per
 kernel entry point: launches on its path (``launches``: the resident main
 path's count, the streamed path's for the hash-only entry, whose only path
-it is; ``launches_streamed`` beside it in every entry), mismatches against the plain
+it is; ``launches_streamed``, ``launches_bam`` and ``launches_bam_streamed``
+beside it in every entry), mismatches against the plain
 version, times in ms, the roofline bound; the probe's entries also
 "bound_l2_ms", the time its sector traffic took in this run when every
 filter read hit in L2, and the cached word test "ms_by_log2_m", its time
@@ -75,6 +86,7 @@ KERNEL_SOURCE = "kbbq_tpu_torch/csrc/kbbq_kernels.cu"
 CODEC_SOURCE = "kbbq_tpu_torch/csrc/kbbq_io.cc"
 STREAM_WINDOW = 131_072      # reads per window of the streamed path
 CKPT_CHUNK = 4096            # reads per chunk of the checkpoint runs
+BAM_EXTRA_SHARE = 0.01       # primaries followed by a secondary/supplementary
 DEVICE = "cuda"
 
 
@@ -988,6 +1000,270 @@ def phase_checkpoint(tmp):
         f"run's bytes ({ok}); k={k - 1} refused: {guard.split(';')[0]}")
 
 
+def check_launches(route: str, by_entry: dict, want: dict) -> None:
+    if by_entry != want:
+        raise AssertionError(f"{route} launched {by_entry}, expected {want}")
+
+
+def _uniform_records(buf, offs, sizes):
+    """[n, 4 + size] view of records that all have one size and lie back to
+    back from offset 0, or None."""
+    n = offs.size
+    rec = int(sizes[0]) + 4 if n else 0
+    if n and (sizes == sizes[0]).all() and \
+            (offs == 4 + np.arange(n, dtype=np.int64) * rec).all():
+        return buf[:n * rec].reshape(n, rec)
+    return None
+
+
+def check_bam_output(inp, out, L):
+    """Bytes of a set_oq output against its input, both (buf, offs, sizes)
+    of the alignment section: every non-primary record unchanged; every
+    primary one the same but for its block_size (grown by L + 4), its QUAL
+    field and an appended OQ:Z tag that holds the input's QUAL + 33.
+    Returns (primary, pass-through) record counts."""
+    from kbbq_tpu_torch.io.bam_vec import bam_fields, primary_rows
+    ib, io_, isz = inp
+    ob, oo, osz = out
+    f = bam_fields(ib, io_)
+    prim = np.zeros(io_.size, bool)
+    prim[primary_rows(f["flag"], f["l_seq"])] = True
+    if not (f["l_seq"] == L).all() or oo.size != io_.size or \
+            not np.array_equal(osz, isz + np.where(prim, L + 4, 0)):
+        raise AssertionError("output records have other sizes than input "
+                             "records + OQ tags")
+    recs = _uniform_records(ib, io_, isz)
+    if recs is None:
+        raise AssertionError("the synthetic input's records are not uniform")
+    R = recs.shape[1]
+    qo = int(f["qual_off"][0] - io_[0]) + 4         # QUAL within a record
+    grown = (int(isz[0]) + L + 4).to_bytes(4, "little")
+    oq_tag = np.frombuffer(b"OQZ", np.uint8)
+    ar = np.arange(R + L + 4)
+    for s in range(0, io_.size, 65536):
+        e = min(io_.size, s + 65536)
+        p = prim[s:e]
+        size = np.where(p, R + L + 4, R)
+        o = ob[np.minimum(oo[s:e, None] - 4 + ar, ob.size - 1)]
+        o[ar[None, :] >= size[:, None]] = 0
+        i = recs[s:e]
+        if not (np.array_equal(o[~p, :R], i[~p])
+                and (o[p, :4] == np.frombuffer(grown, np.uint8)).all()
+                and np.array_equal(o[p, 4:qo], i[p, 4:qo])
+                and np.array_equal(o[p, qo + L:R], i[p, qo + L:R])
+                and (o[p, R:R + 3] == oq_tag).all()
+                and np.array_equal(o[p, R + 3:R + 3 + L],
+                                   i[p, qo:qo + L] + np.uint8(33))
+                and (o[p, R + 3 + L] == 0).all()):
+            raise AssertionError(f"output records {s}..{e} differ from the "
+                                 f"input outside QUAL and the OQ tag")
+    return int(prim.sum()), int((~prim).sum())
+
+
+def phase_bam(tmp, arrays, starts, cfg):
+    """BASELINE config 3 at full size: the main path's reads as a
+    coordinate-sorted BAM with three read groups, reverse-strand records
+    and pass-through copies; the whole-file and the windowed route, the
+    use_oq rerun, launches by entry point, the native codec against its
+    NumPy versions.  Returns (whole-file, windowed) launches by entry."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.io import bgzf
+    from kbbq_tpu_torch.io import bam_vec
+    from kbbq_tpu_torch.io.bam import index_bam_bytes, read_bam_bytes
+    from kbbq_tpu_torch.io.batcher import ReadArrays
+    from kbbq_tpu_torch.pipeline import (recalibrate_bam,
+                                         recalibrate_bam_streaming,
+                                         run_pipeline)
+    from kbbq_tpu_torch.pipeline.resident import DEFAULT_CHUNK_ROWS
+    from kbbq_tpu_torch.utils.synth import (BAM_READ_GROUPS,
+                                            arrays_to_bam_bytes)
+
+    N, L = arrays.codes.shape
+    secs = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.time()
+        out = fn(*args, **kw)
+        secs[name] = round(time.time() - t0, 3)
+        return out
+
+    src = os.path.join(tmp, "reads.bam")
+    data, rows = timed("write_input", arrays_to_bam_bytes, arrays, starts,
+                       extra_share=BAM_EXTRA_SHARE)
+    with open(src, "wb") as f:
+        f.write(data)
+    raw = timed("bgzf_inflate", bgzf.decompress, data)
+    if timed("bgzf_deflate", bgzf.compress, raw) != data:
+        raise AssertionError("BGZF round trip of the input changed its bytes")
+    comp_bytes = len(data)
+    del data
+
+    # ---- decode check: the primaries against the generator's rows
+    inp = timed("index", lambda: index_bam_bytes(raw)[2:])
+    buf, offs, sizes = inp
+    _, _, _, max_len, keys = bam_vec.scan_chunk(buf, offs, sizes, cfg.k)
+    registry = {key: i for i, key in enumerate(keys)}
+    codes, quals, mask, rgs, seconds, lens, prim = timed(
+        "decode_native", bam_vec.decode_machine_chunk, buf, offs, sizes,
+        max_len, registry)
+    f = bam_vec.bam_fields(buf, offs)
+    rev = (f["flag"][prim] & 0x10) != 0
+    c_plain = np.empty((prim.size, L), np.int8)
+    q_plain = np.empty((prim.size, L), np.int8)
+    timed("decode_group_plain", bam_vec.decode_group_plain, buf,
+          f["seq_off"][prim], f["qual_off"][prim], rev, L, False, c_plain,
+          q_plain)
+    timed("decode_group_native", bam_vec.decode_group, buf,
+          f["seq_off"][prim], f["qual_off"][prim], rev, L, False, c_plain,
+          q_plain)
+    want_rgs = (np.arange(N) % len(BAM_READ_GROUPS)).astype(np.int32)
+    checks = {
+        "keys": keys == list(BAM_READ_GROUPS),
+        "codes": np.array_equal(codes, arrays.codes[rows]),
+        "quals": np.array_equal(quals, arrays.quals[rows]),
+        "seconds": np.array_equal(seconds, arrays.seconds[rows]),
+        "rgs": np.array_equal(rgs, want_rgs),
+        "mask": bool(mask.all()) and max_len == L and prim.size == N,
+        "plain_codes": np.array_equal(c_plain, codes),
+        "plain_quals": np.array_equal(q_plain, quals)}
+    if not all(checks.values()):
+        raise AssertionError(f"decoded BAM differs from the generator: "
+                             f"{checks}")
+    extra = offs.size - N
+    log(f"[bam] {offs.size} records ({N} primary, {extra} secondary or "
+        f"supplementary), {len(raw)} bytes ({comp_bytes} as BGZF level 2); "
+        f"decoded primaries equal the generator's rows (codes, quals, "
+        f"seconds, read groups {keys} by order of first appearance)")
+    sorted_arrays = ReadArrays(arrays.codes[rows], arrays.quals[rows],
+                               mask, want_rgs, arrays.seconds[rows])
+    del codes, quals, seconds, rgs, c_plain, q_plain
+
+    def decoded_quals(path):
+        b, o, s = index_bam_bytes(read_bam_bytes(path))[2:]
+        return b, o, s, bam_vec.decode_machine_chunk(
+            b, o, s, L, registry)[1]
+
+    def peaks_of(t):
+        return {k[:-len("_peak_bytes")]: t.pop(k) for k in sorted(t)
+                if k.endswith("_peak_bytes")}
+
+    # ---- whole-file route, set_oq
+    out1, out2 = (os.path.join(tmp, n) for n in ("bam1.bam", "bam2.bam"))
+    t_w: dict = {}
+    kernels.reset_launches()
+    t0 = time.time()
+    info = recalibrate_bam(src, out1, cfg, set_oq=True, timings=t_w,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    wall_w = time.time() - t0
+    by_entry_w = dict(kernels.ENTRY_LAUNCHES)
+    chunks = -(-N // DEFAULT_CHUNK_ROWS)
+    check_launches("whole-file BAM route", by_entry_w, {
+        "bloom_probe_trust": 1, "bloom_probe_words": 1,
+        "bloom_probe_hashed": 0, "hash_build": 1, "bloom_or_words": 1,
+        "hash_only": 0, "walk_errors": chunks})
+    peaks_w = peaks_of(t_w)
+    expected = run_pipeline(sorted_arrays, cfg, device=DEVICE)
+    ob, oo, osz, got = decoded_quals(out1)
+    diff = int((got != expected).sum())
+    if diff:
+        raise AssertionError(f"{diff} qualities of the whole-file BAM route "
+                             f"differ from run_pipeline on the same arrays")
+    n_prim, n_pass = check_bam_output(inp, (ob, oo, osz), L)
+    del ob, oo, osz, expected
+    recalibrate_bam(src, out2, cfg, set_oq=True, device=DEVICE)
+    with open(out1, "rb") as f1, open(out2, "rb") as f2:
+        first = f1.read()
+        if f2.read() != first:
+            raise AssertionError("second whole-file BAM run gave other bytes")
+    os.remove(out2)
+    log(f"[bam] whole-file route (set_oq): {wall_w:.3f} s, "
+        f"{N / wall_w:.0f} reads/s; qualities equal run_pipeline's on the "
+        f"same arrays; {n_prim} primary records equal the input outside "
+        f"QUAL and the OQ tag (= input QUAL + 33), {n_pass} pass-through "
+        f"records byte-identical; a second run wrote the same "
+        f"{len(first)} bytes")
+    log("[bam] whole-file seconds by stage: " + json.dumps(t_w))
+    log("[bam] whole-file peak device bytes by stage: " + json.dumps(peaks_w))
+
+    # ---- the native write-back and OQ append against their plain versions
+    new_q = got
+    qoff = f["qual_off"][prim]
+    wb = buf.copy()
+    timed("write_quals_native", bam_vec.write_quals, wb, qoff, lens, rev,
+          new_q)
+    wp = buf.copy()
+    timed("write_quals_plain", bam_vec.write_quals_plain, wp, qoff, lens,
+          rev, new_q)
+    same_wq = np.array_equal(wb, wp)
+    del wp
+    a_n = timed("append_oq_native", bam_vec.append_oq, wb, buf, offs, sizes,
+                prim, qoff, lens)
+    a_p = timed("append_oq_plain", bam_vec.append_oq_plain, wb, buf, offs,
+                sizes, prim, qoff, lens)
+    if not (same_wq and np.array_equal(a_n, a_p)):
+        raise AssertionError("native BAM write-back or OQ append differs "
+                             "from its NumPy version")
+    del wb, a_n, a_p, new_q, got
+    log("[bam] native codec and NumPy versions byte for byte equal; seconds "
+        + json.dumps(secs))
+
+    # ---- windowed route: the same bytes
+    out_s = os.path.join(tmp, "bam_streamed.bam")
+    t_s: dict = {}
+    kernels.reset_launches()
+    t0 = time.time()
+    info_s = recalibrate_bam_streaming(src, out_s, cfg, set_oq=True,
+                                       timings=t_s, device=DEVICE)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    by_entry_s = dict(kernels.ENTRY_LAUNCHES)
+    W = info_s["windows"]
+    # a window is one raw chunk of 65,536 records: one walk launch each
+    check_launches("windowed BAM route", by_entry_s, {
+        "hash_build": W, "hash_only": 2 * W, "bloom_probe_trust": W,
+        "bloom_or_words": W, "bloom_probe_words": W, "walk_errors": W,
+        "bloom_probe_hashed": 0})
+    peaks_s = peaks_of(t_s)
+    with open(out_s, "rb") as f2:
+        if f2.read() != first:
+            raise AssertionError("windowed BAM route wrote other bytes than "
+                                 "the whole-file route")
+    os.remove(out_s)
+    log(f"[bam] windowed route (set_oq): {W} windows, {wall_s:.3f} s, "
+        f"{N / wall_s:.0f} reads/s; file equal to the whole-file route's "
+        f"byte for byte; launches by entry {json.dumps(by_entry_s)}")
+    log("[bam] windowed seconds by stage: " + json.dumps(t_s))
+    log("[bam] windowed peak device bytes by stage: " + json.dumps(peaks_s))
+
+    # ---- use_oq from the first output: OQ holds the input's qualities
+    out3 = os.path.join(tmp, "bam_oq.bam")
+    t0 = time.time()
+    recalibrate_bam(out1, out3, cfg, use_oq=True, device=DEVICE)
+    torch.cuda.synchronize()
+    wall_oq = time.time() - t0
+    q1 = decoded_quals(out1)[3]
+    q3 = decoded_quals(out3)[3]
+    if not np.array_equal(q1, q3):
+        raise AssertionError("use_oq rerun gave other qualities than the "
+                             "first run")
+    log(f"[bam] use_oq rerun from the set_oq output: {wall_oq:.3f} s, "
+        f"qualities equal the first run's")
+    log(f"[bam] {smi_line()}")
+    result = {"reads": N, "records": int(offs.size), "bytes": len(raw),
+              "bgzf_bytes": comp_bytes, "whole_wall_s": wall_w,
+              "whole_reads_per_s": N / wall_w, "whole_timings": t_w,
+              "whole_peak_device_bytes": peaks_w,
+              "whole_launches_by_entry": by_entry_w,
+              "streamed_wall_s": wall_s, "streamed_reads_per_s": N / wall_s,
+              "streamed_timings": t_s, "streamed_peak_device_bytes": peaks_s,
+              "streamed_launches_by_entry": by_entry_s, "windows": W,
+              "use_oq_wall_s": wall_oq, "codec_seconds": secs,
+              "read_groups": info["read_groups"], "card": smi_line()}
+    log("[bam] " + json.dumps(result))
+    return by_entry_w, by_entry_s
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reads", type=int, default=FULL_READS,
@@ -1002,7 +1278,7 @@ def main(argv=None) -> int:
 
     from kbbq_tpu_torch.pipeline import RecalConfig
     from kbbq_tpu_torch.utils.synth import (arrays_to_fastq_bytes,
-                                            make_arrays_fast)
+                                            make_arrays_fast, read_starts)
 
     t_start = time.time()
     phase_device()
@@ -1019,7 +1295,6 @@ def main(argv=None) -> int:
     records, expected = phase_kernels(arrays, cfg)
     torch.cuda.empty_cache()
     fastq_bytes = arrays_to_fastq_bytes(arrays)
-    del arrays
 
     tmp = tempfile.mkdtemp(prefix="kbbq_smoke_")
     try:
@@ -1032,11 +1307,16 @@ def main(argv=None) -> int:
         del expected
         streamed = phase_streaming(tmp, src, out1, cfg, args.reads)
         phase_checkpoint(tmp)
+        bam, bam_streamed = phase_bam(
+            tmp, arrays, read_starts(genome_len, read_len, args.reads,
+                                     args.seed), cfg)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     for r in records:
         r["launches_streamed"] = streamed[r["entry"]]
+        r["launches_bam"] = bam[r["entry"]]
+        r["launches_bam_streamed"] = bam_streamed[r["entry"]]
         r["launches"] = (streamed if r.get("path") == "streamed"
                          else launches)[r["entry"]]
     log(f"[done] {time.time() - t_start:.0f} s in all")

@@ -1,14 +1,19 @@
-// Host IO codec of kbbq_tpu_torch: multithreaded BGZF and the FASTQ record
-// scanner, padded-array decode and quality write-back.  A C ABI loaded with
-// ctypes (kbbq_tpu_torch/io/native_lib.py builds it with g++ at first use).
+// Host IO codec of kbbq_tpu_torch: multithreaded BGZF, the FASTQ record
+// scanner, padded-array decode and quality write-back, and the BAM record
+// index, machine-order decode, QUAL write-back and OQ append.  A C ABI loaded
+// with ctypes (kbbq_tpu_torch/io/native_lib.py builds it with g++ at first
+// use).
 //
 // Counterpart of these functions of kbbq_tpu/io/native/kbbq_io.cc, with the
 // same arithmetic (so the same bytes): kbbq_bgzf_size, kbbq_bgzf_decompress,
-// kbbq_bgzf_compress, kbbq_fastq_index, kbbq_fastq_extract and
-// kbbq_fastq_write_quals.  One difference: kbbq_fastq_index returns
-// -1 - (byte offset of the record that failed) on malformed input instead of
-// a bare -1.  The reference's host pass 4, host histogram, tunnel packing,
-// BAM and rANS functions are not part of the port.
+// kbbq_bgzf_compress, kbbq_fastq_index, kbbq_fastq_extract,
+// kbbq_fastq_write_quals, kbbq_bam_offsets and kbbq_bam_decode.  Two
+// differences: kbbq_fastq_index and kbbq_bam_offsets return -1 - (byte offset
+// of the record that failed) on malformed input instead of a bare -1.
+// kbbq_bam_write_quals and kbbq_bam_append_oq are the port's own: they do
+// what loops of kbbq_tpu/io/bam_vec.py::rewrite_quals_chunk do in NumPy.  The
+// reference's host pass 4, host histogram, tunnel packing and rANS functions
+// are not part of the port.
 
 #include <cstdint>
 #include <cstring>
@@ -271,6 +276,129 @@ void kbbq_fastq_write_quals(uint8_t* out, const int64_t* qual_starts,
       const int8_t* q = new_quals + i * stride;
       const int32_t L = (int32_t)lens[i];
       for (int32_t j = 0; j < L; j++) o[j] = (uint8_t)(q[j] + 33);
+    }
+  });
+}
+
+// ----------------------------------------------------------------- BAM
+
+// Index complete BAM records in buf[start..n): out_offs[i] = body offset
+// (past the 4-byte block_size), out_sizes[i] = body size.  Stops at cap
+// records or at the first record that does not fit; *end_out is the offset
+// just past the last record indexed.  Returns the count, or -1 - (offset of
+// the block_size) when a block_size is not positive.
+int64_t kbbq_bam_offsets(const uint8_t* buf, int64_t n, int64_t start,
+                         int64_t* out_offs, int64_t* out_sizes, int64_t cap,
+                         int64_t* end_out) {
+  int64_t off = start, cnt = 0;
+  while (off + 4 <= n && cnt < cap) {
+    int32_t sz;
+    memcpy(&sz, buf + off, 4);
+    if (sz <= 0) return -1 - off;
+    if (off + 4 + sz > n) break;
+    out_offs[cnt] = off + 4;
+    out_sizes[cnt] = sz;
+    off += 4 + (int64_t)sz;
+    cnt++;
+  }
+  *end_out = off;
+  return cnt;
+}
+
+// Decode a group of records of one length L into machine order: codes from
+// the 4-bit packed SEQ (A=1 C=2 G=4 T=8, anything else N = 4), qualities
+// from QUAL clipped to 93 (so 0xff, "*", is 93), or with oq_mode from an OQ
+// value (phred + 33) clipped to [0, 93]; reverse-strand records (rev[i])
+// reverse-complemented with their qualities reversed.  Rows of out_codes and
+// out_quals are out_stride apart; the first L bytes of each are written.
+void kbbq_bam_decode(const uint8_t* buf, const int64_t* seq_off,
+                     const int64_t* qual_off, const uint8_t* rev,
+                     int64_t nrec, int32_t L, int32_t oq_mode,
+                     int8_t* out_codes, int8_t* out_quals,
+                     int64_t out_stride, int32_t nthreads) {
+  static const int8_t nib[16] = {4, 0, 1, 4, 2, 4, 4, 4,
+                                 3, 4, 4, 4, 4, 4, 4, 4};
+  const int T = (nthreads < 1 || nrec < 1024) ? 1 : nthreads;
+  run_threads(T, [&](int t) {
+    for (int64_t i = t; i < nrec; i += T) {
+      const uint8_t* s = buf + seq_off[i];
+      int8_t* oc = out_codes + i * out_stride;
+      for (int32_t j = 0; j < L; j++) {
+        const uint8_t b = s[j >> 1];
+        oc[j] = nib[(j & 1) ? (b & 0xF) : (b >> 4)];
+      }
+      const uint8_t* q = buf + qual_off[i];
+      int8_t* oq = out_quals + i * out_stride;
+      if (oq_mode) {
+        for (int32_t j = 0; j < L; j++) {
+          const int v = (int)q[j] - 33;
+          oq[j] = (int8_t)(v < 0 ? 0 : (v > 93 ? 93 : v));
+        }
+      } else {
+        for (int32_t j = 0; j < L; j++)
+          oq[j] = (int8_t)(q[j] > 93 ? 93 : q[j]);
+      }
+      if (rev[i]) {
+        for (int32_t a = 0, b = L - 1; a < b; a++, b--) {
+          int8_t c = oc[a]; oc[a] = oc[b]; oc[b] = c;
+          c = oq[a]; oq[a] = oq[b]; oq[b] = c;
+        }
+        for (int32_t j = 0; j < L; j++)
+          if (oc[j] < 4) oc[j] = (int8_t)(3 - oc[j]);
+      }
+    }
+  });
+}
+
+// Write machine-order phred rows back into the QUAL fields of BAM records,
+// in place: record i's lens[i] bytes from qual_off[i] become the first
+// lens[i] bytes of row i of new_quals ([n, stride] int8), reversed where
+// rev[i] (a reverse-strand record stores its qualities in alignment order).
+void kbbq_bam_write_quals(uint8_t* out, const int64_t* qual_off,
+                          const int64_t* lens, const uint8_t* rev,
+                          const int8_t* new_quals, int64_t n, int32_t stride,
+                          int32_t nthreads) {
+  const int T = (nthreads < 1 || n < 1024) ? 1 : nthreads;
+  run_threads(T, [&](int t) {
+    for (int64_t i = t; i < n; i += T) {
+      uint8_t* o = out + qual_off[i];
+      const int8_t* q = new_quals + i * stride;
+      const int64_t L = lens[i];
+      if (rev[i]) {
+        for (int64_t j = 0; j < L; j++) o[j] = (uint8_t)q[L - 1 - j];
+      } else {
+        for (int64_t j = 0; j < L; j++) o[j] = (uint8_t)q[j];
+      }
+    }
+  });
+}
+
+// Assemble records that each gain an OQ:Z tag at the end of their aux data.
+// Record i (block_size included) is copied from wbuf[offs[i] - 4 ..
+// offs[i] + sizes[i]) to out[dst[i]..); where oq_len[i] >= 0 its block_size
+// grows by oq_len[i] + 4 and "OQZ", the oq_len[i] bytes from
+// orig[qual_off[i]..] plus 33 (wrapping, as uint8) and a NUL follow.  A
+// record with oq_len[i] < 0 is copied as it is.
+void kbbq_bam_append_oq(const uint8_t* wbuf, const uint8_t* orig,
+                        const int64_t* offs, const int64_t* sizes,
+                        const int64_t* qual_off, const int64_t* oq_len,
+                        const int64_t* dst, uint8_t* out, int64_t n,
+                        int32_t nthreads) {
+  const int T = (nthreads < 1 || n < 1024) ? 1 : nthreads;
+  run_threads(T, [&](int t) {
+    for (int64_t i = t; i < n; i += T) {
+      uint8_t* o = out + dst[i];
+      const int64_t seg = sizes[i] + 4;
+      memcpy(o, wbuf + offs[i] - 4, (size_t)seg);
+      const int64_t L = oq_len[i];
+      if (L < 0) continue;
+      const int32_t grown = (int32_t)(sizes[i] + L + 4);
+      memcpy(o, &grown, 4);
+      uint8_t* tag = o + seg;
+      tag[0] = 'O'; tag[1] = 'Q'; tag[2] = 'Z';
+      const uint8_t* q = orig + qual_off[i];
+      for (int64_t j = 0; j < L; j++) tag[3 + j] = (uint8_t)(q[j] + 33);
+      tag[3 + L] = 0;
     }
   });
 }

@@ -5,8 +5,10 @@
 source is newer than the library; a build writes a temporary file and
 renames it, so a concurrent build in another process never loads half a
 library.  A failed build raises with the compiler's output: there is no
-fallback.  The NumPy versions beside the callers (``io/fastq.py``'s
-``*_plain``, ``io/bgzf.py``'s ``_compress_py``) exist for the tests.
+fallback.  The NumPy versions beside the callers (``io/fastq.py``'s and
+``io/bam_vec.py``'s ``*_plain``, ``io/bam_stream.py``'s
+``_scan_record_index_plain``, ``io/bgzf.py``'s ``_compress_py``) exist for
+the tests.
 
 Counterpart of ``kbbq_tpu/io/native_lib.py`` for the functions the port
 uses (the JAX package's copy of the library is never loaded).  Nothing here
@@ -79,6 +81,15 @@ def _bind(lib) -> None:
     lib.kbbq_fastq_extract.restype = None
     lib.kbbq_fastq_write_quals.argtypes = [p, p, p, p, i64, i32, i32]
     lib.kbbq_fastq_write_quals.restype = None
+    lib.kbbq_bam_offsets.argtypes = [p, i64, i64, p, p, i64, p]
+    lib.kbbq_bam_offsets.restype = i64
+    lib.kbbq_bam_decode.argtypes = [p, p, p, p, i64, i32, i32, p, p, i64,
+                                    i32]
+    lib.kbbq_bam_decode.restype = None
+    lib.kbbq_bam_write_quals.argtypes = [p, p, p, p, p, i64, i32, i32]
+    lib.kbbq_bam_write_quals.restype = None
+    lib.kbbq_bam_append_oq.argtypes = [p, p, p, p, p, p, p, p, i64, i32]
+    lib.kbbq_bam_append_oq.restype = None
 
 
 def library():
@@ -197,3 +208,123 @@ def fastq_write_quals(out: np.ndarray, qual_starts: np.ndarray,
     library().kbbq_fastq_write_quals(
         out.ctypes.data, qs.ctypes.data, ln.ctypes.data, q.ctypes.data, n,
         q.shape[1], default_threads())
+
+
+def _i64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, np.int64).reshape(-1)
+
+
+def _check_spans(starts: np.ndarray, lens, size: int, what: str) -> None:
+    """Raise unless every [starts[i], starts[i] + lens[i]) lies in [0,
+    size)."""
+    if starts.size and (int(starts.min()) < 0 or int(np.min(lens)) < 0
+                        or int((starts + lens).max()) > size):
+        raise ValueError(f"a record's {what} fall outside the buffer")
+
+
+def bam_offsets(buf, start: int = 0):
+    """Index the complete BAM records of buf[start:] (uint8: block_size,
+    body, block_size, body, ...) -> (offs, sizes, end): int64 body offsets
+    and sizes, and the offset past the last complete record.  Raises
+    ValueError naming the byte offset of a block_size that is not
+    positive."""
+    arr = _u8(buf)
+    n = arr.size
+    lib = library()
+    offs_l, sizes_l = [], []
+    end = ctypes.c_int64(start)
+    while True:
+        # a record holds at least 4 + 32 + 1 bytes; the loop takes the rest
+        # of a buffer of smaller (malformed) records
+        cap = max(1, (n - end.value) // 37 + 8)
+        offs = np.empty(cap, np.int64)
+        sizes = np.empty(cap, np.int64)
+        cnt = lib.kbbq_bam_offsets(arr.ctypes.data, n, end.value,
+                                   offs.ctypes.data, sizes.ctypes.data, cap,
+                                   ctypes.byref(end))
+        if cnt < 0:
+            raise ValueError(f"malformed BAM record size at byte {-1 - cnt}")
+        offs_l.append(offs[:cnt])
+        sizes_l.append(sizes[:cnt])
+        if cnt < cap:
+            break
+    if len(offs_l) == 1:
+        return offs_l[0], sizes_l[0], int(end.value)
+    return np.concatenate(offs_l), np.concatenate(sizes_l), int(end.value)
+
+
+def bam_decode(buf, seq_off, qual_off, rev, L: int, oq_mode: bool,
+               out_codes: np.ndarray, out_quals: np.ndarray) -> None:
+    """Machine-order decode of records of one length L into the first L
+    columns of out_codes and out_quals (int8, C-contiguous [n, stride >=
+    L]): codes from the packed SEQ at seq_off, qualities from QUAL at
+    qual_off (or, with oq_mode, an OQ value there), reversed and
+    complemented where rev."""
+    src = _u8(buf)
+    so, qo = _i64(seq_off), _i64(qual_off)
+    rv = np.ascontiguousarray(rev, np.uint8).reshape(-1)
+    n = so.size
+    if qo.size != n or rv.size != n or L < 0:
+        raise ValueError("need one offset pair and strand per record")
+    for a in (out_codes, out_quals):
+        if a.dtype != np.int8 or a.ndim != 2 or a.shape[0] != n or \
+                a.shape[1] < L or not a.flags.c_contiguous:
+            raise ValueError(f"outputs must be C-contiguous int8 [{n}, >= "
+                             f"{L}]")
+    _check_spans(so, (L + 1) // 2, src.size, "sequence bytes")
+    _check_spans(qo, L, src.size, "quality bytes")
+    library().kbbq_bam_decode(
+        src.ctypes.data, so.ctypes.data, qo.ctypes.data, rv.ctypes.data, n,
+        int(L), 1 if oq_mode else 0, out_codes.ctypes.data,
+        out_quals.ctypes.data, out_codes.shape[1], default_threads())
+
+
+def bam_write_quals(out: np.ndarray, qual_off, lens, rev,
+                    new_quals: np.ndarray) -> None:
+    """Overwrite the QUAL fields of BAM records in `out` (uint8,
+    C-contiguous, in place) from machine-order rows: record i's lens[i]
+    bytes from qual_off[i] become new_quals[i, :lens[i]], reversed where
+    rev[i]."""
+    qo, ln = _i64(qual_off), _i64(lens)
+    rv = np.ascontiguousarray(rev, np.uint8).reshape(-1)
+    q = np.ascontiguousarray(new_quals, np.int8)
+    n = qo.size
+    if out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError("out must be a C-contiguous uint8 array")
+    if ln.size != n or rv.size != n or q.ndim != 2 or q.shape[0] != n:
+        raise ValueError("need one offset, length, strand and row per record")
+    if n and int(ln.max()) > q.shape[1]:
+        raise ValueError("a record is longer than its row of qualities")
+    _check_spans(qo, ln, out.size, "qualities")
+    library().kbbq_bam_write_quals(out.ctypes.data, qo.ctypes.data,
+                                   ln.ctypes.data, rv.ctypes.data,
+                                   q.ctypes.data, n, q.shape[1],
+                                   default_threads())
+
+
+def bam_append_oq(wbuf: np.ndarray, orig: np.ndarray, offs, sizes, qual_off,
+                  oq_len) -> np.ndarray:
+    """Records of `wbuf` (block_size prefixes included, body offsets `offs`)
+    copied back to back into a new uint8 array, each record with
+    oq_len[i] >= 0 followed by an OQ:Z tag holding orig[qual_off[i] ..
+    + oq_len[i]] + 33 and its block_size grown to match."""
+    wb, og = _u8(wbuf), _u8(orig)
+    of, sz, qo, ol = _i64(offs), _i64(sizes), _i64(qual_off), _i64(oq_len)
+    n = of.size
+    if sz.size != n or qo.size != n or ol.size != n:
+        raise ValueError("need one offset, size and OQ length per record")
+    _check_spans(of - 4, sz + 4, wb.size, "bytes")
+    grow = np.where(ol >= 0, ol + 4, 0)
+    has = ol >= 0
+    _check_spans(qo[has], ol[has], og.size, "qualities")
+    seg = sz + 4 + grow
+    dst = np.zeros(n, np.int64)
+    if n > 1:
+        np.cumsum(seg[:-1], out=dst[1:])
+    out = np.empty(int(seg.sum()), np.uint8)
+    library().kbbq_bam_append_oq(wb.ctypes.data, og.ctypes.data,
+                                 of.ctypes.data, sz.ctypes.data,
+                                 qo.ctypes.data, ol.ctypes.data,
+                                 dst.ctypes.data, out.ctypes.data, n,
+                                 default_threads())
+    return out

@@ -1,8 +1,9 @@
-"""Windowed single-device engine: out-of-core FASTQ, checkpoints, ordinals.
+"""Windowed single-device engine: out-of-core FASTQ and BAM, checkpoints.
 
-Counterpart of the FASTQ half of ``kbbq_tpu/pipeline/stream_resident.py``
-(``_HostChunkCache``, ``FastqWindowSource``, ``StreamResidentEngine``,
-``recalibrate_fastq_stream_resident``) and of the in-memory
+Counterpart of ``kbbq_tpu/pipeline/stream_resident.py``
+(``_HostChunkCache``, ``FastqWindowSource``, ``BamWindowSource``,
+``StreamResidentEngine``, ``recalibrate_fastq_stream_resident``,
+``recalibrate_bam_stream_resident``) and of the in-memory
 ``kbbq_tpu/pipeline/recalibrate.py::recalibrate_arrays``.  The input goes
 through the card in WINDOWS of reads; every tensor of a window lives on the
 card, and the passes run the resident path's kernels on it:
@@ -19,12 +20,16 @@ card, and the passes run the resident path's kernels on it:
           device for all windows
   host    float64 delta math -> int8 Q' table
   pass 4  the device gather per window, back to the host; FASTQ windows are
-          rendered by the native codec and written in order on one thread
+          rendered, BAM chunks rewritten, by the native codec and written in
+          order on one thread
 
 No window's hash cache outlives its pass, so device memory is O(window +
 filters).  When every window's tensors fit ``device_cache_bytes`` they are
-kept on the card from pass 1 to pass 4; decoded FASTQ chunks are kept on
-the host under ``host_cache_bytes``.  Neither changes a byte of output.
+kept on the card from pass 1 to pass 4; decoded FASTQ and BAM chunks are
+kept on the host under ``host_cache_bytes``.  Neither changes a byte of
+output.  A BAM window is one raw chunk of records (its primary records, at
+the global ordinal of the first); the reference's ``rebuffer_windows``,
+which re-cuts them into windows of one size for jit, has no use here.
 
 Pass boundaries are checkpoints (``state/checkpoint.py``: the JAX package's
 files), and a streamed FASTQ run into one plain file resumes pass 4 at the
@@ -174,6 +179,71 @@ class ArraysWindowSource:
             yield self.start_ordinal + s, arrs, None, None
 
 
+class BamWindowSource:
+    """Windows over a BAM: one window per raw chunk of `chunk_records`
+    records that holds a primary record, decoded by
+    ``io/bam_vec.py::decode_machine_chunk``, at the global ordinal of its
+    first primary record.  Items: (ordinal, decoded arrays, raws), raws the
+    (buf, offs, sizes, decoded) of the window's chunk and of the chunks
+    with no primary record around it (those before the first window go
+    with it, the others with the window before them), so pass 4 writes
+    every chunk of the file in order."""
+
+    def __init__(self, path: str, registry: dict, max_len: int,
+                 num_reads: int, total_bases: int, total_kmers_: int,
+                 use_oq: bool, chunk_records: int,
+                 host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES):
+        self.path = path
+        self.registry = registry
+        self.num_rg = max(1, len(registry))
+        self.max_len = max_len
+        self.num_reads = num_reads
+        self.total_bases = total_bases
+        self._tk = total_kmers_
+        self.use_oq = use_oq
+        self.chunk_records = int(chunk_records)
+        self._cache = _HostChunkCache(host_cache_bytes)
+
+    def total_kmers(self, k: int) -> int:
+        return self._tk
+
+    def raw_chunks_decoded(self):
+        """(buf, offs, sizes, decoded) per raw chunk, memoised under the
+        host cache budget; inflate and record index run on their own
+        thread."""
+        if self._cache.complete:
+            yield from self._cache.items
+            return
+        from ..io.bam_stream import iter_bam_raw_chunks
+        from ..io.bam_vec import decode_machine_chunk
+        self._cache.restart()
+        _, _, chunks = iter_bam_raw_chunks(self.path, self.chunk_records)
+        for buf, offs, sizes in prefetch_iter(chunks, depth=2):
+            dec = decode_machine_chunk(buf, offs, sizes, self.max_len,
+                                       self.registry, use_oq=self.use_oq)
+            item = (buf, offs, sizes, dec)
+            self._cache.add(item, buf.nbytes + sum(a.nbytes for a in dec))
+            yield item
+        self._cache.finish()
+
+    def windows(self):
+        pending: list = []      # chunks with no primary record, not yet placed
+        held = None             # the last window, waiting for what follows it
+        ordinal = 0
+        for item in self.raw_chunks_decoded():
+            prim = item[3][6]
+            if not prim.size:
+                (held[2] if held is not None else pending).append(item)
+                continue
+            if held is not None:
+                yield held
+            held = (ordinal, item[3][:5], pending + [item])
+            pending = []
+            ordinal += prim.size
+        if held is not None:
+            yield held
+
+
 def default_device_cache_bytes(dev) -> int:
     """Half of the card's free memory when the engine starts; on the CPU the
     host cache's budget."""
@@ -186,8 +256,9 @@ class StreamResidentEngine:
     """Per-window staging and the four passes over a window source.
 
     `source` gives num_rg, num_reads, max_len, total_bases,
-    total_kmers(k) and a re-iterable windows() of (ordinal, host arrays,
-    file index, FastqData) items."""
+    total_kmers(k) and a re-iterable windows() of items whose first two
+    fields are the window's ordinal and host arrays (codes, quals, mask,
+    rgs, seconds, ...); the rest is the source's own, for pass 4."""
 
     def __init__(self, source, config, dev, device_cache_bytes=None,
                  chunk_rows: int | None = None):
@@ -497,3 +568,100 @@ def recalibrate_fastq_stream_resident(
     return {"num_reads": scan.num_reads, "total_bases": scan.total_bases,
             "read_groups": eng.num_rg, "streamed": True,
             "engine": "resident-window", "chunks": chunk_idx}
+
+
+def recalibrate_bam_stream_resident(
+        in_path: str, out_path, config, use_oq: bool = False,
+        set_oq: bool = False, checkpoint_dir: str | None = None,
+        chunk_records: int | None = None, timings: dict | None = None,
+        report_out: str | None = None, apply_report: str | None = None,
+        device=None, host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES,
+        device_cache_bytes: int | None = None) -> dict:
+    """BAM -> BAM recalibration through the windowed engine, host memory
+    O(chunk) when the host cache is off or overflows: a scan pass
+    (``pipeline/bam.py::scan_bam``), passes 1-3 per window on the card, and
+    pass 4: the gather per window on the card, then the native rewrite of
+    the window's raw chunk (``rewrite_quals_chunk``) and the BGZF write, in
+    order, on one thread; chunks with no primary record are written as they
+    are.  The output bytes equal ``recalibrate_bam``'s (and the JAX
+    package's) for any `chunk_records` (default 65,536 records a window).
+
+    checkpoint_dir: pass-boundary checkpoints under the JAX package's BAM
+    fingerprint, so a directory written by either package resumes in the
+    other (pass 4 always runs whole).  report_out / apply_report, use_oq /
+    set_oq, host_cache_bytes / device_cache_bytes, timings and device as in
+    ``recalibrate_bam`` and ``recalibrate_fastq_stream_resident``.
+    """
+    from ..io.bam_stream import (DEFAULT_CHUNK_RECORDS, BamStreamWriter,
+                                 open_bam_stream)
+    from ..io.bam_vec import rewrite_quals_chunk
+    from .bam import _registry_names, scan_bam
+
+    dev = resolve_device(device)
+    clock = StageClock(timings, dev)
+    chunk_records = int(chunk_records or DEFAULT_CHUNK_RECORDS)
+    k = config.k
+    n, bases, tk, max_len, registry = scan_bam(in_path, k, chunk_records)
+    clock.mark("scan")
+    src = BamWindowSource(in_path, registry, max_len, n, bases, tk, use_oq,
+                          chunk_records, host_cache_bytes)
+    eng = StreamResidentEngine(src, config, dev, device_cache_bytes)
+    ckpt = None
+    if checkpoint_dir:
+        from ..state.checkpoint import Checkpoint, effective_ext_cap
+        ckpt = Checkpoint(checkpoint_dir)
+        ckpt.check_fingerprint({
+            "k": k, "alpha": config.alpha, "coverage": config.coverage,
+            "genome_length": config.genome_length,
+            "num_hashes": config.num_hashes,
+            "trust_threshold": config.trust_threshold,
+            "ext_cap": effective_ext_cap(config), "use_oq": use_oq,
+            "num_reads": n, "total_bases": bases, "bam": True})
+    rg_names = _registry_names(registry)
+    clock.mark("setup")
+
+    if apply_report is not None:
+        from ..gatk_report import read_gatk_report, recal_table_from_report
+        recal = recal_table_from_report(read_gatk_report(apply_report),
+                                        rg_names, eng.L)
+    else:
+        recal = eng.run_passes_1_to_3(ckpt, clock.mark)
+        if report_out is not None:
+            from ..gatk_report import write_gatk_report
+            write_gatk_report(eng.tables, rg_names, report_out)
+
+    # ---- pass 4: gather on the card, rewrite + write in order on one thread
+    header_text, refs, reader = open_bam_stream(in_path)
+    reader.f.close()
+    writer = BamStreamWriter(out_path, header_text, refs)
+    wex = ThreadPoolExecutor(1)
+    pending: list = []
+
+    def put(buf, offs, sizes, dec, nq):
+        lens, prim = dec[5], dec[6]
+        writer.write_raw(buf if nq is None else rewrite_quals_chunk(
+            buf, offs, sizes, prim, lens, nq, set_oq=set_oq))
+
+    windows = 0
+    try:
+        for _, nq, (_, _, raws) in eng.gathered(recal, host=True):
+            windows += 1
+            if len(pending) >= 2:     # at most two windows wait to be written
+                pending.pop(0).result()
+            for buf, offs, sizes, dec in raws:
+                pending.append(wex.submit(put, buf, offs, sizes, dec,
+                                          nq if dec[6].size else None))
+        if not windows:                  # no primary record in the file
+            for buf, offs, sizes, dec in src.raw_chunks_decoded():
+                pending.append(wex.submit(put, buf, offs, sizes, dec, None))
+    finally:
+        try:
+            for f in pending:     # every queued write, before the sink closes
+                f.result()
+        finally:
+            wex.shutdown(wait=True)
+            writer.close()
+    clock.mark("pass4")
+    return {"num_reads": n, "total_bases": bases, "read_groups": eng.num_rg,
+            "streamed": True, "engine": "resident-window",
+            "windows": windows}

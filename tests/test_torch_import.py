@@ -24,12 +24,16 @@ import kbbq_tpu_torch
 from kbbq_tpu_torch import (gatk_report, io, kernels, ops, oracle, pipeline,
                             state)
 from kbbq_tpu_torch.ops import hash_cache, trusted
-from kbbq_tpu_torch.io import bgzf, native_lib, stream
+from kbbq_tpu_torch.io import (bam, bam_stream, bam_vec, bgzf, native_lib,
+                               sam, stream)
 from kbbq_tpu_torch.state import checkpoint
 from kbbq_tpu_torch.utils import mem, synth
-from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_fastq,
+from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_bam,
+                                     recalibrate_bam_streaming,
+                                     recalibrate_fastq,
                                      recalibrate_fastq_streaming,
                                      stream_resident, streaming)
+from kbbq_tpu_torch.pipeline import bam as pipeline_bam
 from kbbq_tpu_torch.pipeline.recalibrate import apply_table_arrays
 cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
 src = {os.path.join(REPO, 'tests', 'data', 'tiny.fq')!r}
@@ -41,6 +45,19 @@ info = recalibrate_fastq(src, {str(tmp_path / 'out.fq')!r}, cfg,
 recalibrate_fastq_streaming(src, {str(tmp_path / 'streamed.fq.gz')!r}, cfg,
                             chunk_reads=50, device="cpu",
                             checkpoint_dir={str(tmp_path / 'ck')!r})
+arrays, _ = synth.make_arrays_fast(genome_len=4000, read_len=41,
+                                   num_reads=600, seed=1)
+data, _ = synth.arrays_to_bam_bytes(arrays,
+                                    synth.read_starts(4000, 41, 600, 1),
+                                    extra_share=0.1)
+open({str(tmp_path / 'in.bam')!r}, "wb").write(data)
+recalibrate_bam({str(tmp_path / 'in.bam')!r}, {str(tmp_path / 'w.sam')!r},
+                cfg, set_oq=True, device="cpu")
+recalibrate_bam({str(tmp_path / 'in.bam')!r}, {str(tmp_path / 'w.bam')!r},
+                cfg, set_oq=True, device="cpu")
+recalibrate_bam_streaming({str(tmp_path / 'in.bam')!r},
+                          {str(tmp_path / 's.bam')!r}, cfg, set_oq=True,
+                          chunk_records=100, device="cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "kbbq_tpu" or m.startswith("kbbq_tpu."))
@@ -62,6 +79,9 @@ print("LIBS", libs)
     assert (tmp_path / "direct.fq").read_bytes() == want
     import gzip
     assert gzip.decompress((tmp_path / "streamed.fq.gz").read_bytes()) == want
+    assert (tmp_path / "s.bam").read_bytes() == \
+        (tmp_path / "w.bam").read_bytes()
+    assert (tmp_path / "w.sam").read_bytes().startswith(b"@HD")
     # the port's own codec is loaded, never the JAX package's build of its
     libs = res.stdout.split("LIBS ")[1]
     assert "kbbq_tpu_torch/build/libkbbq_io.so" in libs
@@ -90,7 +110,9 @@ def test_no_source_imports_jax_or_the_jax_package():
 @pytest.mark.parametrize("entry", ["run_pipeline", "recalibrate_fastq",
                                    "recalibrate_arrays_resident",
                                    "recalibrate_fastq_streaming",
-                                   "recalibrate_arrays_windowed"])
+                                   "recalibrate_arrays_windowed",
+                                   "recalibrate_bam",
+                                   "recalibrate_bam_streaming"])
 def test_entry_points_default_to_the_card_and_raise_without_one(
         entry, tmp_path, monkeypatch):
     """device=None means CUDA; with no CUDA device the call raises (and
@@ -98,8 +120,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from kbbq_tpu_torch import resolve_device
+    from kbbq_tpu_torch.io.bam import BamFile
     from kbbq_tpu_torch.io.batcher import ReadArrays
-    from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_fastq,
+    from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_bam,
+                                         recalibrate_bam_streaming,
+                                         recalibrate_fastq,
                                          recalibrate_arrays_windowed,
                                          recalibrate_fastq_streaming,
                                          run_pipeline)
@@ -121,6 +146,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
                 os.path.join(REPO, "tests", "data", "tiny.fq"), str(out), cfg)
         elif entry == "recalibrate_arrays_windowed":
             recalibrate_arrays_windowed(arrays, cfg)
+        elif entry in ("recalibrate_bam", "recalibrate_bam_streaming"):
+            from kbbq_tpu_torch.io.bam import build_record, serialize_bam
+            src = tmp_path / "in.bam"
+            src.write_bytes(serialize_bam(BamFile("", [], [build_record(
+                "r", np.zeros(20, np.int8), np.full(20, 30, np.uint8))])))
+            out = tmp_path / "never.bam"
+            {"recalibrate_bam": recalibrate_bam,
+             "recalibrate_bam_streaming": recalibrate_bam_streaming}[entry](
+                str(src), str(out), cfg)
         else:
             recalibrate_arrays_resident(arrays, cfg)
     assert not out.exists()

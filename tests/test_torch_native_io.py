@@ -253,6 +253,28 @@ def test_failed_build_raises_with_the_compilers_words(tmp_path, monkeypatch):
     assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
 
 
+def test_failed_build_raises_on_the_bam_paths(tmp_path, monkeypatch):
+    """Without the codec the BAM index, decode and write-back raise: no
+    NumPy route is taken."""
+    from kbbq_tpu_torch.io import bam_vec
+    from kbbq_tpu_torch.io.bam import index_bam_bytes
+    data, offs, _ = _bam_stream(1, n=3)
+    monkeypatch.setattr(native_lib, "_lib", None)
+    monkeypatch.setattr(native_lib, "LIBRARY", str(tmp_path / "lib.so"))
+    monkeypatch.setattr(native_lib, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native_lib, "CXX", str(tmp_path / "no-such-g++"))
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((3, 8), np.int8)
+    for call in (lambda: native_lib.bam_offsets(data),
+                 lambda: index_bam_bytes(b"BAM\x01" + bytes(8) + data),
+                 lambda: bam_vec.decode_group(buf, offs, offs, [0] * 3, 8,
+                                              False, out, out.copy()),
+                 lambda: bam_vec.write_quals(buf.copy(), offs, [8] * 3,
+                                             [0] * 3, out)):
+        with pytest.raises(RuntimeError, match="not found"):
+            call()
+
+
 def test_build_is_fresh_and_reused(tmp_path, monkeypatch):
     """A build goes to a temporary name and is renamed; a library newer
     than its source is loaded as it is."""
@@ -316,3 +338,169 @@ def test_encode_table_and_padding_of_the_decode():
     assert (codes[1, 1:] == 4).all() and not mask[1, 1:].any()
     assert np.array_equal(codes[0, :94],
                           jokm._ENCODE_LUT[np.frombuffer(seq, np.uint8)])
+
+
+# ------------------------------------------------------------------ BAM
+
+def _bam_stream(seed, n=300, max_len=160):
+    """Raw BAM records (block_size + body) of random bodies of 33..max_len
+    bytes -> (bytes, offs, sizes)."""
+    rng = np.random.default_rng(seed)
+    out, offs, sizes = bytearray(), [], []
+    for _ in range(n):
+        size = int(rng.integers(33, max_len))
+        out += int(size).to_bytes(4, "little", signed=True)
+        offs.append(len(out))
+        sizes.append(size)
+        out += rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+    return bytes(out), np.asarray(offs, np.int64), np.asarray(sizes,
+                                                            np.int64)
+
+
+@pytest.mark.parametrize("cut", [0, 1, 3, 4, 20])
+@pytest.mark.parametrize("start", [0, "second"])
+def test_bam_offsets_match_plain_and_stop_at_a_truncated_record(cut, start):
+    from kbbq_tpu_torch.io import bam_stream
+    data, offs, sizes = _bam_stream(cut)
+    data = data[:len(data) - cut]
+    s = 0 if start == 0 else int(offs[1] - 4)
+    got = native_lib.bam_offsets(data, s)
+    want = bam_stream._scan_record_index_plain(data, s)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    keep = offs.size - (cut > 0)
+    first = 0 if start == 0 else 1
+    assert np.array_equal(got[0], offs[first:keep])
+    assert np.array_equal(got[1], sizes[first:keep])
+    assert got[2] == (len(data) if cut == 0 else int(offs[keep] - 4))
+
+
+@pytest.mark.parametrize("size", [0, -7])
+def test_bam_offsets_refuse_a_size_that_is_not_positive(size):
+    from kbbq_tpu_torch.io import bam_stream
+    from kbbq_tpu_torch.io.bam import BAMError
+    data, offs, _ = _bam_stream(9, n=5)
+    at = int(offs[3] - 4)
+    bad = data[:at] + int(size).to_bytes(4, "little", signed=True) + \
+        data[at + 4:]
+    with pytest.raises(ValueError, match=f"malformed BAM record size at "
+                                         f"byte {at}$"):
+        native_lib.bam_offsets(bad)
+    for fn in (bam_stream._scan_record_index,
+               bam_stream._scan_record_index_plain):
+        with pytest.raises(BAMError, match=f"byte {at}$"):
+            fn(bad, 0)
+
+
+def test_bam_offsets_of_more_records_than_a_first_guess():
+    """Records shorter than any real one (5 bytes): the index loops past
+    its first capacity and still finds them all."""
+    data = b"".join(b"\x01\x00\x00\x00" + bytes([i % 256])
+                    for i in range(1000))
+    offs, sizes, end = native_lib.bam_offsets(data)
+    assert offs.tolist() == list(range(4, 5000, 5)) and end == 5000
+    assert (sizes == 1).all()
+
+
+def _decode_case(seed, n=400, lens=(1, 2, 7, 150, 151)):
+    rng = np.random.default_rng(seed)
+    L = int(rng.choice(lens))
+    buf = rng.integers(0, 256, 20000, dtype=np.uint8)
+    seq = rng.integers(0, 20000 - (L + 1) // 2, n)
+    qual = rng.integers(0, 20000 - L, n)
+    rev = rng.random(n) < 0.5
+    return buf, seq, qual, rev, L
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("use_oq", [False, True])
+def test_bam_decode_matches_plain(seed, use_oq):
+    """Every nibble and byte value, odd lengths, reverse rows, OQ values
+    (phred + 33 clipped to [0, 93]) and QUAL (clipped to 93), into a wider
+    output: the NumPy version's bytes, the columns past L untouched."""
+    from kbbq_tpu_torch.io import bam_vec
+    buf, seq, qual, rev, L = _decode_case(seed, n=1500 if seed else 3)
+    n, W = seq.size, L + 3
+    got = [np.full((n, W), 77, np.int8) for _ in range(2)]
+    want = [np.full((n, W), 77, np.int8) for _ in range(2)]
+    bam_vec.decode_group(buf, seq, qual, rev, L, use_oq, *got)
+    bam_vec.decode_group_plain(buf, seq, qual, rev, L, use_oq, *want)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    assert (got[0][:, L:] == 77).all()
+    assert set(np.unique(got[0][:, :L])) <= {0, 1, 2, 3, 4}
+    assert got[1][:, :L].min() >= 0 and got[1][:, :L].max() <= 93
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bam_write_quals_matches_plain(seed):
+    """Mixed and odd lengths, reverse rows: the NumPy version's bytes, and
+    nothing outside the QUAL fields written."""
+    from kbbq_tpu_torch.io import bam_vec
+    rng = np.random.default_rng(seed)
+    n, W = 2000 if seed else 5, 151
+    lens = rng.integers(1, W + 1, n)
+    qoff = np.cumsum(np.r_[0, lens[:-1] + 3]) + 2
+    buf = rng.integers(0, 256, int(qoff[-1] + lens[-1] + 5), dtype=np.uint8)
+    rev = rng.random(n) < 0.5
+    new_q = rng.integers(0, 94, (n, W)).astype(np.int8)
+    got, want = buf.copy(), buf.copy()
+    bam_vec.write_quals(got, qoff, lens, rev, new_q)
+    bam_vec.write_quals_plain(want, qoff, lens, rev, new_q)
+    assert np.array_equal(got, want)
+    is_q = np.zeros(buf.size, bool)
+    for o, m in zip(qoff, lens):
+        is_q[o:o + m] = True
+    assert np.array_equal(got[~is_q], buf[~is_q])
+    i = int(np.flatnonzero(rev)[0])
+    assert got[qoff[i]:qoff[i] + lens[i]].tolist() == \
+        new_q[i, :lens[i]][::-1].tolist()
+
+
+@pytest.mark.parametrize("layout", ["uniform", "mixed"])
+def test_bam_append_oq_matches_plain(layout):
+    """Records that grow an OQ tag (the ORIGINAL qualities + 33, wrapping
+    for 0xff) and records copied as they are: the NumPy version's bytes
+    (its fixed-size reshape for the uniform layout)."""
+    from kbbq_tpu_torch.io import bam_vec
+    rng = np.random.default_rng(4)
+    if layout == "uniform":
+        n, size = 50, 90
+        data = bytearray()
+        for _ in range(n):
+            data += size.to_bytes(4, "little") + rng.integers(
+                0, 256, size, dtype=np.uint8).tobytes()
+        offs = 4 + np.arange(n, dtype=np.int64) * (size + 4)
+        sizes = np.full(n, size, np.int64)
+        prim = np.arange(n)
+    else:
+        data, offs, sizes = _bam_stream(5, n=300)
+        prim = np.flatnonzero(rng.random(offs.size) < 0.8)
+    buf = np.frombuffer(bytes(data), np.uint8)
+    lens = np.minimum(sizes[prim] - 20, 40)
+    qoff = offs[prim] + 10
+    wbuf = buf.copy()
+    wbuf[qoff] ^= 0x5A                 # rewritten QUAL bytes: taken from wbuf
+    got = bam_vec.append_oq(wbuf, buf, offs, sizes, prim, qoff, lens)
+    want = bam_vec.append_oq_plain(wbuf, buf, offs, sizes, prim, qoff, lens)
+    assert np.array_equal(got, want)
+    assert got.size == buf.size + int((lens + 4).sum())
+
+
+def test_bam_bindings_refuse_offsets_outside_the_buffer():
+    buf = np.zeros(64, np.uint8)
+    out = [np.empty((1, 8), np.int8) for _ in range(2)]
+    native_lib.bam_decode(buf, [60], [56], [True], 8, False, *out)
+    for seq, qual, L in (([61], [0], 8), ([0], [57], 8), ([-1], [0], 8)):
+        with pytest.raises(ValueError, match="outside"):
+            native_lib.bam_decode(buf, seq, qual, [False], L, False, *out)
+    with pytest.raises(ValueError):                  # output narrower than L
+        native_lib.bam_decode(buf, [0], [0], [False], 9, False, *out)
+    with pytest.raises(ValueError, match="outside"):
+        native_lib.bam_write_quals(buf.copy(), [60], [5], [False],
+                                   np.zeros((1, 5), np.int8))
+    with pytest.raises(ValueError, match="longer"):
+        native_lib.bam_write_quals(buf.copy(), [0], [6], [False],
+                                   np.zeros((1, 5), np.int8))
+    with pytest.raises(ValueError, match="outside"):
+        native_lib.bam_append_oq(buf, buf, [4], [61], [0], [-1])
