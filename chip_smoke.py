@@ -26,14 +26,26 @@ required; a second run gives the same bytes), by
 ``recalibrate_bam_streaming`` (the same bytes), and again with
 ``use_oq=True`` from that output (the same qualities); launches asserted by
 entry point on both routes, the native BAM codec timed against its NumPy
-versions.  Any failed phase raises, so the exit code is non-zero; without a
-CUDA device the script exits 1 at once and prints no result.
+versions.  The resident path's peak device bytes per padded base at k = 16,
+24 and 32 on a reduced input, held under the need ``fits_resident`` computes
+from the shapes.  Then CRAM (BASELINE config 3 as CRAM): the same records
+staged by ``arrays_to_cram_bytes`` in containers of 100,000 records, the
+container-windowed route (``recalibrate_cram_stream_resident``) at full
+size (qualities equal the whole-file BAM route's, every block but QS and the
+non-primary QS bytes kept, a second run equal, launches per container, a
+``use_oq`` rerun), the whole-file route (``recalibrate_cram``, per-record
+decode and encode) on the first 131,072 reads to .cram and .bam (qualities
+equal the windowed route's on that file), and the native rANS coder against
+the NumPy coder on one container's QS block.  Any failed phase raises, so
+the exit code is non-zero; without a CUDA device the script exits 1 at once
+and prints no result.
 
 Output, last three lines: a JSON object {"kernels": [...]} (one entry per
 kernel entry point: launches on its path (``launches``: the resident main
 path's count, the streamed path's for the hash-only entry, whose only path
-it is; ``launches_streamed``, ``launches_bam`` and ``launches_bam_streamed``
-beside it in every entry), mismatches against the plain
+it is; ``launches_streamed``, ``launches_bam``, ``launches_bam_streamed``,
+``launches_cram`` (the whole-file CRAM route, reduced input) and
+``launches_cram_streamed`` beside it in every entry), mismatches against the plain
 version, times in ms, the roofline bound; the probe's entries also
 "bound_l2_ms", the time its sector traffic took in this run when every
 filter read hit in L2, and the cached word test "ms_by_log2_m", its time
@@ -1065,7 +1077,8 @@ def phase_bam(tmp, arrays, starts, cfg):
     coordinate-sorted BAM with three read groups, reverse-strand records
     and pass-through copies; the whole-file and the windowed route, the
     use_oq rerun, launches by entry point, the native codec against its
-    NumPy versions.  Returns (whole-file, windowed) launches by entry."""
+    NumPy versions.  Returns (whole-file, windowed) launches by entry and
+    the whole-file route's qualities (machine order, file order)."""
     from kbbq_tpu_torch import kernels
     from kbbq_tpu_torch.io import bgzf
     from kbbq_tpu_torch.io import bam_vec
@@ -1204,7 +1217,7 @@ def phase_bam(tmp, arrays, starts, cfg):
     if not (same_wq and np.array_equal(a_n, a_p)):
         raise AssertionError("native BAM write-back or OQ append differs "
                              "from its NumPy version")
-    del wb, a_n, a_p, new_q, got
+    del wb, a_n, a_p, new_q
     log("[bam] native codec and NumPy versions byte for byte equal; seconds "
         + json.dumps(secs))
 
@@ -1261,7 +1274,348 @@ def phase_bam(tmp, arrays, starts, cfg):
               "use_oq_wall_s": wall_oq, "codec_seconds": secs,
               "read_groups": info["read_groups"], "card": smi_line()}
     log("[bam] " + json.dumps(result))
-    return by_entry_w, by_entry_s
+    return by_entry_w, by_entry_s, got
+
+
+RESIDENT_NEED_READS = 262_144   # reads of the resident-need runs
+CRAM_WHOLE_READS = 131_072      # reads of the whole-file CRAM route's input
+# the NumPy rANS coder, one operation in a process of its own: reads the
+# input from argv[2], writes the result to argv[3], prints its seconds
+_RANS_PLAIN = """
+import sys, time
+from kbbq_tpu_torch.io import cram_codecs as c
+op, src, dst = sys.argv[1:4]
+data = open(src, "rb").read()
+fn = {"o0": c.rans_compress_o0_plain, "o1": c.rans_compress_o1_plain,
+      "u0": c.rans_uncompress_plain, "u1": c.rans_uncompress_plain}[op]
+t0 = time.time()
+out = fn(data)
+print(time.time() - t0)
+open(dst, "wb").write(out)
+"""
+
+
+def phase_resident_need(arrays, cfg):
+    """The resident path's peak device bytes per padded base at k = 16, 24
+    and 32 on the first RESIDENT_NEED_READS reads, beside the need that
+    ``fits_resident`` computes from the shapes; raises if the need is below
+    a peak."""
+    from kbbq_tpu_torch.io.batcher import ReadArrays
+    from kbbq_tpu_torch.pipeline.recalibrate import (RecalConfig,
+                                                     resident_need_bytes)
+    from kbbq_tpu_torch.pipeline.resident import recalibrate_arrays_resident
+
+    n = min(RESIDENT_NEED_READS, arrays.num_reads)
+    sub = ReadArrays(arrays.codes[:n], arrays.quals[:n], arrays.mask[:n],
+                     arrays.rgs[:n], arrays.seconds[:n])
+    L = sub.max_len
+    out = {}
+    for k in (16, 24, 32):
+        c = RecalConfig(k=k, coverage=cfg.coverage)
+        t: dict = {}
+        recalibrate_arrays_resident(sub, c, timings=t, device=DEVICE)
+        peak = max(v for key, v in t.items() if key.endswith("_peak_bytes"))
+        need = resident_need_bytes(n, L, n * L, n * (L - k + 1), c)
+        out[k] = {"peak_bytes": peak, "need_bytes": need,
+                  "peak_per_padded_base": peak / (n * L),
+                  "need_per_padded_base": need / (n * L)}
+        if need < peak:
+            raise AssertionError(f"resident need {need} B at k={k} is below "
+                                 f"the measured peak {peak} B")
+    log(f"[resident_need] {n} reads x {L}: " + json.dumps(out))
+    return out
+
+
+def _cram_slices(path):
+    """(comp, slice group, ref_names) per slice of a CRAM, in order."""
+    from kbbq_tpu_torch.io.cram import (CramStream, parse_compression_header,
+                                        split_slices)
+    with CramStream(path) as cs:
+        for _, blocks, raw in cs.containers():
+            comp = parse_compression_header(blocks[0].data)
+            for group in split_slices(blocks):
+                yield comp, group, cs.ref_names
+
+
+def cram_quals(path, L):
+    """Machine-order qualities of a CRAM's primary records, int8 [n, L], by
+    the wholesale slice decode."""
+    from kbbq_tpu_torch.io.cram_vec import decode_slice_vec
+    parts = []
+    for comp, group, ref_names in _cram_slices(path):
+        fast = decode_slice_vec(comp, group, None, ref_names, L,
+                                np.zeros(8, np.int32), False)
+        if fast is None:
+            raise AssertionError(f"{path}: a slice needs the per-record "
+                                 f"decoder")
+        parts.append(fast[1])
+    return np.concatenate(parts)
+
+
+def check_cram_output(inp, out, L):
+    """A streamed output against its input: the same header container and
+    blocks, every block but each slice's QS block byte for byte, and in
+    the QS stream every byte outside the primary records' spans (the
+    secondary and supplementary copies' qualities).  Returns (blocks kept,
+    QS blocks rewritten, non-primary QS bytes checked)."""
+    from kbbq_tpu_torch.io.cram import (CT_EXTERNAL, CramStream,
+                                        parse_compression_header,
+                                        split_slices)
+    from kbbq_tpu_torch.io.cram_vec import decode_slice_vec
+    kept = rewritten = other_qs = 0
+    with CramStream(inp) as a, CramStream(out) as b:
+        if a.header_text != b.header_text:
+            raise AssertionError("the header container changed")
+        for (ca, ba, ra), (cb, bb, rb) in zip(a.containers(), b.containers(),
+                                              strict=True):
+            if (ca.n_records, ca.counter, len(ba)) != \
+                    (cb.n_records, cb.counter, len(bb)):
+                raise AssertionError("a container changed its records")
+            comp = parse_compression_header(ba[0].data)
+            body_a, body_b = ra[ca.body_pos:], rb[cb.body_pos:]
+            if body_a[slice(*ba[0].span)] != body_b[slice(*bb[0].span)]:
+                raise AssertionError("a compression header changed")
+            for ga, gb in zip(split_slices(ba), split_slices(bb),
+                              strict=True):
+                fast = decode_slice_vec(comp, ga, None, a.ref_names, L,
+                                        np.zeros(8, np.int32), False)
+                sq = fast[7]
+                for x, y in zip(ga, gb, strict=True):
+                    if (x.content_type, x.content_id) != \
+                            (y.content_type, y.content_id):
+                        raise AssertionError("block order changed")
+                    if x.content_type == CT_EXTERNAL and \
+                            x.content_id == sq.qs_cid:
+                        qa = np.frombuffer(x.data, np.uint8)
+                        qb = np.frombuffer(y.data, np.uint8)
+                        prim = np.zeros(qa.size, bool)
+                        starts = np.repeat(sq.offs, sq.lens)
+                        prim[starts + np.arange(starts.size)
+                             - np.repeat(np.cumsum(sq.lens) - sq.lens,
+                                         sq.lens)] = True
+                        if qa.size != qb.size or \
+                                (qa[~prim] != qb[~prim]).any():
+                            raise AssertionError("QS bytes of non-primary "
+                                                 "records changed")
+                        rewritten += 1
+                        other_qs += int((~prim).sum())
+                    elif body_a[slice(*x.span)] != body_b[slice(*y.span)]:
+                        raise AssertionError(f"block {x.content_id} of a "
+                                             f"slice changed")
+                    else:
+                        kept += 1
+    return kept, rewritten, other_qs
+
+
+def phase_cram(tmp, arrays, starts, cfg, bam_quals):
+    """BASELINE config 3 as CRAM: the [bam] phase's reads and records
+    staged by arrays_to_cram_bytes (containers of 100,000 records); the
+    container-windowed route at full size (qualities equal the whole-file
+    BAM route's, every block but QS and the non-primary QS bytes kept, a
+    second run equal, launches by entry per container, the use_oq rerun);
+    the whole-file route on the first CRAM_WHOLE_READS reads (.cram and
+    .bam outputs, qualities equal the windowed route's on that file); the
+    native rANS coder against the NumPy coder on one container's QS block.
+    Returns (whole-file, windowed) launches by entry."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.io import bam_vec
+    from kbbq_tpu_torch.io.bam import index_bam_bytes, read_bam_bytes
+    from kbbq_tpu_torch.io.batcher import ReadArrays
+    from kbbq_tpu_torch.io import cram_codecs
+    from kbbq_tpu_torch.io.cram import CT_EXTERNAL, CramStream
+    from kbbq_tpu_torch.pipeline import (recalibrate_cram,
+                                         recalibrate_cram_stream_resident)
+    from kbbq_tpu_torch.pipeline.cram_stream import scan_cram_meta
+    from kbbq_tpu_torch.pipeline.resident import DEFAULT_CHUNK_ROWS
+    from kbbq_tpu_torch.utils.synth import arrays_to_cram_bytes
+
+    N, L = arrays.codes.shape
+    secs = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.time()
+        out = fn(*args, **kw)
+        secs[name] = round(time.time() - t0, 3)
+        return out
+
+    def peaks_of(t):
+        return {k[:-len("_peak_bytes")]: t.pop(k) for k in sorted(t)
+                if k.endswith("_peak_bytes")}
+
+    src = os.path.join(tmp, "reads.cram")
+    data, rows = timed("write_input", arrays_to_cram_bytes, arrays, starts,
+                       extra_share=BAM_EXTRA_SHARE)
+    with open(src, "wb") as f:
+        f.write(data)
+    size = len(data)
+    del data
+    metas = timed("scan", scan_cram_meta, src, cfg.k, None)[0]
+    records = sum(m["n_records"] for m in metas)
+    W = sum(1 for m in metas if m["n_primary"])
+    log(f"[cram] {records} records ({N} primary) in {len(metas)} "
+        f"containers, {size} bytes")
+
+    # ---- the container-windowed route at full size
+    out1, out2 = (os.path.join(tmp, n) for n in ("cram1.cram", "cram2.cram"))
+    t_s: dict = {}
+    kernels.reset_launches()
+    t0 = time.time()
+    info = recalibrate_cram_stream_resident(src, out1, cfg, timings=t_s,
+                                            device=DEVICE)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    by_entry_s = dict(kernels.ENTRY_LAUNCHES)
+    walks = sum(-(-m["n_primary"] // DEFAULT_CHUNK_ROWS) for m in metas)
+    check_launches("container-windowed CRAM route", by_entry_s, {
+        "hash_build": W, "hash_only": 2 * W, "bloom_probe_trust": W,
+        "bloom_or_words": W, "bloom_probe_words": W, "walk_errors": walks,
+        "bloom_probe_hashed": 0})
+    if info["windows"] != W:
+        raise AssertionError(f"{info['windows']} windows, expected {W}")
+    peaks_s = peaks_of(t_s)
+    got = timed("decode_output", cram_quals, out1, L)
+    diff = int((got != bam_quals).sum()) if got.shape == bam_quals.shape \
+        else -1
+    if diff:
+        raise AssertionError(f"{diff} qualities of the windowed CRAM route "
+                             f"differ from the whole-file BAM route's")
+    kept, rewritten, other_qs = timed("check_output", check_cram_output,
+                                      src, out1, L)
+    recalibrate_cram_stream_resident(src, out2, cfg, device=DEVICE)
+    with open(out1, "rb") as f1, open(out2, "rb") as f2:
+        first = f1.read()
+        if f2.read() != first:
+            raise AssertionError("second windowed CRAM run gave other bytes")
+    os.remove(out2)
+    log(f"[cram] container-windowed route: {W} windows, {wall_s:.3f} s, "
+        f"{N / wall_s:.0f} reads/s; qualities equal the whole-file BAM "
+        f"route's; {kept} blocks byte-identical, {rewritten} QS blocks "
+        f"rewritten, {other_qs} non-primary QS bytes kept; a second run "
+        f"wrote the same {len(first)} bytes; launches by entry "
+        f"{json.dumps(by_entry_s)}")
+    log("[cram] windowed seconds by stage: " + json.dumps(t_s))
+    log("[cram] windowed peak device bytes by stage: " + json.dumps(peaks_s))
+
+    # ---- use_oq: the first run's qualities as QS, the input's as OQ
+    new_q = np.empty_like(arrays.quals)
+    new_q[rows] = got
+    oq_src = os.path.join(tmp, "reads_oq.cram")
+    with open(oq_src, "wb") as f:
+        f.write(timed("write_oq_input", arrays_to_cram_bytes,
+                      ReadArrays(arrays.codes, new_q, arrays.mask,
+                                 arrays.rgs, arrays.seconds), starts,
+                      extra_share=BAM_EXTRA_SHARE,
+                      oq_quals=arrays.quals)[0])
+    del new_q
+    out3 = os.path.join(tmp, "cram_oq.cram")
+    t0 = time.time()
+    recalibrate_cram_stream_resident(oq_src, out3, cfg, use_oq=True,
+                                     device=DEVICE)
+    torch.cuda.synchronize()
+    wall_oq = time.time() - t0
+    if not np.array_equal(cram_quals(out3, L), got):
+        raise AssertionError("use_oq rerun gave other qualities than the "
+                             "first run")
+    for p in (oq_src, out3):
+        os.remove(p)
+    log(f"[cram] use_oq rerun (QS = the first run's qualities, OQ = the "
+        f"input's): {wall_oq:.3f} s, qualities equal the first run's")
+
+    # ---- native rANS against the NumPy coder on the first container's QS
+    with CramStream(src) as cs:
+        _, blocks, _ = next(cs.containers())
+        qs = next(b.data for b in blocks
+                  if b.content_type == CT_EXTERNAL and b.content_id == 14)
+    codec = {}
+    blobs = {}
+    for o, fn in ((0, cram_codecs.rans_compress_o0),
+                  (1, cram_codecs.rans_compress_o1)):
+        blobs[o] = timed(f"rans_o{o}_encode_native", fn, qs)
+        if timed(f"rans_o{o}_decode_native", cram_codecs.rans_uncompress,
+                 blobs[o], len(qs)) != qs:
+            raise AssertionError(f"native rANS order {o} does not round-trip")
+    paths = {}
+    for name, data in (("qs", qs), ("b0", blobs[0]), ("b1", blobs[1])):
+        paths[name] = os.path.join(tmp, f"rans_{name}.bin")
+        with open(paths[name], "wb") as f:
+            f.write(data)
+    procs = {op: subprocess.Popen(
+        [sys.executable, "-c", _RANS_PLAIN, op, paths[inp],
+         os.path.join(tmp, f"rans_{op}.out")], cwd=HERE,
+        stdout=subprocess.PIPE, text=True)
+        for op, inp in (("o0", "qs"), ("o1", "qs"), ("u0", "b0"),
+                        ("u1", "b1"))}
+    for op, p in procs.items():
+        out, _ = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"NumPy rANS {op} failed")
+        codec[op] = round(float(out.strip()), 3)
+        with open(os.path.join(tmp, f"rans_{op}.out"), "rb") as f:
+            res = f.read()
+        want = {"o0": blobs[0], "o1": blobs[1], "u0": qs, "u1": qs}[op]
+        if res != want:
+            raise AssertionError(f"NumPy rANS {op} differs from the native "
+                                 f"codec")
+    log(f"[cram] rANS on the first container's QS block ({len(qs)} bytes): "
+        f"native and NumPy coders give the same bytes both ways; NumPy "
+        f"seconds (one process each, all four together) "
+        + json.dumps({f"numpy_{k}": v for k, v in codec.items()}))
+
+    # ---- the whole-file route on the first CRAM_WHOLE_READS reads
+    n = min(CRAM_WHOLE_READS, N)
+    sub = ReadArrays(arrays.codes[:n], arrays.quals[:n], arrays.mask[:n],
+                     arrays.rgs[:n], arrays.seconds[:n])
+    small = os.path.join(tmp, "small.cram")
+    with open(small, "wb") as f:
+        f.write(arrays_to_cram_bytes(sub, starts[:n],
+                                     extra_share=BAM_EXTRA_SHARE)[0])
+    walls, t_w, by_entry_w = {}, {}, {}
+    for ext in ("cram", "bam"):
+        t: dict = {}
+        kernels.reset_launches()
+        t0 = time.time()
+        recalibrate_cram(small, os.path.join(tmp, f"whole.{ext}"), cfg,
+                         set_oq=True, timings=t, device=DEVICE)
+        torch.cuda.synchronize()
+        walls[ext] = time.time() - t0
+        t_w[ext] = t
+        by_entry_w[ext] = dict(kernels.ENTRY_LAUNCHES)
+        check_launches(f"whole-file CRAM route (.{ext})", by_entry_w[ext], {
+            "bloom_probe_trust": 1, "bloom_probe_words": 1,
+            "bloom_probe_hashed": 0, "hash_build": 1, "bloom_or_words": 1,
+            "hash_only": 0, "walk_errors": -(-n // DEFAULT_CHUNK_ROWS)})
+    peaks_w = {ext: peaks_of(t) for ext, t in t_w.items()}
+    recalibrate_cram_stream_resident(small, os.path.join(tmp, "small_s.cram"),
+                                     cfg, device=DEVICE)
+    q_s = cram_quals(os.path.join(tmp, "small_s.cram"), L)
+    q_c = cram_quals(os.path.join(tmp, "whole.cram"), L)
+    b, o, z = index_bam_bytes(read_bam_bytes(os.path.join(tmp,
+                                                          "whole.bam")))[2:]
+    q_b = bam_vec.decode_machine_chunk(b, o, z, L, None)[1]
+    if not (np.array_equal(q_c, q_s) and np.array_equal(q_b, q_s)
+            and q_s.shape == (n, L)):
+        raise AssertionError("the whole-file CRAM route's qualities differ "
+                             "from the windowed route's on the same file")
+    log(f"[cram] whole-file route (set_oq) on the first {n} reads: .cram "
+        f"{walls['cram']:.3f} s, .bam {walls['bam']:.3f} s; qualities of "
+        f"both equal the windowed route's on that file")
+    log("[cram] whole-file seconds by stage: " + json.dumps(t_w))
+    log("[cram] whole-file peak device bytes by stage: "
+        + json.dumps(peaks_w))
+    log(f"[cram] {smi_line()}")
+    result = {"reads": N, "records": records, "containers": len(metas),
+              "bytes": size, "windows": W, "streamed_wall_s": wall_s,
+              "streamed_reads_per_s": N / wall_s, "streamed_timings": t_s,
+              "streamed_peak_device_bytes": peaks_s,
+              "streamed_launches_by_entry": by_entry_s,
+              "use_oq_wall_s": wall_oq, "whole_reads": n,
+              "whole_wall_s": walls, "whole_timings": t_w,
+              "whole_peak_device_bytes": peaks_w,
+              "whole_launches_by_entry": by_entry_w,
+              "host_seconds": secs, "rans_numpy_seconds": codec,
+              "rans_block_bytes": len(qs), "card": smi_line()}
+    log("[cram] " + json.dumps(result))
+    return by_entry_w["cram"], by_entry_s
 
 
 def main(argv=None) -> int:
@@ -1307,9 +1661,11 @@ def main(argv=None) -> int:
         del expected
         streamed = phase_streaming(tmp, src, out1, cfg, args.reads)
         phase_checkpoint(tmp)
-        bam, bam_streamed = phase_bam(
-            tmp, arrays, read_starts(genome_len, read_len, args.reads,
-                                     args.seed), cfg)
+        starts = read_starts(genome_len, read_len, args.reads, args.seed)
+        bam, bam_streamed, bam_quals = phase_bam(tmp, arrays, starts, cfg)
+        phase_resident_need(arrays, cfg)
+        cram, cram_streamed = phase_cram(tmp, arrays, starts, cfg,
+                                         bam_quals)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1317,6 +1673,8 @@ def main(argv=None) -> int:
         r["launches_streamed"] = streamed[r["entry"]]
         r["launches_bam"] = bam[r["entry"]]
         r["launches_bam_streamed"] = bam_streamed[r["entry"]]
+        r["launches_cram"] = cram[r["entry"]]
+        r["launches_cram_streamed"] = cram_streamed[r["entry"]]
         r["launches"] = (streamed if r.get("path") == "streamed"
                          else launches)[r["entry"]]
     log(f"[done] {time.time() - t_start:.0f} s in all")

@@ -7,14 +7,18 @@
 // Counterpart of these functions of kbbq_tpu/io/native/kbbq_io.cc, with the
 // same arithmetic (so the same bytes): kbbq_bgzf_size, kbbq_bgzf_decompress,
 // kbbq_bgzf_compress, kbbq_fastq_index, kbbq_fastq_extract,
-// kbbq_fastq_write_quals, kbbq_bam_offsets and kbbq_bam_decode.  Two
+// kbbq_fastq_write_quals, kbbq_bam_offsets, kbbq_bam_decode,
+// kbbq_rans_uncompress and kbbq_rans_compress.  Three
 // differences: kbbq_fastq_index and kbbq_bam_offsets return -1 - (byte offset
-// of the record that failed) on malformed input instead of a bare -1.
+// of the record that failed) on malformed input instead of a bare -1, and
+// kbbq_rans_uncompress refuses a frequency table that sums past 4096.
 // kbbq_bam_write_quals and kbbq_bam_append_oq are the port's own: they do
 // what loops of kbbq_tpu/io/bam_vec.py::rewrite_quals_chunk do in NumPy.  The
-// reference's host pass 4, host histogram, tunnel packing and rANS functions
-// are not part of the port.
+// reference's host pass 4, host histogram and tunnel packing functions are
+// not part of the port.
 
+#include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -402,5 +406,348 @@ void kbbq_bam_append_oq(const uint8_t* wbuf, const uint8_t* orig,
     }
   });
 }
+
+// ------------------------------------------------- rANS 4x8 (CRAM M4)
+//
+// The htslib rans_static 4x8 wire format, orders 0 and 1, with the same
+// arithmetic as io/cram_codecs.py's NumPy coder: decode gives the same bytes,
+// and encode the same stream (the normalisation's tie order included), so
+// the two are interchangeable.  Decode returns a negative code on a malformed
+// blob (-1 short, -2 declared size, -3 table or states overrun, -4 order).
+
+static const uint32_t RANS_L = 1u << 23;
+static const int TF_SHIFT = 12;
+static const uint32_t TOTFREQ = 1u << TF_SHIFT;
+
+// counts[256] -> F[256] summing exactly TOTFREQ (io/cram_codecs.py::
+// _normalize_freqs)
+static void rans_normalize(const int64_t* counts, int64_t* F) {
+  int64_t total = 0;
+  for (int j = 0; j < 256; j++) total += counts[j];
+  if (total == 0) { std::memset(F, 0, 256 * sizeof(int64_t)); return; }
+  int64_t sum = 0;
+  for (int j = 0; j < 256; j++) {
+    double f = (double)counts[j] * (double)TOTFREQ / (double)total;
+    F[j] = (int64_t)std::floor(f);
+    if (counts[j] > 0 && F[j] == 0) F[j] = 1;
+    sum += F[j];
+  }
+  int order[256];
+  for (int j = 0; j < 256; j++) order[j] = j;
+  std::stable_sort(order, order + 256, [&](int a, int b) {
+    return counts[a] > counts[b];   // np.argsort(-counts): stable desc
+  });
+  int64_t diff = (int64_t)TOTFREQ - sum;
+  int64_t i = 0;
+  while (diff != 0) {
+    int j = order[i % 256];
+    if (counts[j] > 0 && (diff > 0 || F[j] > 1)) {
+      F[j] += diff > 0 ? 1 : -1;
+      diff += diff > 0 ? -1 : 1;
+    }
+    i++;
+  }
+}
+
+// io/cram_codecs.py::_write_freq_table; returns bytes written
+static int64_t rans_write_ft(const int64_t* F, uint8_t* out) {
+  int64_t o = 0;
+  int rle = 0;
+  for (int j = 0; j < 256; j++) {
+    if (!F[j]) continue;
+    if (rle) {
+      rle--;
+    } else {
+      out[o++] = (uint8_t)j;
+      if (j && F[j - 1]) {
+        int r = j + 1;
+        while (r < 256 && F[r]) r++;
+        rle = r - (j + 1);
+        out[o++] = (uint8_t)rle;
+      }
+    }
+    int64_t f = F[j];
+    if (f < 128) {
+      out[o++] = (uint8_t)f;
+    } else {
+      out[o++] = (uint8_t)(0x80 | (f >> 8));
+      out[o++] = (uint8_t)(f & 0xFF);
+    }
+  }
+  out[o++] = 0;
+  return o;
+}
+
+// io/cram_codecs.py::_read_freq_table; returns new pos, or -1 on overrun
+static int64_t rans_read_ft(const uint8_t* buf, int64_t pos, int64_t n,
+                            int64_t* F) {
+  std::memset(F, 0, 256 * sizeof(int64_t));
+  int rle = 0;
+  if (pos >= n) return -1;
+  int j = buf[pos++];
+  for (;;) {
+    if (pos >= n) return -1;
+    int64_t f = buf[pos++];
+    if (f >= 128) {
+      if (pos >= n) return -1;
+      f = ((f & 0x7F) << 8) | buf[pos++];
+    }
+    F[j & 0xFF] = f;
+    if (rle) {
+      rle--;
+      j++;
+    } else {
+      if (pos >= n) return -1;
+      int nj = buf[pos++];
+      if (nj == j + 1) {
+        j = nj;
+        if (pos >= n) return -1;
+        rle = buf[pos++];
+      } else {
+        j = nj;
+      }
+    }
+    if (j == 0 && rle == 0) break;
+  }
+  return pos;
+}
+
+// Whether a decoded table's frequencies sum to at most TOTFREQ (a larger sum
+// would write past the symbol lookup table).
+static bool rans_table_fits(const int64_t* F) {
+  int64_t t = 0;
+  for (int s = 0; s < 256; s++) t += F[s];
+  return t <= (int64_t)TOTFREQ;
+}
+
+static void rans_cumsum(const int64_t* F, int64_t* C) {
+  int64_t c = 0;
+  for (int s = 0; s < 256; s++) { C[s] = c; c += F[s]; }
+}
+
+// Decode an rANS 4x8 blob (order 0 or 1) into out[n_out].
+// Returns 0 on success, negative on malformed input.
+int32_t kbbq_rans_uncompress(const uint8_t* blob, int64_t blob_len,
+                             uint8_t* out, int64_t n_out) {
+  if (blob_len < 9) return -1;
+  int order = blob[0];
+  uint32_t n_declared;
+  std::memcpy(&n_declared, blob + 5, 4);
+  if ((int64_t)n_declared != n_out) return -2;
+  if (n_out == 0) return 0;
+  int64_t pos = 9;
+  const int64_t n = blob_len;
+  if (order == 0) {
+    std::vector<int64_t> F(256), C(256);
+    pos = rans_read_ft(blob, pos, n, F.data());
+    if (pos < 0 || pos + 16 > n) return -3;
+    if (!rans_table_fits(F.data())) return -3;
+    rans_cumsum(F.data(), C.data());
+    std::vector<uint8_t> lut(TOTFREQ);
+    std::vector<uint32_t> Fs(256), Cs(256);
+    for (int s = 0; s < 256; s++) {
+      Fs[s] = (uint32_t)F[s];
+      Cs[s] = (uint32_t)C[s];
+      for (int64_t k = C[s]; k < C[s] + F[s]; k++) lut[k] = (uint8_t)s;
+    }
+    uint32_t x[4];
+    for (int j = 0; j < 4; j++) { std::memcpy(&x[j], blob + pos, 4); pos += 4; }
+    for (int64_t i = 0; i < n_out; i++) {
+      int j = (int)(i & 3);
+      uint32_t xi = x[j];
+      uint32_t m = xi & (TOTFREQ - 1);
+      uint8_t s = lut[m];
+      out[i] = s;
+      xi = Fs[s] * (xi >> TF_SHIFT) + m - Cs[s];
+      while (xi < RANS_L && pos < n) xi = (xi << 8) | blob[pos++];
+      x[j] = xi;
+    }
+    return 0;
+  }
+  if (order != 1) return -4;
+  std::vector<int64_t> F2(256 * 256), C2(256 * 256);
+  {
+    // io/cram_codecs.py::_read_freq_table_o1 (context RLE over nested
+    // order-0 tables)
+    int rle = 0;
+    if (pos >= n) return -3;
+    int c = blob[pos++];
+    for (;;) {
+      pos = rans_read_ft(blob, pos, n, F2.data() + 256 * (c & 0xFF));
+      if (pos < 0) return -3;
+      if (rle) {
+        rle--;
+        c++;
+      } else {
+        if (pos >= n) return -3;
+        int nc = blob[pos++];
+        if (nc == c + 1) {
+          c = nc;
+          if (pos >= n) return -3;
+          rle = blob[pos++];
+        } else {
+          c = nc;
+        }
+      }
+      if (c == 0 && rle == 0) break;
+    }
+  }
+  for (int c = 0; c < 256; c++) {
+    if (!rans_table_fits(F2.data() + 256 * c)) return -3;
+    rans_cumsum(F2.data() + 256 * c, C2.data() + 256 * c);
+  }
+  if (pos + 16 > n) return -3;
+  uint32_t x[4];
+  for (int j = 0; j < 4; j++) { std::memcpy(&x[j], blob + pos, 4); pos += 4; }
+  std::vector<uint8_t> lut(256 * TOTFREQ);
+  bool built[256] = {false};
+  auto build = [&](int c) {
+    uint8_t* t = lut.data() + (size_t)c * TOTFREQ;
+    const int64_t* Fc = F2.data() + 256 * c;
+    const int64_t* Cc = C2.data() + 256 * c;
+    for (int s = 0; s < 256; s++)
+      for (int64_t k = Cc[s]; k < Cc[s] + Fc[s]; k++) t[k] = (uint8_t)s;
+    built[c] = true;
+  };
+  int ctx[4] = {0, 0, 0, 0};
+  int64_t q = n_out >> 2;
+  int64_t qs[4] = {0, q, 2 * q, 3 * q};
+  auto get = [&](int j, int64_t dst) {
+    int cc = ctx[j];
+    if (!built[cc]) build(cc);
+    uint32_t xi = x[j];
+    uint32_t m = xi & (TOTFREQ - 1);
+    uint8_t s = lut[(size_t)cc * TOTFREQ + m];
+    out[dst] = s;
+    xi = (uint32_t)F2[256 * cc + s] * (xi >> TF_SHIFT) + m
+         - (uint32_t)C2[256 * cc + s];
+    while (xi < RANS_L && pos < n) xi = (xi << 8) | blob[pos++];
+    x[j] = xi;
+    ctx[j] = s;
+  };
+  for (int64_t i = 0; i < q; i++)
+    for (int j = 0; j < 4; j++) get(j, qs[j] + i);
+  for (int64_t dst = qs[3] + q; dst < n_out; dst++) get(3, dst);
+  return 0;
+}
+
+// Encode data[n] as rANS 4x8 (order 0 or 1).  Returns the blob size,
+// or -1 if `cap` is too small.  Byte stream identical to the NumPy
+// encoder's (tests assert it).
+int64_t kbbq_rans_compress(const uint8_t* data, int64_t n, int32_t order,
+                           uint8_t* out, int64_t cap) {
+  // worst-case: tables (o1 <= 257*(2+3*256)+2) + 16 states + stream
+  // (~n * 1.004 + 4*4 renorm tail) + 9 header
+  std::vector<uint8_t> body;
+  body.reserve((size_t)(n + (n >> 6) + (1 << 20)));
+  std::vector<uint8_t> stream;
+  stream.reserve((size_t)(n + (n >> 6) + 64));
+  uint32_t x[4] = {RANS_L, RANS_L, RANS_L, RANS_L};
+  const uint32_t xmax_mul = (RANS_L >> TF_SHIFT) << 8;
+
+  if (order == 0) {
+    int64_t counts[256] = {0};
+    for (int64_t i = 0; i < n; i++) counts[data[i]]++;
+    int64_t F[256], C[256];
+    rans_normalize(counts, F);
+    rans_cumsum(F, C);
+    for (int64_t i = n - 1; i >= 0; i--) {
+      uint8_t s = data[i];
+      int j = (int)(i & 3);
+      uint32_t f = (uint32_t)F[s];
+      uint32_t xm = xmax_mul * f;
+      while (x[j] >= xm) { stream.push_back(x[j] & 0xFF); x[j] >>= 8; }
+      x[j] = ((x[j] / f) << TF_SHIFT) + (x[j] % f) + (uint32_t)C[s];
+    }
+    uint8_t ft[3 * 256 + 2];
+    int64_t ftn = rans_write_ft(F, ft);
+    body.insert(body.end(), ft, ft + ftn);
+  } else if (order == 1) {
+    std::vector<int64_t> counts(256 * 256, 0);
+    int64_t q = n >> 2;
+    int64_t qa[4] = {0, q, 2 * q, 3 * q};
+    int64_t qb[4] = {q, 2 * q, 3 * q, n};
+    for (int k = 0; k < 4; k++) {
+      int prev = 0;
+      for (int64_t i = qa[k]; i < qb[k]; i++) {
+        counts[256 * prev + data[i]]++;
+        prev = data[i];
+      }
+    }
+    std::vector<int64_t> F2(256 * 256, 0), C2(256 * 256, 0);
+    for (int c = 0; c < 256; c++) {
+      int64_t tot = 0;
+      for (int s = 0; s < 256; s++) tot += counts[256 * c + s];
+      if (tot)
+        rans_normalize(counts.data() + 256 * c, F2.data() + 256 * c);
+      rans_cumsum(F2.data() + 256 * c, C2.data() + 256 * c);
+    }
+    auto put = [&](int j, int64_t i, int64_t a) {
+      uint8_t s = data[i];
+      int cc = i > a ? data[i - 1] : 0;
+      uint32_t f = (uint32_t)F2[256 * cc + s];
+      uint32_t xm = xmax_mul * f;
+      while (x[j] >= xm) { stream.push_back(x[j] & 0xFF); x[j] >>= 8; }
+      x[j] = ((x[j] / f) << TF_SHIFT) + (x[j] % f)
+             + (uint32_t)C2[256 * cc + s];
+    };
+    for (int64_t i = n - 1; i >= qa[3] + q; i--) put(3, i, qa[3]);
+    for (int64_t i = q - 1; i >= 0; i--)
+      for (int j = 3; j >= 0; j--) put(j, qa[j] + i, qa[j]);
+    // io/cram_codecs.py::_write_freq_table_o1
+    int rle = 0;
+    uint8_t ft[3 * 256 + 2];
+    for (int c = 0; c < 256; c++) {
+      int64_t tot = 0;
+      for (int s = 0; s < 256; s++) tot += F2[256 * c + s];
+      if (!tot) continue;
+      if (rle) {
+        rle--;
+      } else {
+        body.push_back((uint8_t)c);
+        int64_t ptot = 0;
+        if (c)
+          for (int s = 0; s < 256; s++) ptot += F2[256 * (c - 1) + s];
+        if (c && ptot) {
+          int r = c + 1;
+          while (r < 256) {
+            int64_t rt = 0;
+            for (int s = 0; s < 256; s++) rt += F2[256 * r + s];
+            if (!rt) break;
+            r++;
+          }
+          rle = r - (c + 1);
+          body.push_back((uint8_t)rle);
+        }
+      }
+      int64_t ftn = rans_write_ft(F2.data() + 256 * c, ft);
+      body.insert(body.end(), ft, ft + ftn);
+    }
+    body.push_back(0);
+  } else {
+    return -2;
+  }
+  for (int j = 0; j < 4; j++) {
+    uint32_t v = x[j];
+    body.push_back(v & 0xFF);
+    body.push_back((v >> 8) & 0xFF);
+    body.push_back((v >> 16) & 0xFF);
+    body.push_back((v >> 24) & 0xFF);
+  }
+  // stream is collected forward but transmitted reversed
+  int64_t total = 9 + (int64_t)body.size() + (int64_t)stream.size();
+  if (total > cap) return -1;
+  out[0] = (uint8_t)order;
+  uint32_t csize = (uint32_t)(body.size() + stream.size());
+  uint32_t usize = (uint32_t)n;
+  std::memcpy(out + 1, &csize, 4);
+  std::memcpy(out + 5, &usize, 4);
+  std::memcpy(out + 9, body.data(), body.size());
+  uint8_t* o = out + 9 + body.size();
+  for (int64_t i = (int64_t)stream.size() - 1; i >= 0; i--)
+    *o++ = stream[i];
+  return total;
+}
+
 
 }  // extern "C"

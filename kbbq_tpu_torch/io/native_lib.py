@@ -7,8 +7,8 @@ renames it, so a concurrent build in another process never loads half a
 library.  A failed build raises with the compiler's output: there is no
 fallback.  The NumPy versions beside the callers (``io/fastq.py``'s and
 ``io/bam_vec.py``'s ``*_plain``, ``io/bam_stream.py``'s
-``_scan_record_index_plain``, ``io/bgzf.py``'s ``_compress_py``) exist for
-the tests.
+``_scan_record_index_plain``, ``io/bgzf.py``'s ``_compress_py``,
+``io/cram_codecs.py``'s ``rans_*_plain``) exist for the tests.
 
 Counterpart of ``kbbq_tpu/io/native_lib.py`` for the functions the port
 uses (the JAX package's copy of the library is never loaded).  Nothing here
@@ -90,6 +90,10 @@ def _bind(lib) -> None:
     lib.kbbq_bam_write_quals.restype = None
     lib.kbbq_bam_append_oq.argtypes = [p, p, p, p, p, p, p, p, i64, i32]
     lib.kbbq_bam_append_oq.restype = None
+    lib.kbbq_rans_uncompress.argtypes = [p, i64, p, i64]
+    lib.kbbq_rans_uncompress.restype = i32
+    lib.kbbq_rans_compress.argtypes = [p, i64, i32, p, i64]
+    lib.kbbq_rans_compress.restype = i64
 
 
 def library():
@@ -328,3 +332,34 @@ def bam_append_oq(wbuf: np.ndarray, orig: np.ndarray, offs, sizes, qual_off,
                                  dst.ctypes.data, out.ctypes.data, n,
                                  default_threads())
     return out
+
+
+def rans_uncompress(blob, n_out: int) -> bytes:
+    """Decode a CRAM rANS 4x8 blob (order 0 or 1, from its header) of
+    `n_out` bytes.  ValueError when the blob is malformed or declares
+    another size."""
+    src = _u8(blob)
+    if n_out < 0:
+        raise ValueError("rANS: negative output size")
+    out = np.empty(n_out, np.uint8)
+    rc = library().kbbq_rans_uncompress(src.ctypes.data, src.size,
+                                        out.ctypes.data, int(n_out))
+    if rc != 0:
+        raise ValueError(f"rANS: malformed blob (native rc={rc})")
+    return out.tobytes()
+
+
+def rans_compress(data, order: int) -> bytes:
+    """Encode bytes as a CRAM rANS 4x8 blob of order 0 or 1."""
+    if order not in (0, 1):
+        raise ValueError(f"rANS: unknown order {order}")
+    src = _u8(data)
+    n = src.size
+    # tables (order 1: at most 257 x 770 B) + states + stream + header
+    cap = n + (n >> 4) + (1 << 20)
+    out = np.empty(cap, np.uint8)
+    size = library().kbbq_rans_compress(src.ctypes.data, n, int(order),
+                                        out.ctypes.data, cap)
+    if size < 0:
+        raise ValueError(f"rANS: compress failed (native rc={size})")
+    return out[:size].tobytes()

@@ -1,4 +1,4 @@
-"""BAM and SAM recalibration on one device (BASELINE config 3).
+"""BAM, SAM and CRAM recalibration on one device (BASELINE config 3).
 
 Counterpart of ``kbbq_tpu/pipeline/bam.py``: the same four passes as FASTQ,
 with the differences handled at the IO boundary: machine-order
@@ -15,14 +15,22 @@ supplementary records passed through untouched.  Two routes:
 - ``recalibrate_bam_streaming``: raw chunks through the windowed engine,
   host memory O(chunk) (``pipeline/stream_resident.py::
   recalibrate_bam_stream_resident``).
+- ``recalibrate_cram``: a CRAM in host memory.  Its records are decoded by
+  the per-record CRAM decoder (``io/cram.py``) and laid back to back in one
+  buffer of BAM record bodies; from there on it is ``recalibrate_bam``'s
+  route: ``decode_machine_chunk``, ``_run_or_apply``,
+  ``rewrite_quals_chunk``.  The container-windowed CRAM route is
+  ``pipeline/cram_stream.py``.
 
-Both write the JAX package's bytes.  The output format follows the output's
-extension (``.sam`` or ``.bam``; an unnamed sink keeps the input's); CRAM
-comes with ROADMAP A13, the multi-device streamed route with A15.
+All write the JAX package's bytes.  The output format follows the output's
+extension (``.sam``, ``.bam`` or ``.cram``, the last through
+``io/cram_write.py::write_cram``; an unnamed sink keeps the input's, BAM for
+a CRAM input); the multi-device routes come with ROADMAP A15.
 """
 
 from __future__ import annotations
 
+import struct
 import time
 
 import numpy as np
@@ -82,17 +90,14 @@ def _registry_names(registry: dict) -> list:
 
 
 def _output_format(out_path, default_fmt: str) -> str:
-    """"sam" or "bam" by the OUTPUT's extension; an unnamed sink (a file
-    object) keeps `default_fmt`, the input's format.  A .cram output
-    raises: CRAM is ROADMAP A13."""
+    """"sam", "cram" or "bam" by the OUTPUT's extension; an unnamed sink (a
+    file object) keeps `default_fmt`, the input's format."""
     name = out_path if isinstance(out_path, (str, bytes)) else None
     sfx = (name.decode() if isinstance(name, bytes) else name) or ""
-    if sfx.endswith(".cram"):
-        raise NotImplementedError(
-            "CRAM output is not ported yet (ROADMAP A13): write .bam or "
-            ".sam")
     if sfx.endswith(".sam"):
         return "sam"
+    if sfx.endswith(".cram"):
+        return "cram"
     if sfx.endswith(".bam"):
         return "bam"
     return default_fmt
@@ -106,13 +111,57 @@ def _write_bytes(data, out_path) -> None:
         out_path.write(data)
 
 
-def _write_alignment_output(bf, out_path, fmt: str) -> None:
-    """Serialize the record model as `fmt` ("sam" or "bam")."""
-    if fmt == "sam":
+def _assign_cram_rg(bf, primary, rgs, registry) -> None:
+    """Numeric RG per record for the CRAM writer.
+
+    The CRAM wire format's RG integer indexes the HEADER's @RG line order,
+    which need not match the registry's record-first-appearance order (a
+    file whose first record carries the header's second RG would swap
+    groups on write).  So each record's RG NAME (the registry's name of its
+    dense id for primaries, its RG:Z tag otherwise) maps to its header
+    index."""
+    hdr_idx: dict[str, int] = {}
+    for ln in bf.header_text.splitlines():
+        if ln.startswith("@RG"):
+            for fld in ln.split("\t")[1:]:
+                if fld.startswith("ID:"):
+                    hdr_idx.setdefault(fld[3:], len(hdr_idx))
+    name_of = {v: k for k, v in registry.items()}
+    for i, rec in enumerate(primary):
+        rec._rg_index = hdr_idx.get(name_of.get(int(rgs[i]), ""), -1)
+    for rec in bf.records:
+        if hasattr(rec, "_rg_index"):
+            continue
+        tag = rec.get_zstr("RG")
+        key = tag.decode() if tag is not None else ""
+        rec._rg_index = hdr_idx.get(key, -1)
+
+
+def _write_alignment_output(bf, out_path, fmt: str, primary=None, rgs=None,
+                            registry=None) -> None:
+    """Serialize the record model as `fmt` ("sam", "bam" or "cram"; CRAM
+    needs the primary records with their dense read-group ids and the
+    registry)."""
+    if fmt == "cram":
+        from ..io.cram_write import write_cram
+        _assign_cram_rg(bf, primary, rgs, registry)
+        write_cram(bf, out_path)
+    elif fmt == "sam":
         from ..io.sam import serialize_sam
         _write_bytes(serialize_sam(bf), out_path)
     else:
         _write_bytes(serialize_bam(bf, compress=True), out_path)
+
+
+def _records_buffer(records):
+    """(buf, offs, sizes): the records' bodies back to back, each after its
+    block_size, as a uint8 array, with the int64 body offsets and sizes
+    (the native record index of the buffer)."""
+    buf = np.frombuffer(b"".join(
+        [struct.pack("<i", len(r.data)) + bytes(r.data) for r in records]),
+        np.uint8)
+    offs, sizes, _ = bam_offsets(buf)
+    return buf, offs, sizes
 
 
 def _records_of(buf) -> list:
@@ -153,8 +202,8 @@ def recalibrate_bam(in_path: str, out_path, config: RecalConfig,
     the whole file in host memory.
 
     The input may be BGZF, plain gzip or raw BAM.  The output format
-    follows out_path's extension (an unnamed sink keeps the input's); a
-    ``.cram`` output raises NotImplementedError.  use_oq: recalibrate from
+    follows out_path's extension (an unnamed sink keeps the input's), a
+    ``.cram`` output through ``write_cram``.  use_oq: recalibrate from
     the OQ tags' qualities; set_oq: keep each primary record's original
     qualities in an OQ tag.  checkpoint_dir, report_out and apply_report
     as in ``recalibrate_fastq`` (read groups are the RG tags, in order of
@@ -166,14 +215,7 @@ def recalibrate_bam(in_path: str, out_path, config: RecalConfig,
     dev = resolve_device(device)
     is_sam = str(in_path).endswith((".sam", ".sam.gz"))
     fmt = _output_format(out_path, "sam" if is_sam else "bam")
-    stamps = [time.time()]
-
-    def mark(name):
-        now = time.time()
-        if timings is not None:
-            timings[name] = round(now - stamps[0], 3)
-        stamps[0] = now
-
+    mark = _stage_marker(timings)
     run_kw = dict(device=dev, timings=timings, checkpoint_dir=checkpoint_dir)
     if is_sam:
         bf, primary, arrays, lens, registry = _read_sam_arrays(in_path,
@@ -181,44 +223,85 @@ def recalibrate_bam(in_path: str, out_path, config: RecalConfig,
         mark("read")
         new_quals = _run_or_apply(arrays, config, _registry_names(registry),
                                   report_out, apply_report, **run_kw)
-        stamps[0] = time.time()
+        mark(None)
         for i, rec in enumerate(primary):
             rewrite_quals(rec, new_quals[i][:int(lens[i])], set_oq=set_oq)
         mark("rewrite")
-        _write_alignment_output(bf, out_path, fmt)
+        _write_alignment_output(bf, out_path, fmt, primary, arrays.rgs,
+                                registry)
         mark("write")
         return {"num_reads": len(primary), "total_bases": int(lens.sum()),
                 "read_groups": len(registry)}
 
-    from ..io.bam_vec import (decode_machine_chunk, rewrite_quals_chunk,
-                              scan_chunk)
     raw = read_bam_bytes(in_path)
     mark("read")
-    header_text, refs, buf, offs, sizes = index_bam_bytes(raw)
+    return _recalibrate_records(*index_bam_bytes(raw), out_path, fmt, config,
+                                use_oq, set_oq, report_out, apply_report,
+                                run_kw, mark)
+
+
+def _stage_marker(timings: dict | None):
+    """mark(name): the seconds since the last mark into timings[name] (when
+    timings is given); mark(None) restarts the clock only."""
+    stamps = [time.time()]
+
+    def mark(name):
+        now = time.time()
+        if timings is not None and name is not None:
+            timings[name] = round(now - stamps[0], 3)
+        stamps[0] = now
+    return mark
+
+
+def _recalibrate_records(header_text, refs, buf, offs, sizes, out_path,
+                         fmt: str, config, use_oq: bool, set_oq: bool,
+                         report_out, apply_report, run_kw: dict, mark,
+                         cram: bool = False) -> dict:
+    """The whole-file route from a buffer of back-to-back BAM records (each
+    after its block_size; offs / sizes their bodies): scan, whole-buffer
+    decode (``decode`` stage), ``_run_or_apply``, QUAL rewrite
+    (``rewrite``) and the output as `fmt` (``write``).  `cram`: the
+    records came from a CRAM, whose qualities the JAX package reads as
+    int8 (``_wrapped_quals_to_zero``)."""
+    from ..io.bam_vec import (decode_machine_chunk, rewrite_quals_chunk,
+                              scan_chunk)
     _, _, _, max_len, keys = scan_chunk(buf, offs, sizes, config.k)
     registry = {key: i for i, key in enumerate(keys)}
     codes, quals, mask, rgs, seconds, lens, prim = decode_machine_chunk(
         buf, offs, sizes, max_len, registry, use_oq=use_oq)
+    if cram:
+        _wrapped_quals_to_zero(buf, offs, sizes, prim, lens, quals, use_oq)
     arrays = ReadArrays(codes, quals, mask, rgs, seconds)
     mark("decode")
     new_quals = _run_or_apply(arrays, config, _registry_names(registry),
                               report_out, apply_report, **run_kw)
     del arrays, codes, quals, mask
-    stamps[0] = time.time()
+    mark(None)
     records = rewrite_quals_chunk(buf, offs, sizes, prim, lens, new_quals,
                                   set_oq=set_oq)
     del new_quals
     mark("rewrite")
-    if fmt == "sam":
-        _write_alignment_output(
-            BamFile(header_text, refs, _records_of(records)), out_path, fmt)
-    else:
-        head = np.frombuffer(bam_header_bytes(header_text, refs), np.uint8)
-        _write_bytes(bgzf.compress(np.concatenate(
-            [head, np.frombuffer(records, np.uint8)])), out_path)
+    _write_records(header_text, refs, records, prim, rgs, registry, out_path,
+                   fmt)
     mark("write")
     return {"num_reads": int(prim.size), "total_bases": int(lens.sum()),
             "read_groups": len(registry)}
+
+
+def _write_records(header_text, refs, records, prim, rgs, registry, out_path,
+                   fmt: str) -> None:
+    """Write a buffer of back-to-back records (block_size prefixes
+    included) as `fmt`: BAM as one BGZF stream of header and records; SAM
+    and CRAM through the record model (prim: the primary records' indices,
+    rgs their dense read-group ids, for the CRAM writer)."""
+    if fmt == "bam":
+        head = np.frombuffer(bam_header_bytes(header_text, refs), np.uint8)
+        _write_bytes(bgzf.compress(np.concatenate(
+            [head, np.frombuffer(records, np.uint8)])), out_path)
+        return
+    recs = _records_of(records)
+    _write_alignment_output(BamFile(header_text, refs, recs), out_path, fmt,
+                            [recs[i] for i in prim.tolist()], rgs, registry)
 
 
 def recalibrate_bam_streaming(in_path: str, out_path, config: RecalConfig,
@@ -254,3 +337,79 @@ def recalibrate_bam_streaming(in_path: str, out_path, config: RecalConfig,
         host_cache_bytes=(DEFAULT_HOST_CACHE_BYTES if host_cache_bytes is None
                           else host_cache_bytes),
         device_cache_bytes=device_cache_bytes)
+
+
+def _wrapped_quals_to_zero(buf, offs, sizes, prim, lens, quals,
+                           use_oq: bool) -> None:
+    """The JAX package reads a CRAM record's qualities as int8 (on the
+    whole-file route through ``machine_order_read``, on the streamed one
+    through ``io/cram_vec.py``): a QUAL byte >= 128, or an OQ byte >= 161,
+    wraps negative and clips to 0, where ``decode_machine_chunk`` clips it
+    to 93.  Sets those of `quals` (machine order, int8 [n_prim, L]) to 0, in
+    place."""
+    from ..io.bam_vec import aux_scan, bam_fields
+    if not prim.size:
+        return
+    f = bam_fields(buf, offs)
+    if use_oq:
+        found, _ = aux_scan(buf, f["aux_off"][prim], offs[prim] + sizes[prim],
+                            ("OQ",))
+        src, limit = found["OQ"][0], 161
+    else:
+        src, limit = f["qual_off"][prim], 128
+    rev = (f["flag"][prim] & 0x10) != 0
+    L = quals.shape[1]
+    col = np.arange(L, dtype=np.int64)
+    for s in range(0, prim.size, 65536):
+        rows = np.arange(s, min(prim.size, s + 65536))
+        rows = rows[src[rows] >= 0]          # the aux walk's refusals: exact
+        ln = lens[rows][:, None]
+        stored = np.where(rev[rows][:, None], ln - 1 - col, col)
+        inside = col < ln
+        at = src[rows][:, None] + np.where(inside, stored, 0)
+        hi = inside & (buf[np.minimum(at, buf.size - 1)] >= limit)
+        if hi.any():
+            q = quals[rows]
+            q[hi] = 0
+            quals[rows] = q
+
+
+def recalibrate_cram(in_path: str, out_path, config: RecalConfig,
+                     use_oq: bool = False, set_oq: bool = False,
+                     fasta_ref: str | None = None,
+                     checkpoint_dir: str | None = None,
+                     devices: int | None = None,
+                     report_out: str | None = None,
+                     apply_report: str | None = None, device=None,
+                     timings: dict | None = None) -> dict:
+    """CRAM -> BAM, SAM or CRAM recalibration with the whole file in host
+    memory; the JAX package's ``recalibrate_cram`` bytes.
+
+    The records are decoded by ``io/cram.py::read_cram`` (reference-based
+    files against `fasta_ref`, or an embedded reference), laid back to back
+    as BAM record bodies with their RG tags, and from there take
+    ``recalibrate_bam``'s route.  The output format follows out_path's
+    extension (an unnamed sink gets BAM).  One device: `devices` > 1 raises
+    (ROADMAP A15).  use_oq, set_oq, checkpoint_dir, report_out,
+    apply_report, device and `timings` (``read`` is the CRAM decode) as in
+    ``recalibrate_bam``.
+    """
+    if devices is not None and devices > 1:
+        raise NotImplementedError(
+            "the multi-device CRAM route is not ported yet (ROADMAP A15): "
+            "pass devices=1")
+    from ..io.cram import read_cram
+
+    dev = resolve_device(device)
+    fmt = _output_format(out_path, "bam")
+    mark = _stage_marker(timings)
+    bf, _ = read_cram(in_path, fasta_ref=fasta_ref)
+    buf, offs, sizes = _records_buffer(bf.records)
+    header_text, refs = bf.header_text, bf.refs
+    del bf
+    mark("read")
+    return _recalibrate_records(
+        header_text, refs, buf, offs, sizes, out_path, fmt, config, use_oq,
+        set_oq, report_out, apply_report,
+        dict(device=dev, timings=timings, checkpoint_dir=checkpoint_dir),
+        mark, cram=True)

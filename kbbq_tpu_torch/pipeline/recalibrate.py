@@ -62,18 +62,47 @@ class RecalConfig:
         return alpha, cov
 
 
-# device bytes the resident path holds at its peak, per padded base: pass 3
-# of 1,533,333 x 150 bases peaked at 3,327,267,328 B on an NVIDIA H100 80GB
-# HBM3 (chip_smoke.py, PERF.md)
-RESIDENT_BYTES_PER_BASE = 14.47
+# device bytes per (chunk row x padded base) of pass 3's per-chunk
+# temporaries (the walk's marks, the histogram's int64 index planes): the
+# resident peak of 1,533,333 x 150 bases at k = 32, 3,327,267,328 B on an
+# NVIDIA H100 80GB HBM3 (chip_smoke.py, PERF.md), less the shape terms of
+# resident_need_bytes, over 65,536 x 150 cells, rounded up
+CHUNK_BYTES_PER_CELL = 78
 
 
-def fits_resident(arrays: ReadArrays, dev) -> bool:
-    """Whether the resident path's peak fits the card's free memory (always
-    on the CPU)."""
+def resident_need_bytes(num_reads: int, max_len: int, total_bases: int,
+                        total_kmers: int, config: RecalConfig,
+                        chunk_rows: int | None = None) -> int:
+    """Device bytes the resident path needs at its peak for `num_reads`
+    reads padded to `max_len` (holding `total_bases` bases and
+    `total_kmers` k-mers) under `config`, from the shapes: codes, quals and
+    mask (1 B each per padded base); rgs and seconds (9 B a read); per
+    window of the [N, max_len - k + 1] hash cache its h1 and word (4 B
+    each), the keep / trust plane and pass 3's initial trust (1 B each);
+    filters A and B (m / 8 bytes each); and pass 3's per-chunk temporaries
+    (CHUNK_BYTES_PER_CELL per chunk row and padded base)."""
+    from ..oracle.pipeline import bloom_params_for
+    from .resident import DEFAULT_CHUNK_ROWS
+    N, L = int(num_reads), int(max_len)
+    alpha, coverage = config.resolve_alpha(int(total_bases))
+    pa, pb = bloom_params_for(config, int(total_kmers), alpha, coverage)
+    windows = N * max(L - config.k + 1, 0)
+    rows = min(N, int(chunk_rows or DEFAULT_CHUNK_ROWS))
+    return (3 * N * L + 9 * N + 10 * windows
+            + ((1 << pa.log2_m) + (1 << pb.log2_m)) // 8
+            + CHUNK_BYTES_PER_CELL * rows * L)
+
+
+def fits_resident(arrays: ReadArrays, dev, config: RecalConfig,
+                  chunk_rows: int | None = None) -> bool:
+    """Whether the resident path's peak (``resident_need_bytes``) fits the
+    card's free memory (always on the CPU)."""
     if dev.type != "cuda":
         return True
-    need = arrays.num_reads * arrays.max_len * RESIDENT_BYTES_PER_BASE
+    lens = arrays.mask.sum(axis=1)
+    need = resident_need_bytes(
+        arrays.num_reads, arrays.max_len, int(lens.sum()),
+        int(np.maximum(lens - config.k + 1, 0).sum()), config, chunk_rows)
     return need <= torch.cuda.mem_get_info(dev)[0]
 
 
@@ -96,7 +125,7 @@ def run_pipeline(arrays: ReadArrays, config: RecalConfig,
     if arrays.num_reads == 0:
         return np.zeros((0, arrays.max_len), np.int8)
     if checkpoint_dir is None and start_ordinal == 0 and \
-            fits_resident(arrays, dev):
+            fits_resident(arrays, dev, config, chunk_rows):
         from .resident import recalibrate_arrays_resident
         return recalibrate_arrays_resident(arrays, config, timings=timings,
                                            device=dev, chunk_rows=chunk_rows)

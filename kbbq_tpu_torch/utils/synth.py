@@ -3,14 +3,15 @@
 Copy of ``kbbq_tpu/utils/synth.py`` with the same numpy RNG calls in the
 same order, so the same seed gives the same reads in both packages; the
 planted errors are known, so calibration can be validated against ground
-truth.  ``arrays_to_fastq_bytes`` and ``arrays_to_bam_bytes`` (vectorized
-FASTQ and BAM writers of a ReadArrays) and ``read_starts`` are the port's
-additions.
+truth.  ``arrays_to_fastq_bytes``, ``arrays_to_bam_bytes`` and
+``arrays_to_cram_bytes`` (vectorized FASTQ, BAM and CRAM writers of a
+ReadArrays) and ``read_starts`` are the port's additions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 
 import numpy as np
 
@@ -208,39 +209,19 @@ def _reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
 BAM_READ_GROUPS = ("grpA", "grpB", "grpC")
 
 
-def arrays_to_bam_bytes(arrays, starts, extra_share: float = 0.01,
-                        oq_quals=None):
-    """Vectorized BAM writer of a ReadArrays whose reads all have the full
-    length L -> (file bytes, rows): a coordinate-sorted BAM (BGZF, level 2)
-    of one reference sequence ("synth", as long as the reads reach),
-    ``rows[j]`` the row of `arrays` behind the j-th primary record of the
-    file.
-
-    - Records are sorted by `starts` (the reads' 0-based positions, e.g.
-      ``read_starts``; ties keep row order), ``@HD SO:coordinate``.
-    - Primary record j carries ``RG:Z:BAM_READ_GROUPS[j % 3]``; the header
-      lists the @RG lines in the reverse order, so header order and order
-      of first appearance differ.
-    - About half the records (a draw from a fixed seed) are on the reverse
-      strand: their SEQ is the reverse complement of the row's codes and
-      their QUAL the row's qualities reversed, so the machine-order decode
-      gives the row back.  Rows with ``arrays.seconds`` are read 2 of a
-      pair, the others read 1; record names are ``r<row // 2, 9 digits>``.
-    - A share `extra_share` of the rows (another draw) is followed by a
-      copy, half of them secondary (0x100, QUAL "*" = 0xff) and half
-      supplementary (0x800, QUAL as the primary's).
-    - `oq_quals` (int8 [N, L], machine order), when given, is stored as an
-      OQ:Z tag after the RG tag.
-    No per-record Python loop.
-    """
-    from ..io import bgzf
-    from ..io.bam import CODE_TO_NIBBLE, bam_header_bytes
-
+def _alignment_layout(arrays, starts, extra_share: float):
+    """The records that ``arrays_to_bam_bytes`` and ``arrays_to_cram_bytes``
+    write, as arrays in file order: a dict of rows (the arrays' row of each
+    primary record, in file order), src (the row behind each record), copy
+    (secondary or supplementary), supp, flag, prim_index (the primary
+    ordinal of each record), codes and quals (int8 / uint8 [T, L], stored
+    orientation), pos, names (uint8 [T, 10]), rg (the record's index into
+    BAM_READ_GROUPS), header (the SAM text) and ref_len."""
     codes = np.asarray(arrays.codes)
     n, L = codes.shape
     if not np.asarray(arrays.mask).all():
-        raise ValueError("arrays_to_bam_bytes needs full-length reads")
-    names = [r.encode() for r in BAM_READ_GROUPS]   # names of one length
+        raise ValueError("the synthetic alignment writers need full-length "
+                         "reads")
     starts = np.asarray(starts, np.int64)
     rng = np.random.default_rng(0)
     rev_row = rng.random(n) < 0.5
@@ -274,6 +255,54 @@ def arrays_to_bam_bytes(arrays, starts, extra_share: float = 0.01,
     c[rev] = np.where(c[rev] < 4, 3 - c[rev], c[rev])[:, ::-1]
     q[rev] = q[rev][:, ::-1]
     q[copy & ~supp] = 0xFF
+    names = np.zeros((T, 10), np.uint8)
+    pair = src // 2
+    names[:, 0] = ord("r")
+    for d in range(9):
+        names[:, 1 + d] = (pair // 10 ** (8 - d)) % 10 + ord("0")
+    ref_len = int(starts.max(initial=0)) + L
+    header = ["@HD\tVN:1.6\tSO:coordinate", f"@SQ\tSN:synth\tLN:{ref_len}"]
+    header += [f"@RG\tID:{r}\tSM:synth\tPL:ILLUMINA"
+               for r in reversed(BAM_READ_GROUPS)]
+    return {"rows": rows, "src": src, "copy": copy, "supp": supp,
+            "flag": flag, "prim_index": prim_index, "codes": c, "quals": q,
+            "rev": rev, "pos": starts[src], "names": names,
+            "rg": prim_index % len(BAM_READ_GROUPS),
+            "header": "\n".join(header) + "\n", "ref_len": ref_len}
+
+
+def arrays_to_bam_bytes(arrays, starts, extra_share: float = 0.01,
+                        oq_quals=None):
+    """Vectorized BAM writer of a ReadArrays whose reads all have the full
+    length L -> (file bytes, rows): a coordinate-sorted BAM (BGZF, level 2)
+    of one reference sequence ("synth", as long as the reads reach),
+    ``rows[j]`` the row of `arrays` behind the j-th primary record of the
+    file.
+
+    - Records are sorted by `starts` (the reads' 0-based positions, e.g.
+      ``read_starts``; ties keep row order), ``@HD SO:coordinate``.
+    - Primary record j carries ``RG:Z:BAM_READ_GROUPS[j % 3]``; the header
+      lists the @RG lines in the reverse order, so header order and order
+      of first appearance differ.
+    - About half the records (a draw from a fixed seed) are on the reverse
+      strand: their SEQ is the reverse complement of the row's codes and
+      their QUAL the row's qualities reversed, so the machine-order decode
+      gives the row back.  Rows with ``arrays.seconds`` are read 2 of a
+      pair, the others read 1; record names are ``r<row // 2, 9 digits>``.
+    - A share `extra_share` of the rows (another draw) is followed by a
+      copy, half of them secondary (0x100, QUAL "*" = 0xff) and half
+      supplementary (0x800, QUAL as the primary's).
+    - `oq_quals` (int8 [N, L], machine order), when given, is stored as an
+      OQ:Z tag after the RG tag.
+    No per-record Python loop.
+    """
+    from ..io import bgzf
+    from ..io.bam import CODE_TO_NIBBLE, bam_header_bytes
+
+    lay = _alignment_layout(arrays, starts, extra_share)
+    names = [r.encode() for r in BAM_READ_GROUPS]   # names of one length
+    c, q, src, rev = lay["codes"], lay["quals"], lay["src"], lay["rev"]
+    T, L = c.shape
     nib = CODE_TO_NIBBLE[np.clip(c, 0, 4)]
     if L % 2:
         nib = np.concatenate([nib, np.zeros((T, 1), np.uint8)], axis=1)
@@ -289,7 +318,7 @@ def arrays_to_bam_bytes(arrays, starts, extra_share: float = 0.01,
         w = v.dtype.itemsize
         rec[:, col:col + w] = v.view(np.uint8).reshape(T, w)
 
-    pos = starts[src]
+    pos = lay["pos"]
     put(0, np.full(T, body), "<i4")
     put(4, np.zeros(T), "<i4")                          # refID
     put(8, pos, "<i4")
@@ -297,15 +326,12 @@ def arrays_to_bam_bytes(arrays, starts, extra_share: float = 0.01,
     put(13, np.full(T, 60), "u1")                       # mapq
     put(14, _reg2bin(pos, pos + L), "<u2")
     put(16, np.ones(T), "<u2")                          # n_cigar_op
-    put(18, flag, "<u2")
+    put(18, lay["flag"], "<u2")
     put(20, np.full(T, L), "<i4")                       # l_seq
     put(24, np.zeros(T), "<i4")                         # next refID
     put(28, pos, "<i4")                                 # next pos
     put(32, np.zeros(T), "<i4")                         # tlen
-    pair = src // 2
-    rec[:, 36] = ord("r")
-    for d in range(9):
-        rec[:, 37 + d] = (pair // 10 ** (8 - d)) % 10 + ord("0")
+    rec[:, 36:46] = lay["names"]
     rec[:, 46] = 0
     put(47, np.full(T, L << 4), "<u4")                  # L M
     at = 51
@@ -316,7 +342,7 @@ def arrays_to_bam_bytes(arrays, starts, extra_share: float = 0.01,
     rec[:, at:at + 3] = np.frombuffer(b"RGZ", np.uint8)
     table = np.frombuffer(b"".join(names), np.uint8).reshape(len(names),
                                                              rg_len)
-    rec[:, at + 3:at + 3 + rg_len] = table[prim_index % len(names)]
+    rec[:, at + 3:at + 3 + rg_len] = table[lay["rg"]]
     at += 3 + rg_len + 1
     if oq_quals is not None:
         oq = np.asarray(oq_quals).astype(np.uint8)[src]
@@ -326,10 +352,100 @@ def arrays_to_bam_bytes(arrays, starts, extra_share: float = 0.01,
         at += 3 + L + 1
     assert at == 4 + body
 
-    ref_len = int(starts.max(initial=0)) + L
-    header = ["@HD\tVN:1.6\tSO:coordinate", f"@SQ\tSN:synth\tLN:{ref_len}"]
-    header += [f"@RG\tID:{r}\tSM:synth\tPL:ILLUMINA"
-               for r in reversed(BAM_READ_GROUPS)]
-    head = np.frombuffer(bam_header_bytes("\n".join(header) + "\n",
-                                          [("synth", ref_len)]), np.uint8)
-    return bgzf.compress(np.concatenate([head, rec.reshape(-1)])), rows
+    head = np.frombuffer(bam_header_bytes(lay["header"],
+                                          [("synth", lay["ref_len"])]),
+                         np.uint8)
+    return (bgzf.compress(np.concatenate([head, rec.reshape(-1)])),
+            lay["rows"])
+
+
+def arrays_to_cram_bytes(arrays, starts, extra_share: float = 0.01,
+                         oq_quals=None, records_per_container: int = 100000):
+    """Vectorized CRAM writer of the records ``arrays_to_bam_bytes`` writes
+    -> (file bytes, rows): the bytes ``io/cram_write.py::write_cram`` gives
+    for those records under the same clock (its no-reference profile: one
+    slice per container of `records_per_container` records, each mapped
+    record one 'b' feature of its stored bases, QS its stored qualities,
+    RG the index of its read group among the header's @RG lines, names
+    preserved; `oq_quals`, when given, as each record's one tag, OQ:Z).
+    The series are built a column at a time (``write_itf8_array``); no
+    per-record Python loop."""
+    from ..io.cram_codecs import write_itf8, write_itf8_array, write_ltf8
+    from ..io.cram_write import (_EOF_CONTAINER, _TAG_CID0, CID, _arr_itf8,
+                                 _block, _container_header,
+                                 _encoding_external, _encoding_stop, _map)
+
+    lay = _alignment_layout(arrays, starts, extra_share)
+    c, q = lay["codes"], lay["quals"]
+    T, L = c.shape
+    bases = np.frombuffer(b"ACGTN", np.uint8)[np.clip(c, 0, 4)]
+    # the header's @RG lines list BAM_READ_GROUPS in reverse order
+    rg_index = len(BAM_READ_GROUPS) - 1 - lay["rg"]
+    term = np.zeros((T, 1), np.uint8)
+    oq = None
+    if oq_quals is not None:
+        oq = np.asarray(oq_quals).astype(np.uint8)[lay["src"]]
+        oq[lay["rev"]] = oq[lay["rev"]][:, ::-1]
+        oq = np.concatenate([oq + np.uint8(33), term], axis=1)
+    # an OQ:Z tag on every record: one tag line, one tag series
+    oq_key = (ord("O") << 16) | (ord("Q") << 8) | ord("Z")
+    td = b"OQZ\x00" if oq is not None else b"\x00"
+    tags = [] if oq is None else [write_itf8(oq_key)
+                                  + _encoding_stop(0, _TAG_CID0)]
+
+    out = [b"CRAM", bytes([3, 0]), bytes(20)]
+    htext = lay["header"].encode()
+    hblock = _block(0, 0, 0, struct.pack("<i", len(htext)) + htext)
+    out += [_container_header(len(hblock), -1, 0, 0, 0, 0, 0, 1, [0]),
+            hblock]
+
+    # the compression header: no reference, one tag line
+    pres = [b"RN" + bytes([1]), b"AP" + bytes([0]), b"RR" + bytes([0]),
+            b"SM" + bytes([0x1B] * 5), b"TD" + write_itf8(len(td)) + td]
+    ds = [key.encode() + _encoding_external(CID[key])
+          for key in ("BF", "CF", "RI", "RL", "AP", "RG", "TL", "FN", "FP",
+                      "MQ", "BS")]
+    ds += [b"RN" + _encoding_stop(0, CID["RN"]),
+           b"FC" + _encoding_external(CID["FC"]),
+           b"BB" + _encoding_stop(0, CID["BB"]),
+           b"QS" + _encoding_external(CID["QS"]),
+           b"BA" + _encoding_external(CID["BA"])]
+    comp_raw = _map(pres, len(pres)) + _map(ds, len(ds)) \
+        + _map(tags, len(tags))
+
+    for s in range(0, T, records_per_container):
+        e = min(T, s + records_per_container)
+        m = e - s
+        ones = np.ones(m, np.int64)
+        streams = {
+            "BF": write_itf8_array(lay["flag"][s:e]),
+            "CF": write_itf8_array(ones),
+            "RI": write_itf8_array(0 * ones),
+            "RL": write_itf8_array(L * ones),
+            "AP": write_itf8_array(lay["pos"][s:e] + 1),
+            "RG": write_itf8_array(rg_index[s:e]),
+            "RN": np.concatenate([lay["names"][s:e], term[:m]],
+                                 axis=1).tobytes(),
+            "TL": write_itf8_array(0 * ones),
+            "FN": write_itf8_array(ones),
+            "FC": b"b" * m,
+            "FP": write_itf8_array(ones),
+            "BB": np.concatenate([bases[s:e], term[:m]], axis=1).tobytes(),
+            "MQ": write_itf8_array(0 * ones),
+            "QS": q[s:e].tobytes()}
+        ext = [(cid, _block(4, 4, cid, streams[key]))
+               for key, cid in CID.items() if streams.get(key)]
+        if oq is not None:
+            ext.append((_TAG_CID0, _block(1, 4, _TAG_CID0,
+                                          oq[s:e].tobytes())))
+        comp_block = _block(1, 1, 0, comp_raw)
+        sh = (write_itf8(-2) + write_itf8(0) + write_itf8(0) + write_itf8(m)
+              + write_ltf8(s) + write_itf8(1 + len(ext))
+              + _arr_itf8([cid for cid, _ in ext]) + write_itf8(-1)
+              + bytes(16))
+        body = (comp_block + _block(0, 2, 0, sh) + _block(0, 5, 0, b"")
+                + b"".join(b for _, b in ext))
+        out += [_container_header(len(body), -2, 0, 0, m, s, m * L,
+                                  3 + len(ext), [len(comp_block)]), body]
+    out.append(_EOF_CONTAINER)
+    return b"".join(out), lay["rows"]

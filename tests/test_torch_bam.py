@@ -410,10 +410,24 @@ def test_bam_to_sam_and_unnamed_sinks(d, inputs, sink):
     assert t.getvalue() == j.getvalue() and t.getvalue()[:2] == b"\x1f\x8b"
 
 
-def test_cram_output_and_devices_are_refused(d, inputs):
-    with pytest.raises(NotImplementedError, match="A13"):
-        recalibrate_bam(inputs["plain"], str(d / "x.cram"),
-                        RecalConfig(**CFG), device="cpu")
+def test_cram_output_and_devices_are_refused(d, inputs, monkeypatch):
+    """The whole-file route writes a .cram output as the JAX package does
+    (its gzip blocks stamp the clock: both writes run under one pinned
+    clock); the streamed route refuses .cram and .sam names and several
+    devices."""
+    import time
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)
+    for name, kw in (("plain", dict(set_oq=True)),
+                     ("oq", dict(use_oq=True))):
+        t, j = d / f"t_{name}.cram", d / f"j_{name}.cram"
+        recalibrate_bam(inputs[name], str(t), RecalConfig(**CFG),
+                        device="cpu", **kw)
+        j_recalibrate_bam(inputs[name], str(j), JRecalConfig(**CFG), **kw)
+        assert t.read_bytes() == j.read_bytes()
+        assert t.read_bytes()[:4] == b"CRAM"
+    with pytest.raises(ValueError, match="writes BAM"):
+        recalibrate_bam_streaming(inputs["plain"], str(d / "x.cram"),
+                                  RecalConfig(**CFG), device="cpu")
     with pytest.raises(NotImplementedError, match="A15"):
         recalibrate_bam_streaming(inputs["plain"], str(d / "x.bam"),
                                   RecalConfig(**CFG), devices=2,

@@ -293,12 +293,46 @@ def test_routes_of_run_pipeline(arrays, monkeypatch):
     monkeypatch.setattr(stream_resident, "recalibrate_arrays_windowed", spy)
     want = run_pipeline(a, RecalConfig(**CFG), device="cpu")
     assert seen == []
-    monkeypatch.setattr(rec, "fits_resident", lambda arrays, dev: False)
+    monkeypatch.setattr(rec, "fits_resident", lambda *args: False)
     assert np.array_equal(run_pipeline(a, RecalConfig(**CFG), device="cpu"),
                           want)
     assert seen == [0]
-    assert rec.RESIDENT_BYTES_PER_BASE == pytest.approx(
-        3_327_267_328 / (1_533_333 * 150), abs=0.005)
+    # the rule's need covers the resident peak measured on the card
+    assert 3_327_267_328 <= rec.resident_need_bytes(
+        1_533_333, 150, 1_533_333 * 150, 1_533_333 * 119,
+        RecalConfig(k=32, coverage=50.0)) <= 1.02 * 3_327_267_328
+
+
+@pytest.mark.parametrize("k", [16, 24, 32])
+def test_resident_need_from_the_shapes(k, monkeypatch):
+    """The over-budget rule: the need grows with the windows per read as k
+    falls, covers the resident peak measured at k = 32 (3,327,267,328 B for
+    1,533,333 x 150 bases, chip_smoke.py on an H100) within 2 %, and
+    run_pipeline's choice follows the card's free memory."""
+    from kbbq_tpu_torch.pipeline import recalibrate as rec
+    import torch
+    N, L = 1_533_333, 150
+    cfg = RecalConfig(k=k, coverage=50.0)
+    need = rec.resident_need_bytes(N, L, N * L, N * (L - k + 1), cfg)
+    windows = N * (L - k + 1)
+    # the window terms and the inputs are most of it
+    assert need > 10 * windows + 3 * N * L
+    if k == 32:
+        assert 3_327_267_328 <= need <= 1.02 * 3_327_267_328
+    else:
+        assert need > rec.resident_need_bytes(N, L, N * L, N * 119,
+                                              RecalConfig(k=32,
+                                                          coverage=50.0))
+    a = ReadArrays(np.zeros((4, 40), np.int8), np.zeros((4, 40), np.int8),
+                   np.ones((4, 40), bool), np.zeros(4, np.int32),
+                   np.zeros(4, bool))
+    small = rec.resident_need_bytes(4, 40, 160, 4 * (40 - k + 1), cfg)
+    assert rec.fits_resident(a, torch.device("cpu"), cfg)
+    dev = torch.device("cuda")
+    for free, fits in ((small, True), (small - 1, False)):
+        monkeypatch.setattr(torch.cuda, "mem_get_info",
+                            lambda d, f=free: (f, 80 << 30))
+        assert rec.fits_resident(a, dev, cfg) is fits
 
 
 def test_checkpoint_object_round_trip(tmp_path):

@@ -24,16 +24,20 @@ import kbbq_tpu_torch
 from kbbq_tpu_torch import (gatk_report, io, kernels, ops, oracle, pipeline,
                             state)
 from kbbq_tpu_torch.ops import hash_cache, trusted
-from kbbq_tpu_torch.io import (bam, bam_stream, bam_vec, bgzf, native_lib,
-                               sam, stream)
+from kbbq_tpu_torch.io import (bam, bam_stream, bam_vec, bgzf, cram,
+                               cram_codecs, cram_vec, cram_write, fasta,
+                               native_lib, sam, stream)
 from kbbq_tpu_torch.state import checkpoint
 from kbbq_tpu_torch.utils import mem, synth
 from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_bam,
                                      recalibrate_bam_streaming,
+                                     recalibrate_cram,
+                                     recalibrate_cram_stream_resident,
                                      recalibrate_fastq,
                                      recalibrate_fastq_streaming,
                                      stream_resident, streaming)
 from kbbq_tpu_torch.pipeline import bam as pipeline_bam
+from kbbq_tpu_torch.pipeline import cram_stream
 from kbbq_tpu_torch.pipeline.recalibrate import apply_table_arrays
 cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
 src = {os.path.join(REPO, 'tests', 'data', 'tiny.fq')!r}
@@ -58,6 +62,23 @@ recalibrate_bam({str(tmp_path / 'in.bam')!r}, {str(tmp_path / 'w.bam')!r},
 recalibrate_bam_streaming({str(tmp_path / 'in.bam')!r},
                           {str(tmp_path / 's.bam')!r}, cfg, set_oq=True,
                           chunk_records=100, device="cpu")
+crm, _ = synth.arrays_to_cram_bytes(arrays,
+                                    synth.read_starts(4000, 41, 600, 1),
+                                    extra_share=0.1,
+                                    records_per_container=128)
+open({str(tmp_path / 'in.cram')!r}, "wb").write(crm)
+recalibrate_cram({str(tmp_path / 'in.cram')!r}, {str(tmp_path / 'c.bam')!r},
+                 cfg, device="cpu")
+recalibrate_cram({str(tmp_path / 'in.cram')!r}, {str(tmp_path / 'c.cram')!r},
+                 cfg, set_oq=True, device="cpu")
+recalibrate_cram_stream_resident({str(tmp_path / 'in.cram')!r},
+                                 {str(tmp_path / 's.cram')!r}, cfg,
+                                 device="cpu")
+def quals_of(path):
+    b, o, z = bam.index_bam_bytes(bam.read_bam_bytes(path))[2:]
+    return bam_vec.decode_machine_chunk(b, o, z, 41, None)[1]
+print("SAMEQ", bool((quals_of({str(tmp_path / 'c.bam')!r})
+                     == quals_of({str(tmp_path / 'w.bam')!r})).all()))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "kbbq_tpu" or m.startswith("kbbq_tpu."))
@@ -82,6 +103,10 @@ print("LIBS", libs)
     assert (tmp_path / "s.bam").read_bytes() == \
         (tmp_path / "w.bam").read_bytes()
     assert (tmp_path / "w.sam").read_bytes().startswith(b"@HD")
+    for name in ("c.cram", "s.cram"):
+        assert (tmp_path / name).read_bytes()[:4] == b"CRAM"
+    # the CRAM input's reads get the BAM input's qualities
+    assert "SAMEQ True" in res.stdout
     # the port's own codec is loaded, never the JAX package's build of its
     libs = res.stdout.split("LIBS ")[1]
     assert "kbbq_tpu_torch/build/libkbbq_io.so" in libs
@@ -112,7 +137,9 @@ def test_no_source_imports_jax_or_the_jax_package():
                                    "recalibrate_fastq_streaming",
                                    "recalibrate_arrays_windowed",
                                    "recalibrate_bam",
-                                   "recalibrate_bam_streaming"])
+                                   "recalibrate_bam_streaming",
+                                   "recalibrate_cram",
+                                   "recalibrate_cram_stream_resident"])
 def test_entry_points_default_to_the_card_and_raise_without_one(
         entry, tmp_path, monkeypatch):
     """device=None means CUDA; with no CUDA device the call raises (and
@@ -146,6 +173,21 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
                 os.path.join(REPO, "tests", "data", "tiny.fq"), str(out), cfg)
         elif entry == "recalibrate_arrays_windowed":
             recalibrate_arrays_windowed(arrays, cfg)
+        elif entry in ("recalibrate_cram",
+                       "recalibrate_cram_stream_resident"):
+            from kbbq_tpu_torch.io.bam import build_record
+            from kbbq_tpu_torch.io.cram_write import write_cram
+            from kbbq_tpu_torch.pipeline import (
+                recalibrate_cram, recalibrate_cram_stream_resident)
+            rec = build_record("r", np.zeros(20, np.int8),
+                               np.full(20, 30, np.uint8))
+            rec._rg_index = -1
+            src = tmp_path / "in.cram"
+            write_cram(BamFile("@HD\tVN:1.6\n", [], [rec]), str(src))
+            out = tmp_path / "never.cram"
+            {"recalibrate_cram": recalibrate_cram,
+             "recalibrate_cram_stream_resident":
+             recalibrate_cram_stream_resident}[entry](str(src), str(out), cfg)
         elif entry in ("recalibrate_bam", "recalibrate_bam_streaming"):
             from kbbq_tpu_torch.io.bam import build_record, serialize_bam
             src = tmp_path / "in.bam"

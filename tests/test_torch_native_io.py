@@ -504,3 +504,51 @@ def test_bam_bindings_refuse_offsets_outside_the_buffer():
                                    np.zeros((1, 5), np.int8))
     with pytest.raises(ValueError, match="outside"):
         native_lib.bam_append_oq(buf, buf, [4], [61], [0], [-1])
+
+
+# ------------------------------------------------------------------- rANS
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, 4, 5, 999, 1000, 1001, 20000])
+def test_rans_bindings_round_trip_and_equal_the_plain_coder(order, n):
+    from kbbq_tpu_torch.io import cram_codecs
+    rng = np.random.default_rng(n + order)
+    data = bytes(rng.integers(30, 42, n).astype(np.uint8))
+    blob = native_lib.rans_compress(data, order)
+    plain = (cram_codecs.rans_compress_o0_plain if order == 0
+             else cram_codecs.rans_compress_o1_plain)
+    assert blob == plain(data)
+    assert native_lib.rans_uncompress(blob, n) == data
+    # from a numpy array and from a memoryview alike
+    assert native_lib.rans_uncompress(np.frombuffer(blob, np.uint8), n) == \
+        native_lib.rans_uncompress(memoryview(blob), n) == data
+
+
+def test_rans_bindings_check_sizes_and_orders():
+    blob = native_lib.rans_compress(b"ACGT" * 100, 0)
+    for n in (399, 401):
+        with pytest.raises(ValueError, match="rc=-2"):
+            native_lib.rans_uncompress(blob, n)
+    with pytest.raises(ValueError, match="negative"):
+        native_lib.rans_uncompress(blob, -1)
+    with pytest.raises(ValueError, match="order"):
+        native_lib.rans_compress(b"ACGT", 2)
+    for cut in (0, 5, 9, 12, 20):
+        with pytest.raises(ValueError, match="rANS: malformed"):
+            native_lib.rans_uncompress(blob[:cut], 400)
+
+
+def test_failed_build_raises_on_the_rans_paths(tmp_path, monkeypatch):
+    """Without the codec the CRAM block coder raises: the NumPy coder is
+    never reached from the reader or the writer."""
+    from kbbq_tpu_torch.io import cram_codecs
+    blob = native_lib.rans_compress(b"ACGT" * 100, 1)
+    monkeypatch.setattr(native_lib, "_lib", None)
+    monkeypatch.setattr(native_lib, "LIBRARY", str(tmp_path / "lib.so"))
+    monkeypatch.setattr(native_lib, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native_lib, "CXX", str(tmp_path / "no-such-g++"))
+    for call in (lambda: cram_codecs.rans_uncompress(blob),
+                 lambda: cram_codecs.rans_compress_o0(b"ACGT"),
+                 lambda: cram_codecs.rans_compress_o1(b"ACGT" * 400)):
+        with pytest.raises(RuntimeError, match="not found"):
+            call()
