@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # full size, needs one CUDA card and nvcc
     python3 chip_smoke.py --reads N  # a smaller main-path dataset (debugging)
+    python3 chip_smoke.py --scale-reads N   # config 4 cut to N reads (0: skip)
 
 Builds the CUDA kernels and the host IO codec from kbbq_tpu_torch/csrc (one
 nvcc and one g++, started together), holds each kernel entry point against
@@ -36,16 +37,31 @@ non-primary QS bytes kept, a second run equal, launches per container, a
 ``use_oq`` rerun), the whole-file route (``recalibrate_cram``, per-record
 decode and encode) on the first 131,072 reads to .cram and .bam (qualities
 equal the windowed route's on that file), and the native rANS coder against
-the NumPy coder on one container's QS block.  Any failed phase raises, so
-the exit code is non-zero; without a CUDA device the script exits 1 at once
-and prints no result.
+the NumPy coder on one container's QS block.  Then the command line
+(``python -m kbbq_tpu_torch``, each run a process of its own, its launches
+by entry point read back): config 2's FASTQ resident, streamed, with a
+report and through ``applybqsr`` (the main path's bytes), config 3's BAM
+whole-file and streamed (the [bam] route's bytes), the cut CRAM streamed
+and to BAM (the [cram] route's output and qualities), ``benchmark`` on the
+input and output BAM, ``--devices 2`` refused.  Last, BASELINE.json config
+4 on the one card: 13,000,000 reads x 150 at 30x (``make_arrays_chunked``,
+a FASTQ over 2 GiB), the command line (its streamed engine) and the
+resident route in process write the same bytes, and against the run's
+filter B of 2^31 bits the walk equals its plain version on 8,192 reads and
+a chunk, the walk and the cached word test timed.  Any failed phase raises,
+so the exit code is non-zero; without a CUDA device the script exits 1 at
+once and prints no result.
 
 Output, last three lines: a JSON object {"kernels": [...]} (one entry per
 kernel entry point: launches on its path (``launches``: the resident main
 path's count, the streamed path's for the hash-only entry, whose only path
 it is; ``launches_streamed``, ``launches_bam``, ``launches_bam_streamed``,
 ``launches_cram`` (the whole-file CRAM route, reduced input) and
-``launches_cram_streamed`` beside it in every entry), mismatches against the plain
+``launches_cram_streamed``, ``launches_cli`` (the command line's resident
+FASTQ run), ``launches_scale`` and ``launches_scale_cli`` (config 4's
+resident and command-line runs) beside it in every entry; the probe's and
+the walk's entries also their time, plain time and bound against config
+4's filter B, ``scale_*``), mismatches against the plain
 version, times in ms, the roofline bound; the probe's entries also
 "bound_l2_ms", the time its sector traffic took in this run when every
 filter read hit in L2, and the cached word test "ms_by_log2_m", its time
@@ -1443,8 +1459,8 @@ def phase_cram(tmp, arrays, starts, cfg, bam_quals):
                 if k.endswith("_peak_bytes")}
 
     src = os.path.join(tmp, "reads.cram")
-    data, rows = timed("write_input", arrays_to_cram_bytes, arrays, starts,
-                       extra_share=BAM_EXTRA_SHARE)
+    data, _ = timed("write_input", arrays_to_cram_bytes, arrays, starts,
+                    extra_share=BAM_EXTRA_SHARE)
     with open(src, "wb") as f:
         f.write(data)
     size = len(data)
@@ -1496,31 +1512,6 @@ def phase_cram(tmp, arrays, starts, cfg, bam_quals):
     log("[cram] windowed seconds by stage: " + json.dumps(t_s))
     log("[cram] windowed peak device bytes by stage: " + json.dumps(peaks_s))
 
-    # ---- use_oq: the first run's qualities as QS, the input's as OQ
-    new_q = np.empty_like(arrays.quals)
-    new_q[rows] = got
-    oq_src = os.path.join(tmp, "reads_oq.cram")
-    with open(oq_src, "wb") as f:
-        f.write(timed("write_oq_input", arrays_to_cram_bytes,
-                      ReadArrays(arrays.codes, new_q, arrays.mask,
-                                 arrays.rgs, arrays.seconds), starts,
-                      extra_share=BAM_EXTRA_SHARE,
-                      oq_quals=arrays.quals)[0])
-    del new_q
-    out3 = os.path.join(tmp, "cram_oq.cram")
-    t0 = time.time()
-    recalibrate_cram_stream_resident(oq_src, out3, cfg, use_oq=True,
-                                     device=DEVICE)
-    torch.cuda.synchronize()
-    wall_oq = time.time() - t0
-    if not np.array_equal(cram_quals(out3, L), got):
-        raise AssertionError("use_oq rerun gave other qualities than the "
-                             "first run")
-    for p in (oq_src, out3):
-        os.remove(p)
-    log(f"[cram] use_oq rerun (QS = the first run's qualities, OQ = the "
-        f"input's): {wall_oq:.3f} s, qualities equal the first run's")
-
     # ---- native rANS against the NumPy coder on the first container's QS
     with CramStream(src) as cs:
         _, blocks, _ = next(cs.containers())
@@ -1567,8 +1558,10 @@ def phase_cram(tmp, arrays, starts, cfg, bam_quals):
                      arrays.rgs[:n], arrays.seconds[:n])
     small = os.path.join(tmp, "small.cram")
     with open(small, "wb") as f:
-        f.write(arrays_to_cram_bytes(sub, starts[:n],
-                                     extra_share=BAM_EXTRA_SHARE)[0])
+        data, rows_small = arrays_to_cram_bytes(sub, starts[:n],
+                                                extra_share=BAM_EXTRA_SHARE)
+        f.write(data)
+    del data
     walls, t_w, by_entry_w = {}, {}, {}
     for ext in ("cram", "bam"):
         t: dict = {}
@@ -1599,6 +1592,32 @@ def phase_cram(tmp, arrays, starts, cfg, bam_quals):
     log(f"[cram] whole-file route (set_oq) on the first {n} reads: .cram "
         f"{walls['cram']:.3f} s, .bam {walls['bam']:.3f} s; qualities of "
         f"both equal the windowed route's on that file")
+
+    # ---- use_oq on the same reads: the windowed route's qualities as QS,
+    # the input's as OQ
+    new_q = np.empty_like(sub.quals)
+    new_q[rows_small] = q_s
+    oq_src = os.path.join(tmp, "small_oq.cram")
+    with open(oq_src, "wb") as f:
+        f.write(timed("write_oq_input", arrays_to_cram_bytes,
+                      ReadArrays(sub.codes, new_q, sub.mask, sub.rgs,
+                                 sub.seconds), starts[:n],
+                      extra_share=BAM_EXTRA_SHARE, oq_quals=sub.quals)[0])
+    del new_q
+    out3 = os.path.join(tmp, "cram_oq.cram")
+    t0 = time.time()
+    recalibrate_cram_stream_resident(oq_src, out3, cfg, use_oq=True,
+                                     device=DEVICE)
+    torch.cuda.synchronize()
+    wall_oq = time.time() - t0
+    if not np.array_equal(cram_quals(out3, L), q_s):
+        raise AssertionError("use_oq rerun gave other qualities than the "
+                             "first run")
+    for p in (oq_src, out3):
+        os.remove(p)
+    log(f"[cram] use_oq rerun on the first {n} reads (QS = the windowed "
+        f"route's qualities, OQ = the input's): {wall_oq:.3f} s, qualities "
+        f"equal the first run's")
     log("[cram] whole-file seconds by stage: " + json.dumps(t_w))
     log("[cram] whole-file peak device bytes by stage: "
         + json.dumps(peaks_w))
@@ -1618,11 +1637,489 @@ def phase_cram(tmp, arrays, starts, cfg, bam_quals):
     return by_entry_w["cram"], by_entry_s
 
 
+# the command line in a process of its own, as `python -m kbbq_tpu_torch`
+# runs it (runpy); when it exits it writes to argv[1] the launches of each
+# kernel entry point (none if it never loaded the kernels) and its peak
+# resident set
+_CLI_RUNNER = """
+import atexit, json, runpy, sys
+from kbbq_tpu_torch.utils.metrics import peak_rss_bytes
+counts = sys.argv.pop(1)
+def report():
+    k = sys.modules.get("kbbq_tpu_torch.kernels")
+    with open(counts, "w") as f:
+        json.dump({"launches": dict(k.ENTRY_LAUNCHES) if k else {},
+                   "peak_rss_bytes": peak_rss_bytes()}, f)
+atexit.register(report)
+runpy.run_module("kbbq_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+NO_LAUNCHES = {"bloom_probe_hashed": 0, "bloom_probe_words": 0,
+               "bloom_probe_trust": 0, "bloom_or_words": 0, "hash_build": 0,
+               "hash_only": 0, "walk_errors": 0}
+
+
+def run_cli(tmp, argv, reads=None, expect_ok=True, name="cli"):
+    """One command-line run from the repo root -> (exit code, wall s, the
+    command line's last stderr line, launches by entry point, its peak
+    resident set in bytes).  Prints the wall, the reads/s and that line."""
+    counts = os.path.join(tmp, f"{name}_launches.json")
+    if os.path.exists(counts):
+        os.remove(counts)
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-c", _CLI_RUNNER, counts, *argv],
+                         cwd=HERE, capture_output=True, text=True,
+                         timeout=900)
+    wall = time.time() - t0
+    err = res.stderr.strip().splitlines()
+    last = err[-1] if err else ""
+    if expect_ok and res.returncode != 0:
+        raise AssertionError(f"kbbq_tpu_torch {' '.join(argv)} exited "
+                             f"{res.returncode}: {res.stderr[-3000:]}")
+    with open(counts) as f:
+        got = json.load(f)
+    rate = f", {reads / wall:.0f} reads/s" if reads else ""
+    log(f"[cli] python -m kbbq_tpu_torch {' '.join(argv)}: exit "
+        f"{res.returncode}, {wall:.3f} s{rate}, peak RSS "
+        f"{got['peak_rss_bytes']} B; {last}")
+    return (res.returncode, wall, last, {**NO_LAUNCHES, **got["launches"]},
+            got["peak_rss_bytes"])
+
+
+def same_file(a, b, block=64 << 20) -> bool:
+    """Two files of equal bytes, read a block at a time."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as f, open(b, "rb") as g:
+        while True:
+            x, y = f.read(block), g.read(block)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def calibration_gap(tsv) -> tuple:
+    """(bases, count-weighted mean |reportedQ - actualQ|) of a benchmark
+    TSV."""
+    with open(tsv) as f:
+        rows = [ln.rstrip("\n").split("\t") for ln in f.readlines()[1:]]
+    n = np.asarray([int(r[3]) for r in rows], np.int64)
+    gap = np.abs(np.asarray([int(r[1]) for r in rows], np.float64)
+                 - np.asarray([float(r[2]) for r in rows]))
+    return int(n.sum()), float((gap * n).sum() / max(int(n.sum()), 1))
+
+
+def phase_cli(tmp, cfg, seed, genome_len, want):
+    """The command line on the card, each run `python -m kbbq_tpu_torch`
+    in a process of its own with the flags of the library call it is held
+    against: config 2's FASTQ resident and --stream (the [main_path]
+    output's bytes), --report-out then applybqsr (the same bytes, no
+    launch), config 3's BAM whole-file and --stream with -s ([bam]'s
+    output), the [cram] phase's cut CRAM to .bam (its qualities) and
+    --stream to .cram ([cram]'s windowed output on it), benchmark on the
+    input and output BAM (same bases, the output's calibration gap below
+    the input's), and --devices 2 refused.  `want`: the launches by entry
+    point of each route's library run.  Returns the resident FASTQ run's
+    launches."""
+    from kbbq_tpu_torch.io import bam_vec
+    from kbbq_tpu_torch.io.bam import index_bam_bytes, read_bam_bytes
+    from kbbq_tpu_torch.io.bam_stream import open_bam_stream
+    from kbbq_tpu_torch.oracle.kmers import decode_seq
+    from kbbq_tpu_torch.pipeline.cram_stream import scan_cram_meta
+    from kbbq_tpu_torch.pipeline.resident import DEFAULT_CHUNK_ROWS
+
+    # the earlier phases' files
+    fq, fq_out = os.path.join(tmp, "reads.fq"), os.path.join(tmp, "out1.fq")
+    bam, bam_out = (os.path.join(tmp, "reads.bam"),
+                    os.path.join(tmp, "bam1.bam"))
+    cram, cram_out = (os.path.join(tmp, "small.cram"),
+                      os.path.join(tmp, "small_s.cram"))
+    flags = ["-k", str(cfg.k), "-c", f"{cfg.coverage:g}", "--batch-size",
+             str(cfg.batch_size)]
+    n_fq = n_bam = want["reads"]
+    out = {}
+
+    def check(name, argv, got, want_file=None, reads=None, launches=None):
+        _, wall, last, by_entry, rss = run_cli(tmp, argv, reads, name=name)
+        check_launches(f"command line ({name})", by_entry,
+                       NO_LAUNCHES if launches is None else launches)
+        if want_file is not None and not same_file(got, want_file):
+            raise AssertionError(f"command line ({name}) wrote other bytes "
+                                 f"than the library route")
+        out[name] = {"wall_s": wall, "stderr": last, "peak_rss_bytes": rss,
+                     "reads_per_s": reads / wall if reads else None}
+        return by_entry
+
+    cli_fq = os.path.join(tmp, "cli.fq")
+    resident = check("fastq", ["recalibrate", fq, "-o", cli_fq, *flags],
+                     cli_fq, fq_out, n_fq, want["fastq"])
+    check("fastq_stream", ["recalibrate", fq, "-o", cli_fq, "--stream",
+                           *flags], cli_fq, fq_out, n_fq,
+          want["fastq_stream"])
+    report = os.path.join(tmp, "cli.report")
+    check("fastq_report_out", ["recalibrate", fq, "-o", cli_fq,
+                               "--report-out", report, *flags], cli_fq,
+          fq_out, n_fq, want["fastq"])
+    check("applybqsr", ["applybqsr", "-r", report, fq, "-o", cli_fq,
+                        *flags], cli_fq, fq_out, n_fq)
+    os.remove(cli_fq)
+
+    cli_bam = os.path.join(tmp, "cli.bam")
+    check("bam_stream", ["recalibrate", bam, "-o", cli_bam, "-s", "--stream",
+                         *flags], cli_bam, bam_out, n_bam,
+          want["bam_stream"])
+    check("bam", ["recalibrate", bam, "-o", cli_bam, "-s", *flags], cli_bam,
+          bam_out, n_bam, want["bam"])
+
+    metas = scan_cram_meta(cram, cfg.k, None)[0]
+    n_cram = sum(m["n_primary"] for m in metas)
+    W = sum(1 for m in metas if m["n_primary"])
+    cli_cram = os.path.join(tmp, "cli.cram")
+    check("cram_stream", ["recalibrate", cram, "-o", cli_cram, "--stream",
+                          *flags], cli_cram, cram_out, n_cram, {
+        "hash_build": W, "hash_only": 2 * W, "bloom_probe_trust": W,
+        "bloom_or_words": W, "bloom_probe_words": W,
+        "walk_errors": sum(-(-m["n_primary"] // DEFAULT_CHUNK_ROWS)
+                           for m in metas), "bloom_probe_hashed": 0})
+    cram_bam = os.path.join(tmp, "cli_cram.bam")
+    check("cram", ["recalibrate", cram, "-o", cram_bam, *flags], None, None,
+          n_cram, want["cram"])
+    L = want["read_len"]
+    b, o, z = index_bam_bytes(read_bam_bytes(cram_bam))[2:]
+    if not np.array_equal(bam_vec.decode_machine_chunk(b, o, z, L, None)[1],
+                          cram_quals(cram_out, L)):
+        raise AssertionError("the command line's CRAM -> BAM qualities "
+                             "differ from the windowed route's")
+    del b, o, z
+    os.remove(cram_bam)
+
+    # benchmark: the generator's genome (make_arrays_fast's first draw) as
+    # the reference, under the BAM's @SQ name; no variable site
+    genome = np.random.default_rng(seed).integers(0, 4, size=genome_len,
+                                                  dtype=np.int8)
+    _, refs, reader = open_bam_stream(bam)
+    reader.f.close()
+    ref = os.path.join(tmp, "ref.fa")
+    with open(ref, "wb") as f:
+        f.write(b">" + refs[0][0].encode() + b"\n" + decode_seq(genome)
+                + b"\n")
+    vcf = os.path.join(tmp, "none.vcf")
+    with open(vcf, "wb") as f:
+        f.write(b"##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\n")
+    # the host-only runs side by side: the two benchmarks and the refusal
+    tsv = {name: os.path.join(tmp, f"bench_{name}.tsv")
+           for name in ("input", "output")}
+    with ThreadPoolExecutor(3) as ex:
+        runs = [ex.submit(check, f"benchmark_{name}",
+                          ["benchmark", "-b", src, "-r", ref, "-v", vcf,
+                           "-l", name, "-o", tsv[name]], None, reads=n_bam)
+                for name, src in (("input", bam), ("output", bam_out))]
+        refused = ex.submit(run_cli, tmp, ["recalibrate", fq, "-o", cli_fq,
+                                           "--devices", "2", *flags],
+                            expect_ok=False, name="devices")
+        for r in runs:
+            r.result()
+        rc, _, last, by_entry, _ = refused.result()
+    if rc == 0 or "ROADMAP A15" not in last or any(by_entry.values()) or \
+            os.path.exists(cli_fq):
+        raise AssertionError(f"--devices 2 was not refused: exit {rc}, "
+                             f"{last!r}")
+    gaps = {name: calibration_gap(path) for name, path in tsv.items()}
+    # every base of every primary record is aligned and scored
+    if not gaps["input"][0] == gaps["output"][0] == n_bam * L or \
+            not gaps["output"][1] < gaps["input"][1]:
+        raise AssertionError(f"benchmark (bases, calibration gap): {gaps}")
+    log(f"[cli] benchmark: {gaps['input'][0]} bases in both; count-weighted "
+        f"mean |reportedQ - actualQ| {gaps['input'][1]:.4f} in the input, "
+        f"{gaps['output'][1]:.4f} in the output")
+
+    log(f"[cli] {smi_line()}")
+    log("[cli] " + json.dumps({"runs": out, "calibration_gap": gaps,
+                               "card": smi_line()}))
+    return resident
+
+
+SCALE_READS = 13_000_000      # BASELINE config 4: chr20-class, 30x, 2x150
+SCALE_COVERAGE = 30.0
+SCALE_READ_LEN = 150
+SCALE_SAMPLE = 8192           # reads of the walk's check at filter B
+# host bytes per read held at once at the scale phase's peak: the data
+# generator's arrays (450, in a process of its own), the resident run's file
+# (318), its decode (450), new qualities (150) and rendered output (318),
+# with a margin
+SCALE_HOST_BYTES_PER_READ = 2048
+SCALE_DISK_BYTES_PER_READ = 3 * 318      # input and two outputs
+# make_arrays_chunked's reads rendered to a FASTQ in a process of its own:
+# argv reads, coverage, seed, path; prints its seconds as JSON
+_SCALE_DATA = """
+import json, sys, time
+from kbbq_tpu_torch.utils.metrics import peak_rss_bytes
+from kbbq_tpu_torch.utils.synth import arrays_to_fastq_file, make_arrays_chunked
+n, cov, seed, path = int(sys.argv[1]), float(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+t0 = time.time()
+a = make_arrays_chunked(n, 150, cov, seed)
+t1 = time.time()
+size = arrays_to_fastq_file(a, path)
+print(json.dumps({"generate_s": t1 - t0, "render_s": time.time() - t1,
+                  "bytes": size, "peak_rss_bytes": peak_rss_bytes()}))
+"""
+
+
+def start_scale_data(reads, seed):
+    """Cut `reads` to what the host's memory and the disk hold, and start
+    writing config 4's FASTQ in a process of its own (it runs beside the
+    [cli] phase) -> the job for phase_scale."""
+    with open("/proc/meminfo") as f:
+        mem_total = next(int(ln.split()[1]) * 1024 for ln in f
+                         if ln.startswith("MemTotal:"))
+    tmp = tempfile.mkdtemp(prefix="kbbq_scale_")
+    disk_free = shutil.disk_usage(tmp).free
+    n = min(reads, int(mem_total * 0.8) // SCALE_HOST_BYTES_PER_READ,
+            int(disk_free * 0.9) // SCALE_DISK_BYTES_PER_READ)
+    log(f"[scale] host MemTotal {mem_total} B, {disk_free} B free on {tmp}: "
+        f"{n} reads" + ("" if n == reads else f" (cut from {reads})"))
+    src = os.path.join(tmp, "in.fq")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SCALE_DATA, str(n), str(SCALE_COVERAGE),
+         str(seed), src], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return {"tmp": tmp, "proc": proc, "src": src, "reads": n,
+            "asked": reads, "seed": seed, "t0": time.time()}
+
+
+def stop_scale_data(job) -> None:
+    if job is None:
+        return
+    if job["proc"].poll() is None:
+        job["proc"].kill()
+        job["proc"].wait()
+    shutil.rmtree(job["tmp"], ignore_errors=True)
+
+
+def phase_scale(job):
+    """BASELINE config 4 on one card: make_arrays_chunked's reads as a
+    FASTQ over 2 GiB (start_scale_data), (a) the command line (its streamed
+    engine, by the size rule), (b) the resident library route in process:
+    the same bytes, launches by entry point, seconds and peak device bytes
+    by stage; then, against filter B as the resident run built it,
+    walk_errors against its plain version on the first SCALE_SAMPLE reads
+    and on one chunk (and timed from a CUDA graph), and the cached word test
+    over the windows of the first FULL_READS reads (against its plain
+    version, timed, beside the library's gather)."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.cli.main import AUTO_STREAM_BYTES
+    from kbbq_tpu_torch.constants import DEFAULT_EXT_CAP
+    from kbbq_tpu_torch.io.fastq import extract_padded_arrays, parse_fastq_bytes
+    from kbbq_tpu_torch.ops import bloom as tb
+    from kbbq_tpu_torch.ops.hash_cache import hash_cache_build
+    from kbbq_tpu_torch.ops.inference import infer_errors, infer_errors_plain
+    from kbbq_tpu_torch.ops.kmers import u32_to_wide
+    from kbbq_tpu_torch.oracle import bloom_params_for
+    from kbbq_tpu_torch.pipeline import RecalConfig, recalibrate_fastq
+    from kbbq_tpu_torch.pipeline import resident as resident_mod
+    from kbbq_tpu_torch.pipeline.recalibrate import resident_need_bytes
+    import resource
+
+    from kbbq_tpu_torch.pipeline.resident import DEFAULT_CHUNK_ROWS
+    from kbbq_tpu_torch.utils.metrics import peak_rss_bytes
+
+    tmp, src, n, seed = job["tmp"], job["src"], job["reads"], job["seed"]
+    out, err = job["proc"].communicate(timeout=1200)
+    if job["proc"].returncode != 0:
+        raise AssertionError(f"config 4's data generator failed: "
+                             f"{err[-3000:]}")
+    made = json.loads(out.strip().splitlines()[-1])
+    size = made["bytes"]
+    L, k = SCALE_READ_LEN, 32
+    cfg = RecalConfig(k=k, coverage=SCALE_COVERAGE)
+    genome_len = max(1000, int(n * L / SCALE_COVERAGE))
+    alpha, cov = cfg.resolve_alpha(n * L)
+    pa, pb = bloom_params_for(cfg, n * (L - k + 1), alpha, cov)
+    log(f"[scale] {n} reads x {L} from a {genome_len} bp genome, seed {seed}"
+        f": generated in {made['generate_s']:.1f} s and {size} B of FASTQ "
+        f"written in {made['render_s']:.1f} s (in a process of its own, "
+        f"beside [cli]; {time.time() - job['t0']:.1f} s after its start); "
+        f"{n * (L - k + 1)} windows, filter A 2^{pa.log2_m} and B 2^"
+        f"{pb.log2_m} bits (log2_m {pa.log2_m} / {pb.log2_m})")
+
+    # ---- (a) the command line: over 2 GiB, so the streamed engine
+    torch.cuda.empty_cache()
+    cli_fq = os.path.join(tmp, "cli.fq")
+    W = -(-n // STREAM_WINDOW)
+    sizes = [min(STREAM_WINDOW, n - s) for s in range(0, n, STREAM_WINDOW)]
+    # a cut input under the size rule's 2 GiB asks for the same engine
+    stream = [] if size > AUTO_STREAM_BYTES else ["--stream"]
+    _, wall_a, last, by_entry_a, rss_a = run_cli(
+        tmp, ["recalibrate", src, "-o", cli_fq, "-k", str(k), "-c",
+              f"{SCALE_COVERAGE:g}", "--interleaved", *stream], n)
+    check_launches("command line at config 4 (streamed)", by_entry_a, {
+        "hash_build": W, "hash_only": 2 * W, "bloom_probe_trust": W,
+        "bloom_or_words": W, "bloom_probe_words": W,
+        "walk_errors": sum(-(-m // DEFAULT_CHUNK_ROWS) for m in sizes),
+        "bloom_probe_hashed": 0})
+
+    # ---- (b) the resident route in process; filter B kept as built
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    need = resident_need_bytes(n, L, n * L, n * (L - k + 1), cfg)
+    if need > free:
+        raise AssertionError(f"resident need {need} B is over the "
+                             f"card's free {free} B")
+    built = []
+    build = resident_mod.bloom_build_words
+
+    def keep_filter_b(*args, **kw):
+        built.append(build(*args, **kw))
+        return built[-1]
+
+    res_fq = os.path.join(tmp, "res.fq")
+    t: dict = {}
+    try:        # the peak resident set from here on (Linux: clear_refs 5)
+        with open("/proc/self/clear_refs", "w") as f:
+            f.write("5")
+        rss_from = "the resident run"
+    except OSError:
+        rss_from = "the script's start"
+    resident_mod.bloom_build_words = keep_filter_b
+    try:
+        kernels.reset_launches()
+        t0 = time.time()
+        info = recalibrate_fastq([src], res_fq, cfg, interleaved=True,
+                                 timings=t)
+        torch.cuda.synchronize()
+        wall_b = time.time() - t0
+        by_entry_b = dict(kernels.ENTRY_LAUNCHES)
+        rss_b = peak_rss_bytes()
+        rss_all = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    finally:
+        resident_mod.bloom_build_words = build
+    check_launches("resident route at config 4", by_entry_b, {
+        "bloom_probe_trust": 1, "bloom_probe_words": 1,
+        "bloom_probe_hashed": 0, "hash_build": 1, "bloom_or_words": 1,
+        "hash_only": 0, "walk_errors": -(-n // DEFAULT_CHUNK_ROWS)})
+    peaks = {name[:-len("_peak_bytes")]: t.pop(name)
+             for name in sorted(t) if name.endswith("_peak_bytes")}
+    if info["num_reads"] != n or not same_file(cli_fq, res_fq):
+        raise AssertionError("the command line's streamed output differs "
+                             "from the resident route's")
+    out_size = os.path.getsize(res_fq)
+    # the first FULL_READS reads' codes, for the kernel checks: every record
+    # of the generator's FASTQ has the same size
+    nr = min(FULL_READS, n)
+    with open(src, "rb") as f:
+        codes = extract_padded_arrays(parse_fastq_bytes(
+            f.read(nr * (size // n))))[0]
+    for p in (cli_fq, res_fq, src):
+        os.remove(p)
+    log(f"[scale] command line (streamed, {W} windows): {wall_a:.3f} s, "
+        f"{n / wall_a:.0f} reads/s; resident route: {wall_b:.3f} s, "
+        f"{n / wall_b:.0f} reads/s, need {need} B of {free} B free; "
+        f"outputs equal byte for byte ({out_size} B)")
+    log(f"[scale] command line launches by entry {json.dumps(by_entry_a)}"
+        f"; resident {json.dumps(by_entry_b)}")
+    log("[scale] resident seconds by stage: " + json.dumps(t))
+    log("[scale] resident peak device bytes by stage: " + json.dumps(peaks)
+        + " (pass 4's holds filter B, kept for the checks below)")
+
+    # ---- the kernels against the run's filter B
+    dev = torch.device(DEVICE)
+    filt_b = built[0]
+    del built
+    if filt_b.numel() * 32 != 1 << pb.log2_m:
+        raise AssertionError(f"filter B has {filt_b.numel()} words, "
+                             f"expected 2^{pb.log2_m} bits")
+    h, W_ext = cfg.num_hashes, min(cfg.ext_cap or DEFAULT_EXT_CAP, k)
+    cd = torch.from_numpy(codes).to(dev)
+    del codes
+    h1, word, _, _ = hash_cache_build(cd, 0, k, h, 0, 24)
+    nwin = h1.numel()
+    hits = tb.bloom_query_words(filt_b, h1, word)
+    mm_probe = mismatches(hits, tb.bloom_query_words_plain(filt_b, h1,
+                                                           word))
+    probe_ms = cuda_ms(lambda: tb.bloom_query_words(filt_b, h1, word))
+    probe_plain_ms = cuda_ms(
+        lambda: tb.bloom_query_words_plain(filt_b, h1, word))
+    block = u32_to_wide(h1) & ((1 << (pb.log2_m - 5)) - 1)
+    probe_lib_ms = cuda_ms(lambda: filt_b[block])
+    del block
+    probe_bound = bound(nwin * 9 + filt_b.numel() * 4, nwin * 4)
+    hit_share = float(hits.float().mean())
+    ns = min(SCALE_SAMPLE, nr)
+    err_s = infer_errors(filt_b, cd[:ns], k, h, cfg.ext_cap,
+                         trusted0=hits[:ns])
+    mm_sample = mismatches(err_s, infer_errors_plain(
+        filt_b, cd[:ns], k, h, cfg.ext_cap, trusted0=hits[:ns]))
+    wr = min(WALK_READS, nr)
+    c_w, tr0 = cd[:wr], hits[:wr]
+    err = infer_errors(filt_b, c_w, k, h, cfg.ext_cap, trusted0=tr0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    err_plain = infer_errors_plain(filt_b, c_w, k, h, cfg.ext_cap,
+                                   trusted0=tr0)
+    torch.cuda.synchronize()
+    walk_plain_ms = (time.time() - t0) * 1e3
+    mm_chunk = mismatches(err, err_plain)
+    walk_graph_ms = cuda_graph_ms(lambda: kernels.walk_errors(
+        c_w, tr0, filt_b, k, W_ext, h))
+    marks, outside = int(err.sum()), int((~tr0).sum())
+    n_w = L - k + 1
+    walk_bound = bound(wr * (L + n_w + L) + min(filt_b.numel() * 4,
+                                                 marks * 3 * 4),
+                       outside * 12 + marks * 3 * 90)
+    if mm_probe or mm_sample or mm_chunk:
+        raise AssertionError(f"at filter B of 2^{pb.log2_m} bits: probe "
+                             f"{mm_probe}, walk {mm_sample} (sample) and "
+                             f"{mm_chunk} (chunk) mismatches")
+    del h1, word, hits, cd, err, err_plain, err_s, filt_b
+    torch.cuda.empty_cache()
+    log(f"[scale] at filter B of 2^{pb.log2_m} bits: walk_errors 0 "
+        f"mismatches on the first {ns} reads and on {wr} reads ({marks} "
+        f"bases marked), {walk_graph_ms:.4f} ms a chunk from a graph "
+        f"(plain {walk_plain_ms:.1f} ms, bound {walk_bound[0]:.4g} ms by "
+        f"{walk_bound[1]}); bloom_probe_words over {nwin} windows: 0 "
+        f"mismatches, {hit_share:.4f} hit, {probe_ms:.4f} ms (plain "
+        f"{probe_plain_ms:.3f}, packed[idx] {probe_lib_ms:.4f}, bound "
+        f"{probe_bound[0]:.4g} by {probe_bound[1]})")
+    log(f"[scale] host peak resident set (None: /proc has no VmHWM): "
+        f"{made['peak_rss_bytes']} B (the data generator), {rss_a} B (the "
+        f"command line), {rss_b} B (this process, since {rss_from}); this "
+        f"process's ru_maxrss over the whole script {rss_all} B; "
+        f"{smi_line()}")
+    result = {"reads": n, "cut_from": job["asked"] if n != job["asked"]
+              else None, "genome_len": genome_len, "fastq_bytes": size,
+              "log2_m_a": pa.log2_m, "log2_m_b": pb.log2_m,
+              "windows": n * n_w, "generate_s": made["generate_s"],
+              "render_s": made["render_s"], "cli_wall_s": wall_a,
+              "cli_reads_per_s": n / wall_a, "cli_stderr": last,
+              "cli_launches_by_entry": by_entry_a,
+              "resident_wall_s": wall_b,
+              "resident_reads_per_s": n / wall_b,
+              "resident_need_bytes": need, "free_bytes": free,
+              "resident_timings": t, "resident_peak_device_bytes": peaks,
+              "resident_launches_by_entry": by_entry_b,
+              "walk_sample_reads": ns, "walk_chunk_reads": wr,
+              "walk_marks": marks, "walk_graph_ms": walk_graph_ms,
+              "walk_plain_ms": walk_plain_ms,
+              "walk_bound_ms": walk_bound[0],
+              "probe_windows": nwin, "probe_hit_share": hit_share,
+              "probe_ms": probe_ms, "probe_plain_ms": probe_plain_ms,
+              "probe_library_ms": probe_lib_ms,
+              "probe_bound_ms": probe_bound[0],
+              "generator_peak_rss_bytes": made["peak_rss_bytes"],
+              "cli_peak_rss_bytes": rss_a, "resident_peak_rss_bytes": rss_b,
+              "script_ru_maxrss_bytes": rss_all,
+              "card": smi_line()}
+    log("[scale] " + json.dumps(result))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reads", type=int, default=FULL_READS,
                     help="reads of the main-path dataset (default: full size)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scale-reads", type=int, default=SCALE_READS,
+                    help="reads of the config 4 phase (0: skip it)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1651,6 +2148,7 @@ def main(argv=None) -> int:
     fastq_bytes = arrays_to_fastq_bytes(arrays)
 
     tmp = tempfile.mkdtemp(prefix="kbbq_smoke_")
+    job = None
     try:
         phase_golden(tmp)
         phase_report(tmp)
@@ -1666,8 +2164,20 @@ def main(argv=None) -> int:
         phase_resident_need(arrays, cfg)
         cram, cram_streamed = phase_cram(tmp, arrays, starts, cfg,
                                          bam_quals)
+        del bam_quals
+        if args.scale_reads:
+            job = start_scale_data(args.scale_reads, args.seed)
+        cli = phase_cli(tmp, cfg, args.seed, genome_len, {
+            "fastq": launches, "fastq_stream": streamed, "bam": bam,
+            "bam_stream": bam_streamed, "cram": cram, "reads": args.reads,
+            "read_len": read_len})
+        shutil.rmtree(tmp, ignore_errors=True)
+        del arrays, true_err, starts
+        torch.cuda.empty_cache()
+        scale = phase_scale(job) if job is not None else None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        stop_scale_data(job)
 
     for r in records:
         r["launches_streamed"] = streamed[r["entry"]]
@@ -1675,6 +2185,22 @@ def main(argv=None) -> int:
         r["launches_bam_streamed"] = bam_streamed[r["entry"]]
         r["launches_cram"] = cram[r["entry"]]
         r["launches_cram_streamed"] = cram_streamed[r["entry"]]
+        r["launches_cli"] = cli[r["entry"]]
+        if scale is not None:
+            r["launches_scale"] = \
+                scale["resident_launches_by_entry"][r["entry"]]
+            r["launches_scale_cli"] = scale["cli_launches_by_entry"][
+                r["entry"]]
+            at_scale = {"bloom_probe_words": ("probe", "ms"),
+                        "walk_errors": ("walk", "graph_ms")}.get(r["entry"])
+            if at_scale:
+                kind, key = at_scale
+                r["scale_log2_m"] = scale["log2_m_b"]
+                r[f"scale_{key}"] = scale[f"{kind}_{key}"]
+                r["scale_plain_ms"] = scale[f"{kind}_plain_ms"]
+                r["scale_bound_ms"] = scale[f"{kind}_bound_ms"]
+                if kind == "probe":
+                    r["scale_library_ms"] = scale["probe_library_ms"]
         r["launches"] = (streamed if r.get("path") == "streamed"
                          else launches)[r["entry"]]
     log(f"[done] {time.time() - t_start:.0f} s in all")

@@ -1,0 +1,274 @@
+"""Argument parsing + subcommand dispatch.
+
+Counterpart of ``kbbq_tpu/cli/main.py``: the same subcommands
+(``recalibrate``, ``applybqsr``, ``benchmark``, ``plot``), flags, defaults,
+routing rules, messages and exit codes, onto the port's entry points.  What
+the port does not have yet is refused with a ``SystemExit`` that names its
+ROADMAP item: more than one device (``--devices`` > 1, ``--bloom-layout``
+other than ``auto``: A15/B10) and ``--multihost`` (A16).
+
+Every route runs on the CUDA device; without one it fails with
+``resolve_device``'s error.  There is no flag for the CPU: the tests call
+``main(argv, device="cpu")``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+from ..constants import DEFAULT_EXT_CAP, DEFAULT_K
+
+SUBCOMMANDS = ("recalibrate", "applybqsr", "benchmark", "plot")
+# inputs larger than this stream from disk without --stream
+AUTO_STREAM_BYTES = 2 << 30
+
+
+def _add_recal_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("input", nargs="+",
+                   help="input FASTQ(s) (.fq[.gz]; each file = one read "
+                        "group) or a BAM")
+    p.add_argument("-o", "--output", action="append", default=None,
+                   help="output path (repeat for multiple inputs; "
+                        "default stdout)")
+    p.add_argument("-k", "--kmer-size", type=int, default=DEFAULT_K,
+                   help=f"k-mer size, <=32 (default {DEFAULT_K})")
+    p.add_argument("-g", "--genome-length", type=int, default=None,
+                   help="genome length; coverage = total_bases / g")
+    p.add_argument("-c", "--coverage", type=float, default=None,
+                   help="sequencing coverage (overrides -g derivation)")
+    p.add_argument("-a", "--alpha", type=float, default=None,
+                   help="k-mer sampling rate (default 7/coverage)")
+    p.add_argument("-u", "--use-oq", action="store_true",
+                   help="BAM: read base qualities from the OQ tag")
+    p.add_argument("-s", "--set-oq", action="store_true",
+                   help="BAM: store original qualities into the OQ tag")
+    p.add_argument("--batch-size", type=int, default=2048,
+                   help="reads per device batch")
+    p.add_argument("--devices", type=int, default=None,
+                   help="number of devices to shard the reads axis over "
+                        "(default 1 = single device; 0 = all available; "
+                        "more than 1 is not ported yet, ROADMAP A15)")
+    p.add_argument("--bloom-layout", default="auto",
+                   choices=("auto", "replicated", "sharded"),
+                   help="multi-device Bloom placement: per-device replicas "
+                        "or hash-space sharded (auto = by filter size; "
+                        "only auto is ported, ROADMAP A15/B10)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save/resume pass-boundary checkpoints here")
+    p.add_argument("--ext-cap", type=int, default=DEFAULT_EXT_CAP,
+                   help="substitution-trial extension cap W (clamped to "
+                        f"k; default {DEFAULT_EXT_CAP} = extend-to-k, "
+                        "the reference's semantics; smaller caps trade "
+                        "a recorded output deviation for fewer probes, "
+                        "see DECISIONS.md D7)")
+    p.add_argument("--fasta-ref", default=None,
+                   help="reference FASTA for reference-based CRAM input "
+                        "(unneeded when slices embed their reference)")
+    p.add_argument("--trust-threshold", type=int, default=None,
+                   help="override the coverage-derived trusted-kmer "
+                        "threshold T (parity calibration knob, D6)")
+    p.add_argument("--interleaved", action="store_true",
+                   help="FASTQ: reads alternate read1/read2 (pairing by "
+                        "position instead of /2 name suffix)")
+    p.add_argument("--stream", action="store_true",
+                   help="FASTQ: stream chunks from disk each pass "
+                        "(bounded host memory; auto-enabled for inputs "
+                        "over ~2 GB)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process run over several hosts (not "
+                        "ported yet, ROADMAP A16)")
+    p.add_argument("--chunk-reads", type=int, default=None,
+                   help="reads per streamed chunk (default 131072)")
+    p.add_argument("--report-out", default=None, metavar="REPORT",
+                   help="also write the computed covariates as a "
+                        "GATKReport v1.1 recalibration table")
+    p.add_argument("--apply-report", default=None, metavar="REPORT",
+                   help="skip model building and recalibrate from a "
+                        "previously written GATKReport instead "
+                        "(ApplyBQSR-equivalent; FASTQ read groups match "
+                        "by input path, BAM/CRAM by RG tag)")
+
+
+def _refuse_unported(args) -> None:
+    """Refuse what the port does not have yet: several hosts, several
+    devices (``--devices 0`` = every card) and their filter layouts."""
+    if args.multihost:
+        raise SystemExit("--multihost is not ported yet (ROADMAP A16): run "
+                         "one process on one device")
+    devices = args.devices
+    if devices == 0:  # 0 = all available
+        import torch
+        devices = torch.cuda.device_count()
+    if devices is not None and devices > 1:
+        raise SystemExit(f"--devices {devices}: more than one device is not "
+                         f"ported yet (ROADMAP A15); pass --devices 1")
+    if args.bloom_layout != "auto":
+        raise SystemExit(f"--bloom-layout {args.bloom_layout} is a "
+                         f"multi-device placement, not ported yet (ROADMAP "
+                         f"A15/B10); leave it at auto")
+
+
+def _over_auto_stream(paths) -> bool:
+    return sum(os.path.getsize(p) for p in paths
+               if os.path.exists(p)) > AUTO_STREAM_BYTES
+
+
+def _summary(stats: dict, dt: float) -> None:
+    print(f"[kbbq-tpu] recalibrated {stats['num_reads']} reads "
+          f"({stats['total_bases']} bases) in {dt:.2f}s "
+          f"({stats['num_reads'] / max(dt, 1e-9):.0f} reads/s)",
+          file=sys.stderr)
+
+
+def cmd_recalibrate(args) -> int:
+    from ..pipeline import RecalConfig
+
+    cfg = RecalConfig(
+        k=args.kmer_size, alpha=args.alpha, coverage=args.coverage,
+        genome_length=args.genome_length, batch_size=args.batch_size,
+        trust_threshold=args.trust_threshold, ext_cap=args.ext_cap)
+    report_out = getattr(args, "report_out", None)
+    apply_report = getattr(args, "apply_report", None)
+    if apply_report and report_out:
+        raise SystemExit("--apply-report and --report-out are exclusive")
+    _refuse_unported(args)
+    common = dict(checkpoint_dir=args.checkpoint_dir, report_out=report_out,
+                  apply_report=apply_report,
+                  device=getattr(args, "device", None))
+    outs = args.output or ["-"]
+    outs = [sys.stdout.buffer if o == "-" else o for o in outs]
+    t0 = time.time()
+    if args.input[0].endswith(".cram"):
+        if len(args.input) != 1:
+            raise SystemExit("CRAM mode takes exactly one input")
+        stream_cram = (args.stream or _over_auto_stream(args.input)) \
+            and not args.set_oq and str(outs[0]).endswith(".cram")
+        if stream_cram:
+            # a window per container, pass 4 rewrites only the QS blocks
+            from ..pipeline import recalibrate_cram_stream_resident
+            stats = recalibrate_cram_stream_resident(
+                args.input[0], outs[0], cfg, use_oq=args.use_oq,
+                fasta_ref=args.fasta_ref, **common)
+        else:
+            from ..pipeline import recalibrate_cram
+            stats = recalibrate_cram(args.input[0], outs[0], cfg,
+                                     use_oq=args.use_oq, set_oq=args.set_oq,
+                                     fasta_ref=args.fasta_ref, **common)
+    elif args.input[0].endswith((".bam", ".sam")):
+        if len(args.input) != 1:
+            raise SystemExit("BAM mode takes exactly one input")
+        if args.input[0].endswith(".bam") and \
+                (args.stream or _over_auto_stream(args.input)):
+            from ..pipeline import recalibrate_bam_streaming
+            stats = recalibrate_bam_streaming(
+                args.input[0], outs[0], cfg, use_oq=args.use_oq,
+                set_oq=args.set_oq, chunk_records=args.chunk_reads,
+                **common)
+        else:
+            from ..pipeline import recalibrate_bam
+            stats = recalibrate_bam(args.input[0], outs[0], cfg,
+                                    use_oq=args.use_oq, set_oq=args.set_oq,
+                                    **common)
+    else:
+        sink = outs if len(outs) > 1 else outs[0]
+        if args.stream or _over_auto_stream(args.input):
+            from ..io.stream import DEFAULT_CHUNK_READS
+            from ..pipeline import recalibrate_fastq_streaming
+            stats = recalibrate_fastq_streaming(
+                args.input, sink, cfg, interleaved=args.interleaved,
+                chunk_reads=args.chunk_reads or DEFAULT_CHUNK_READS,
+                **common)
+        else:
+            from ..pipeline import recalibrate_fastq
+            stats = recalibrate_fastq(args.input, sink, cfg,
+                                      interleaved=args.interleaved, **common)
+    _summary(stats, time.time() - t0)
+    return 0
+
+
+def cmd_applybqsr(args) -> int:
+    args.apply_report = args.report
+    args.report_out = None
+    return cmd_recalibrate(args)
+
+
+def cmd_benchmark(args) -> int:
+    from ..benchmark import benchmark_to_tsv
+    return benchmark_to_tsv(args)
+
+
+def cmd_plot(args) -> int:
+    from ..plot import plot_benchmark
+    plot_benchmark(args.input, args.output)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="kbbq-tpu-torch",
+        description="reference-free base quality recalibration on a CUDA "
+                    "device (the PyTorch port of kbbq-tpu)")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    pr = sub.add_parser("recalibrate", help="recalibrate FASTQ/BAM qualities")
+    _add_recal_args(pr)
+    pr.set_defaults(fn=cmd_recalibrate)
+
+    # ApplyBQSR-equivalent: `applybqsr -r report in -o out` ==
+    # `recalibrate --apply-report report in -o out`
+    pa = sub.add_parser(
+        "applybqsr",
+        help="recalibrate from an existing GATKReport (no model build)")
+    _add_recal_args(pa)
+    pa.add_argument("-r", "--report", required=True,
+                    help="GATKReport recalibration table to apply")
+    pa.set_defaults(fn=cmd_applybqsr)
+
+    pb = sub.add_parser(
+        "benchmark",
+        help="measure actual per-quality error rates from aligned reads")
+    pb.add_argument("-b", "--bam", required=True,
+                    help="aligned, coordinate-sorted BAM or CRAM")
+    pb.add_argument("-r", "--reference", required=True,
+                    help="reference FASTA")
+    pb.add_argument("-v", "--vcf", required=True,
+                    help="VCF of variable sites to exclude")
+    pb.add_argument("-f", "--fastq", default=None,
+                    help="optional recalibrated FASTQ to score instead")
+    pb.add_argument("-l", "--label", default="kbbq-tpu")
+    pb.add_argument("-o", "--output", default="-")
+    pb.set_defaults(fn=cmd_benchmark)
+
+    pp = sub.add_parser("plot", help="plot calibration curves")
+    pp.add_argument("input", help="benchmark TSV")
+    pp.add_argument("output", help="output image (pdf/png)")
+    pp.set_defaults(fn=cmd_plot)
+    return p
+
+
+def main(argv=None, device=None) -> int:
+    """Run one subcommand; returns the exit code.  `device` is where the
+    recalibrating routes run (None: the CUDA device)."""
+    if argv is None:
+        argv = sys.argv[1:]
+    # the reference's `kbbq [opts] input` with no subcommand is an implicit
+    # `recalibrate`
+    if argv and argv[0] not in (*SUBCOMMANDS, "-h", "--help"):
+        argv = ["recalibrate", *argv]
+    args = build_parser().parse_args(argv)
+    args.device = device
+    try:
+        return args.fn(args)
+    except FileNotFoundError as e:
+        print(f"kbbq-tpu: error: {e}", file=sys.stderr)
+        return 2
+    except (ValueError, OSError) as e:
+        print(f"kbbq-tpu: error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,7 @@
 """FASTA reader of the reference sequences a CRAM may be encoded against.
 
 Counterpart of ``kbbq_tpu/benchmark.py::read_fasta`` (the port keeps its own
-copy; the port's ``benchmark.py``, when it comes, imports it from here).
+copy; the port's ``benchmark.py`` imports it from here).
 """
 
 from __future__ import annotations

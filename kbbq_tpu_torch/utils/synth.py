@@ -3,9 +3,11 @@
 Copy of ``kbbq_tpu/utils/synth.py`` with the same numpy RNG calls in the
 same order, so the same seed gives the same reads in both packages; the
 planted errors are known, so calibration can be validated against ground
-truth.  ``arrays_to_fastq_bytes``, ``arrays_to_bam_bytes`` and
-``arrays_to_cram_bytes`` (vectorized FASTQ, BAM and CRAM writers of a
-ReadArrays) and ``read_starts`` are the port's additions.
+truth.  ``arrays_to_fastq_bytes``, ``arrays_to_fastq_file``,
+``arrays_to_bam_bytes`` and ``arrays_to_cram_bytes`` (vectorized FASTQ,
+BAM and CRAM writers of a ReadArrays), ``read_starts`` and
+``make_arrays_chunked`` (``scripts/chr20.py``'s generator) are the port's
+additions.
 """
 
 from __future__ import annotations
@@ -106,6 +108,40 @@ def make_arrays_fast(
     return arrays, err
 
 
+def make_arrays_chunked(num_reads: int, read_len: int = 150,
+                        coverage: float = 30.0, seed: int = 0,
+                        step: int = 1 << 20):
+    """The chr20-class generator of BASELINE config 4 -> ReadArrays:
+    ``make_arrays_fast``'s data drawn `step` reads at a time, so that no
+    [N, L] int64 index is ever built (at 13,000,000 x 150 it would take
+    15.6 GB).  A uniform genome of max(1000, N * L / coverage) bases, one
+    read group, odd rows second in pair (interleaved pairs), qualities
+    12/20/28/37 and substitutions at 0.005 independent of them.  The draws
+    are those of the JAX package's ``scripts/chr20.py::make_arrays``, in
+    its order, so the same `step` gives the same reads (another `step`
+    gives other reads)."""
+    from ..io.batcher import ReadArrays
+
+    genome_len = max(1000, int(num_reads * read_len / coverage))
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_len, dtype=np.int8)
+    starts = rng.integers(0, genome_len - read_len + 1, size=num_reads)
+    codes = np.empty((num_reads, read_len), np.int8)
+    quals = np.empty((num_reads, read_len), np.int8)
+    qpal = np.array([12, 20, 28, 37], dtype=np.int8)
+    for s in range(0, num_reads, step):
+        e = min(num_reads, s + step)
+        c = genome[starts[s:e, None] + np.arange(read_len)]
+        quals[s:e] = qpal[rng.choice(4, size=(e - s, read_len),
+                                     p=[0.1, 0.2, 0.3, 0.4])]
+        err = rng.random((e - s, read_len)) < 0.005
+        sub = (c + rng.integers(1, 4, size=c.shape)) % 4
+        codes[s:e] = np.where(err, sub, c).astype(np.int8)
+    return ReadArrays(codes, quals, np.ones((num_reads, read_len), bool),
+                      np.zeros(num_reads, np.int32),
+                      np.arange(num_reads) % 2 == 1)
+
+
 def make_two_sided_reads(num_reads: int, read_len: int, k: int,
                          genome_len: int = 3000, seed: int = 0):
     """Reads with a short anchor in the middle and two planted errors on
@@ -149,13 +185,14 @@ def to_fastq_bytes(ds: SynthDataset) -> bytes:
     return bytes(out)
 
 
-def arrays_to_fastq_bytes(arrays) -> bytes:
+def arrays_to_fastq_bytes(arrays, first: int = 0) -> bytes:
     """Vectorized FASTQ render of a ReadArrays whose reads all have the
     full length (mask all True), e.g. make_arrays_fast's output.
 
-    Record i is named ``r<ordinal of its pair, 9 digits>/<1 or 2>``: the
-    mate is 2 where ``arrays.seconds[i]``, so ``FastqData.seconds_mask``
-    recovers the seconds flags from the names.  No per-read Python loop.
+    Record i is named ``r<ordinal of its pair, 9 digits>/<1 or 2>``, its
+    ordinal being first + i: the mate is 2 where ``arrays.seconds[i]``, so
+    ``FastqData.seconds_mask`` recovers the seconds flags from the names.
+    No per-read Python loop.
     """
     from ..oracle.kmers import _DECODE_LUT
     codes = np.asarray(arrays.codes)
@@ -167,7 +204,7 @@ def arrays_to_fastq_bytes(arrays) -> bytes:
     out = np.empty((n, rec), dtype=np.uint8)
     out[:, 0] = ord("@")
     out[:, 1] = ord("r")
-    pair = np.arange(n, dtype=np.int64) // 2
+    pair = (first + np.arange(n, dtype=np.int64)) // 2
     for d in range(digits):
         out[:, 2 + d] = (pair // 10 ** (digits - 1 - d)) % 10 + ord("0")
     c = 2 + digits
@@ -184,6 +221,23 @@ def arrays_to_fastq_bytes(arrays) -> bytes:
     out[:, c:c + L] = np.asarray(arrays.quals).astype(np.uint8) + 33
     out[:, c + L] = 10
     return out.tobytes()
+
+
+def arrays_to_fastq_file(arrays, path, step: int = 1 << 18) -> int:
+    """Write ``arrays_to_fastq_bytes(arrays)`` to `path`, rendered `step`
+    reads at a time (host memory O(step) past the arrays) -> bytes
+    written."""
+    from ..io.batcher import ReadArrays
+    n = arrays.num_reads
+    size = 0
+    with open(path, "wb") as f:
+        for s in range(0, n, step):
+            e = min(n, s + step)
+            part = ReadArrays(arrays.codes[s:e], arrays.quals[s:e],
+                              arrays.mask[s:e], arrays.rgs[s:e],
+                              arrays.seconds[s:e])
+            size += f.write(arrays_to_fastq_bytes(part, first=s))
+    return size
 
 
 def read_starts(genome_len: int, read_len: int, num_reads: int,

@@ -25,6 +25,7 @@ setup(
                     # build with nvcc at first use
                     "torch": ["torch"]},
     entry_points={
-        "console_scripts": ["kbbq-tpu=kbbq_tpu.cli.main:main"],
+        "console_scripts": ["kbbq-tpu=kbbq_tpu.cli.main:main",
+                            "kbbq-tpu-torch=kbbq_tpu_torch.cli.main:main"],
     },
 )

@@ -39,8 +39,13 @@ from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_bam,
 from kbbq_tpu_torch.pipeline import bam as pipeline_bam
 from kbbq_tpu_torch.pipeline import cram_stream
 from kbbq_tpu_torch.pipeline.recalibrate import apply_table_arrays
+from kbbq_tpu_torch import benchmark, plot
+from kbbq_tpu_torch.cli.main import main as cli_main
+from kbbq_tpu_torch.utils import metrics
 cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
 src = {os.path.join(REPO, 'tests', 'data', 'tiny.fq')!r}
+assert cli_main(["recalibrate", src, "-k", "16", "-c", "18",
+                 "-o", {str(tmp_path / 'cli.fq')!r}], device="cpu") == 0
 recalibrate_fastq(src, {str(tmp_path / 'direct.fq')!r}, cfg, device="cpu",
                   report_out={str(tmp_path / 'recal.report')!r})
 info = recalibrate_fastq(src, {str(tmp_path / 'out.fq')!r}, cfg,
@@ -98,6 +103,7 @@ print("LIBS", libs)
                              "tiny.recal.golden.fq"), "rb").read()
     assert (tmp_path / "out.fq").read_bytes() == want
     assert (tmp_path / "direct.fq").read_bytes() == want
+    assert (tmp_path / "cli.fq").read_bytes() == want
     import gzip
     assert gzip.decompress((tmp_path / "streamed.fq.gz").read_bytes()) == want
     assert (tmp_path / "s.bam").read_bytes() == \
