@@ -43,12 +43,22 @@ by entry point read back): config 2's FASTQ resident, streamed, with a
 report and through ``applybqsr`` (the main path's bytes), config 3's BAM
 whole-file and streamed (the [bam] route's bytes), the cut CRAM streamed
 and to BAM (the [cram] route's output and qualities), ``benchmark`` on the
-input and output BAM, ``--devices 2`` refused.  Last, BASELINE.json config
+input and output BAM, ``--devices 0`` (every card: the main path's bytes)
+and ``--devices 2`` (the same bytes on two cards or more, else refused with
+the reference's message).  Between them, more than one device
+(``kbbq_tpu_torch.parallel``, ``[devices]``): at D = the card count, one
+process per card over NCCL, config 2's reads through run_pipeline's
+multi-device route (the resident path on each rank's rows) and through
+the streamed route on the ranks with a checkpoint, then resumed from its
+filters, each the main path's bytes, launches summed over the ranks;
+spawn seconds, the slowest rank's seconds by stage, the merges' seconds
+and bytes.  Last, BASELINE.json config
 4 on the one card: 13,000,000 reads x 150 at 30x (``make_arrays_chunked``,
 a FASTQ over 2 GiB), the command line (its streamed engine) and the
 resident route in process write the same bytes, and against the run's
 filter B of 2^31 bits the walk equals its plain version on 8,192 reads and
-a chunk, the walk and the cached word test timed.  Any failed phase raises,
+a chunk, the walk and the cached word test timed; config 4's reads also
+through the multi-device route at D ranks, the resident route's bytes.  Any failed phase raises,
 so the exit code is non-zero; without a CUDA device the script exits 1 at
 once and prints no result.
 
@@ -59,7 +69,10 @@ it is; ``launches_streamed``, ``launches_bam``, ``launches_bam_streamed``,
 ``launches_cram`` (the whole-file CRAM route, reduced input) and
 ``launches_cram_streamed``, ``launches_cli`` (the command line's resident
 FASTQ run), ``launches_scale`` and ``launches_scale_cli`` (config 4's
-resident and command-line runs) beside it in every entry; the probe's and
+resident and command-line runs), ``launches_devices`` and
+``launches_devices_by_rank`` (config 2's resident run on the ranks, summed
+and per rank) and ``launches_scale_devices_by_rank`` (config 4's) beside
+it in every entry; the probe's and
 the walk's entries also their time, plain time and bound against config
 4's filter B, ``scale_*``), mismatches against the plain
 version, times in ms, the roofline bound; the probe's entries also
@@ -192,6 +205,11 @@ def phase_device():
                             input="#include <zlib.h>\n", capture_output=True,
                             text=True).returncode == 0
     log(f"[device] {gxx}; zlib.h {'found' if zlib_h else 'MISSING'}")
+    shm = shutil.disk_usage("/dev/shm") if os.path.isdir("/dev/shm") else None
+    log(f"[device] {torch.cuda.device_count()} CUDA device(s); /dev/shm "
+        f"{shm.total if shm else 'absent'} B, {shm.free if shm else 0} B "
+        f"free; temporary files under {tempfile.gettempdir()}: "
+        f"{shutil.disk_usage(tempfile.gettempdir()).free} B free")
     # always from the sources of this checkout: both builds at once
     shutil.rmtree(kernels.BUILD_DIR, ignore_errors=True)
     with ThreadPoolExecutor(2) as ex:
@@ -1028,6 +1046,182 @@ def phase_checkpoint(tmp):
         f"run's bytes ({ok}); k={k - 1} refused: {guard.split(';')[0]}")
 
 
+DEVICES_CHUNK = 65_536         # rows a walk launch covers (DEFAULT_CHUNK_ROWS)
+
+
+def resident_ranks_launches(reads: int, world: int) -> dict:
+    """Launches by entry point summed over `world` ranks of the resident
+    path on `reads` rows split as ``parallel.mesh.row_range`` does."""
+    from kbbq_tpu_torch.parallel.mesh import row_range
+    rows = [e - s for s, e in (row_range(reads, world, r)
+                               for r in range(world))]
+    busy = sum(1 for n in rows if n)
+    return {"bloom_probe_trust": busy, "bloom_probe_words": busy,
+            "bloom_probe_hashed": 0, "hash_build": busy,
+            "bloom_or_words": busy, "hash_only": 0,
+            "walk_errors": sum(-(-n // DEVICES_CHUNK) for n in rows)}
+
+
+def devices_line(route: str, t: dict, wall: float, by_entry: dict) -> dict:
+    """Log one multi-device run: the group, start-up, the slowest rank's
+    seconds by stage, the merges, the launches summed and by rank."""
+    caller = {k: t[k] for k in ("scan", "share") if k in t}
+    stages = {k: v for k, v in t.items()
+              if isinstance(v, float) and not k.endswith("_peak_bytes")
+              and k not in ("spawn", "merge", *caller)}
+    peaks = {k[:-len("_peak_bytes")]: v for k, v in t.items()
+             if k.endswith("_peak_bytes")}
+    rec = {"route": route, "world": t["world"], "backend": t["backend"],
+           "wall_s": wall, "caller_s": caller, "spawn_s": t["spawn"],
+           "merge_s": t["merge"],
+           "merge_bytes": t["merge_bytes"], "slowest_rank_s": stages,
+           "peak_device_bytes": peaks, "launches_by_entry": by_entry,
+           "launches_by_rank": t["launches_by_rank"]}
+    log(f"[devices] {route}: {t['world']} rank(s) over {t['backend']}, "
+        f"wall {wall:.3f} s of which spawn {t['spawn']:.3f} s and in the "
+        f"caller {json.dumps(caller)}; merges "
+        f"{t['merge']:.3f} s, {t['merge_bytes']} B sent by the busiest "
+        f"rank; slowest rank's seconds by stage {json.dumps(stages)}; "
+        f"launches summed over ranks {json.dumps(by_entry)}")
+    return rec
+
+
+def phase_devices(tmp, cfg, reads):
+    """More than one device (``kbbq_tpu_torch.parallel``): at D =
+    torch.cuda.device_count() ranks, one process per card over NCCL,
+    config 2's reads (a) through run_pipeline's multi-device route (the
+    resident path on each rank's rows, ``run_arrays_sharded``), its output
+    FASTQ equal to the main path's bytes, and (b) through the streamed
+    route on the ranks (``recalibrate_fastq_sharded``: rank 0 writes) with
+    a checkpoint, then resumed from its filters: both equal to the main
+    path's bytes.  Launches summed over the ranks are asserted by entry
+    point.  Where D is at least 2 the resident run is repeated at 2 ranks;
+    where D is 1 the exchange between cards cannot run (NCCL refuses two
+    ranks on one card) and the line says so."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.parallel.sharded import (recalibrate_fastq_sharded,
+                                                 run_arrays_sharded)
+    from kbbq_tpu_torch.pipeline.recalibrate import (_load_fastq_arrays,
+                                                     _write_fastq_outputs)
+
+    D = torch.cuda.device_count()
+    src, want = os.path.join(tmp, "reads.fq"), os.path.join(tmp, "out1.fq")
+    fqs, mask_l, arrays = _load_fastq_arrays([src], False)
+    runs = []
+    for world in [D] + ([2] if D > 2 else []):
+        out = os.path.join(tmp, f"ranks{world}.fq")
+        t: dict = {}
+        kernels.reset_launches()
+        t0 = time.time()
+        nq = run_arrays_sharded(arrays, cfg, world, DEVICE, t)
+        wall = time.time() - t0
+        by_entry = dict(kernels.ENTRY_LAUNCHES)
+        _write_fastq_outputs(fqs, mask_l, nq, out)
+        if "h2d" not in t:
+            raise AssertionError(f"{world} ranks took the windowed engine, "
+                                 f"not the resident path")
+        check_launches(f"resident path on {world} ranks", by_entry,
+                       resident_ranks_launches(reads, world))
+        if not same_file(out, want):
+            raise AssertionError(f"resident path on {world} ranks wrote "
+                                 f"other bytes than the main path")
+        os.remove(out)
+        runs.append(devices_line(f"resident, {reads} reads", t, wall,
+                                 by_entry))
+    del fqs, mask_l, arrays, nq
+
+    # the windowed engine on the ranks, rank 0 writing, with a checkpoint
+    sizes = [min(STREAM_WINDOW, reads - s)
+             for s in range(0, reads, STREAM_WINDOW)]
+    W, walks = len(sizes), sum(-(-n // DEVICES_CHUNK) for n in sizes)
+    ck, out = os.path.join(tmp, "ranks_ck"), os.path.join(tmp, "ranks_s.fq")
+    for name, want_launch in (
+            ("streamed with a checkpoint", {
+                "hash_build": W, "hash_only": 2 * W, "bloom_probe_trust": W,
+                "bloom_or_words": W, "bloom_probe_words": W,
+                "walk_errors": walks, "bloom_probe_hashed": 0}),
+            ("resumed after pass 2", {
+                **NO_LAUNCHES, "hash_only": W, "bloom_probe_words": W,
+                "walk_errors": walks})):
+        if name.startswith("resumed"):
+            path = os.path.join(ck, "meta.json")
+            with open(path) as f:
+                meta = json.load(f)
+            if meta["passes_done"] != ["rows_a", "rows_b", "covariates"]:
+                raise AssertionError(f"checkpoint of the ranks: {meta}")
+            meta["passes_done"] = ["rows_a", "rows_b"]
+            meta.pop("pass4", None)
+            with open(path, "w") as f:
+                json.dump(meta, f)
+            os.remove(out)
+        t = {}
+        kernels.reset_launches()
+        t0 = time.time()
+        info = recalibrate_fastq_sharded(src, out, cfg, D, checkpoint_dir=ck,
+                                         timings=t, device=DEVICE)
+        wall = time.time() - t0
+        by_entry = dict(kernels.ENTRY_LAUNCHES)
+        check_launches(f"{name} on {D} ranks", by_entry, want_launch)
+        if info["chunks"] != W or not same_file(out, want):
+            raise AssertionError(f"{name} on {D} ranks wrote other bytes "
+                                 f"than the main path")
+        runs.append(devices_line(f"{name}, {W} windows", t, wall, by_entry))
+    os.remove(out)
+    shutil.rmtree(ck, ignore_errors=True)
+    if D == 1:
+        log("[devices] this machine has 1 CUDA device: every route ran at "
+            "one NCCL rank (the collectives at world size 1); the exchange "
+            "between cards (all_to_all, all-gather, all-reduce and the "
+            "point-to-point pass-4 sends at 2 or more ranks) is unchecked "
+            "here; scripts/torch_devices_check.py runs it on a host with "
+            "several cards")
+    log(f"[devices] {smi_line()}")
+    result = {"devices": D, "runs": runs, "card": smi_line()}
+    log("[devices] " + json.dumps(result))
+    return runs[0]["launches_by_rank"], runs[0]["launches_by_entry"]
+
+
+def phase_devices_scale(tmp, src, want, cfg, n):
+    """Config 4's FASTQ (written by start_scale_data) through run_pipeline's
+    multi-device route at D = device_count ranks: the resident path on
+    each rank's rows, its output equal to [scale]'s resident bytes."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.parallel.sharded import run_arrays_sharded
+    from kbbq_tpu_torch.pipeline.recalibrate import (_load_fastq_arrays,
+                                                     _write_fastq_outputs)
+    D = torch.cuda.device_count()
+    t0 = time.time()
+    fqs, mask_l, arrays = _load_fastq_arrays([src], True)
+    read_s = time.time() - t0
+    torch.cuda.empty_cache()
+    t: dict = {}
+    kernels.reset_launches()
+    t0 = time.time()
+    nq = run_arrays_sharded(arrays, cfg, D, DEVICE, t)
+    wall = time.time() - t0
+    by_entry = dict(kernels.ENTRY_LAUNCHES)
+    del arrays
+    out = os.path.join(tmp, "ranks.fq")
+    t1 = time.time()
+    _write_fastq_outputs(fqs, mask_l, nq, out)
+    write_s = time.time() - t1
+    del fqs, mask_l, nq
+    if "h2d" not in t:
+        raise AssertionError("config 4 on the ranks took the windowed "
+                             "engine, not the resident path")
+    check_launches(f"config 4, resident path on {D} ranks", by_entry,
+                   resident_ranks_launches(n, D))
+    if not same_file(out, want):
+        raise AssertionError(f"config 4 on {D} ranks wrote other bytes than "
+                             f"the resident route")
+    os.remove(out)
+    rec = devices_line(f"config 4, resident, {n} reads", t, wall, by_entry)
+    log(f"[devices] config 4: FASTQ read {read_s:.3f} s and written "
+        f"{write_s:.3f} s in this process, outputs equal byte for byte; "
+        f"{smi_line()}")
+    return rec
+
+
 def check_launches(route: str, by_entry: dict, want: dict) -> None:
     if by_entry != want:
         raise AssertionError(f"{route} launched {by_entry}, expected {want}")
@@ -1718,7 +1912,9 @@ def phase_cli(tmp, cfg, seed, genome_len, want):
     output), the [cram] phase's cut CRAM to .bam (its qualities) and
     --stream to .cram ([cram]'s windowed output on it), benchmark on the
     input and output BAM (same bases, the output's calibration gap below
-    the input's), and --devices 2 refused.  `want`: the launches by entry
+    the input's), --devices 0 (the main path's bytes) and --devices 2 (the
+    same bytes on two cards or more, else refused with the reference's
+    message).  `want`: the launches by entry
     point of each route's library run.  Returns the resident FASTQ run's
     launches."""
     from kbbq_tpu_torch.io import bam_vec
@@ -1806,23 +2002,43 @@ def phase_cli(tmp, cfg, seed, genome_len, want):
     vcf = os.path.join(tmp, "none.vcf")
     with open(vcf, "wb") as f:
         f.write(b"##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\n")
-    # the host-only runs side by side: the two benchmarks and the refusal
+    # side by side: the two benchmarks, --devices 2 and --devices 0 (every
+    # card: one rank per card, or the one-device route on one card)
     tsv = {name: os.path.join(tmp, f"bench_{name}.tsv")
            for name in ("input", "output")}
-    with ThreadPoolExecutor(3) as ex:
+    D = torch.cuda.device_count()
+    cli_all = os.path.join(tmp, "cli_all.fq")
+    with ThreadPoolExecutor(4) as ex:
         runs = [ex.submit(check, f"benchmark_{name}",
                           ["benchmark", "-b", src, "-r", ref, "-v", vcf,
                            "-l", name, "-o", tsv[name]], None, reads=n_bam)
                 for name, src in (("input", bam), ("output", bam_out))]
-        refused = ex.submit(run_cli, tmp, ["recalibrate", fq, "-o", cli_fq,
-                                           "--devices", "2", *flags],
-                            expect_ok=False, name="devices")
+        two = ex.submit(run_cli, tmp, ["recalibrate", fq, "-o", cli_fq,
+                                       "--devices", "2", *flags],
+                        expect_ok=D >= 2, name="devices")
+        every = ex.submit(check, "devices_0", ["recalibrate", fq, "-o",
+                                               cli_all, "--devices", "0",
+                                               *flags], cli_all, fq_out,
+                          n_fq, want["fastq"] if D == 1 else
+                          resident_ranks_launches(n_fq, D))
         for r in runs:
             r.result()
-        rc, _, last, by_entry, _ = refused.result()
-    if rc == 0 or "ROADMAP A15" not in last or any(by_entry.values()) or \
+        rc, _, last, by_entry, _ = two.result()
+        every.result()
+    os.remove(cli_all)
+    log(f"[devices] python -m kbbq_tpu_torch recalibrate --devices 0 ({D} "
+        f"card(s)): the main path's bytes; run "
+        f"{json.dumps(out['devices_0'])}")
+    if D >= 2:
+        if not same_file(cli_fq, fq_out):
+            raise AssertionError("--devices 2 wrote other bytes than the "
+                                 "main path")
+        os.remove(cli_fq)
+    elif rc != 1 or f"--devices 2 requested but only {D} device(s) " \
+            f"available" not in last or any(by_entry.values()) or \
             os.path.exists(cli_fq):
-        raise AssertionError(f"--devices 2 was not refused: exit {rc}, "
+        raise AssertionError(f"--devices 2 on {D} card(s) was not refused "
+                             f"as the reference refuses it: exit {rc}, "
                              f"{last!r}")
     gaps = {name: calibration_gap(path) for name, path in tsv.items()}
     # every base of every primary record is aligned and scored
@@ -2003,6 +2219,7 @@ def phase_scale(job):
         raise AssertionError("the command line's streamed output differs "
                              "from the resident route's")
     out_size = os.path.getsize(res_fq)
+    devices = phase_devices_scale(tmp, src, res_fq, cfg, n)
     # the first FULL_READS reads' codes, for the kernel checks: every record
     # of the generator's FASTQ has the same size
     nr = min(FULL_READS, n)
@@ -2107,7 +2324,7 @@ def phase_scale(job):
               "probe_bound_ms": probe_bound[0],
               "generator_peak_rss_bytes": made["peak_rss_bytes"],
               "cli_peak_rss_bytes": rss_a, "resident_peak_rss_bytes": rss_b,
-              "script_ru_maxrss_bytes": rss_all,
+              "script_ru_maxrss_bytes": rss_all, "devices": devices,
               "card": smi_line()}
     log("[scale] " + json.dumps(result))
     return result
@@ -2159,6 +2376,7 @@ def main(argv=None) -> int:
         del expected
         streamed = phase_streaming(tmp, src, out1, cfg, args.reads)
         phase_checkpoint(tmp)
+        dev_by_rank, dev_launches = phase_devices(tmp, cfg, args.reads)
         starts = read_starts(genome_len, read_len, args.reads, args.seed)
         bam, bam_streamed, bam_quals = phase_bam(tmp, arrays, starts, cfg)
         phase_resident_need(arrays, cfg)
@@ -2186,11 +2404,15 @@ def main(argv=None) -> int:
         r["launches_cram"] = cram[r["entry"]]
         r["launches_cram_streamed"] = cram_streamed[r["entry"]]
         r["launches_cli"] = cli[r["entry"]]
+        r["launches_devices"] = dev_launches[r["entry"]]
+        r["launches_devices_by_rank"] = [c[r["entry"]] for c in dev_by_rank]
         if scale is not None:
             r["launches_scale"] = \
                 scale["resident_launches_by_entry"][r["entry"]]
             r["launches_scale_cli"] = scale["cli_launches_by_entry"][
                 r["entry"]]
+            r["launches_scale_devices_by_rank"] = [
+                c[r["entry"]] for c in scale["devices"]["launches_by_rank"]]
             at_scale = {"bloom_probe_words": ("probe", "ms"),
                         "walk_errors": ("walk", "graph_ms")}.get(r["entry"])
             if at_scale:

@@ -2,14 +2,17 @@
 
 Counterpart of ``kbbq_tpu/cli/main.py``: the same subcommands
 (``recalibrate``, ``applybqsr``, ``benchmark``, ``plot``), flags, defaults,
-routing rules, messages and exit codes, onto the port's entry points.  What
-the port does not have yet is refused with a ``SystemExit`` that names its
-ROADMAP item: more than one device (``--devices`` > 1, ``--bloom-layout``
-other than ``auto``: A15/B10) and ``--multihost`` (A16).
+routing rules, messages and exit codes, onto the port's entry points.
+``--devices N`` runs N ranks, one process per card over NCCL (``0``: every
+card), with the replicated filters (``--bloom-layout auto`` or
+``replicated``).  What the port does not have yet is refused with a
+``SystemExit`` that names its ROADMAP item: the hash-space-sharded filters
+(``--bloom-layout sharded``: B10) and ``--multihost`` (A16).
 
 Every route runs on the CUDA device; without one it fails with
 ``resolve_device``'s error.  There is no flag for the CPU: the tests call
-``main(argv, device="cpu")``.
+``main(argv, device="cpu")``, where ``--devices N`` runs N CPU processes
+over gloo.
 """
 
 from __future__ import annotations
@@ -48,14 +51,14 @@ def _add_recal_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--batch-size", type=int, default=2048,
                    help="reads per device batch")
     p.add_argument("--devices", type=int, default=None,
-                   help="number of devices to shard the reads axis over "
-                        "(default 1 = single device; 0 = all available; "
-                        "more than 1 is not ported yet, ROADMAP A15)")
+                   help="number of devices to shard the reads axis over, "
+                        "one process per card (default 1 = single device; "
+                        "0 = all available)")
     p.add_argument("--bloom-layout", default="auto",
                    choices=("auto", "replicated", "sharded"),
                    help="multi-device Bloom placement: per-device replicas "
                         "or hash-space sharded (auto = by filter size; "
-                        "only auto is ported, ROADMAP A15/B10)")
+                        "sharded is not ported yet, ROADMAP B10)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save/resume pass-boundary checkpoints here")
     p.add_argument("--ext-cap", type=int, default=DEFAULT_EXT_CAP,
@@ -92,23 +95,22 @@ def _add_recal_args(p: argparse.ArgumentParser) -> None:
                         "by input path, BAM/CRAM by RG tag)")
 
 
-def _refuse_unported(args) -> None:
-    """Refuse what the port does not have yet: several hosts, several
-    devices (``--devices 0`` = every card) and their filter layouts."""
+def _refuse_unported(args) -> int | None:
+    """Refuse what the port does not have yet (several hosts, the
+    hash-space-sharded filters); returns the device count (``--devices 0``
+    = every card)."""
     if args.multihost:
         raise SystemExit("--multihost is not ported yet (ROADMAP A16): run "
-                         "one process on one device")
+                         "one process on one host")
+    if args.bloom_layout == "sharded":
+        raise SystemExit("--bloom-layout sharded (hash-space-sharded "
+                         "filters) is not ported yet (ROADMAP B10); use "
+                         "auto or replicated")
     devices = args.devices
     if devices == 0:  # 0 = all available
         import torch
         devices = torch.cuda.device_count()
-    if devices is not None and devices > 1:
-        raise SystemExit(f"--devices {devices}: more than one device is not "
-                         f"ported yet (ROADMAP A15); pass --devices 1")
-    if args.bloom_layout != "auto":
-        raise SystemExit(f"--bloom-layout {args.bloom_layout} is a "
-                         f"multi-device placement, not ported yet (ROADMAP "
-                         f"A15/B10); leave it at auto")
+    return devices
 
 
 def _over_auto_stream(paths) -> bool:
@@ -134,18 +136,21 @@ def cmd_recalibrate(args) -> int:
     apply_report = getattr(args, "apply_report", None)
     if apply_report and report_out:
         raise SystemExit("--apply-report and --report-out are exclusive")
-    _refuse_unported(args)
+    devices = _refuse_unported(args)
     common = dict(checkpoint_dir=args.checkpoint_dir, report_out=report_out,
                   apply_report=apply_report,
                   device=getattr(args, "device", None))
+    multi = dict(devices=devices, bloom_layout=args.bloom_layout)
     outs = args.output or ["-"]
     outs = [sys.stdout.buffer if o == "-" else o for o in outs]
     t0 = time.time()
     if args.input[0].endswith(".cram"):
         if len(args.input) != 1:
             raise SystemExit("CRAM mode takes exactly one input")
+        # the container-windowed route runs on one device only
         stream_cram = (args.stream or _over_auto_stream(args.input)) \
-            and not args.set_oq and str(outs[0]).endswith(".cram")
+            and (devices or 1) <= 1 and not args.set_oq \
+            and str(outs[0]).endswith(".cram")
         if stream_cram:
             # a window per container, pass 4 rewrites only the QS blocks
             from ..pipeline import recalibrate_cram_stream_resident
@@ -156,7 +161,8 @@ def cmd_recalibrate(args) -> int:
             from ..pipeline import recalibrate_cram
             stats = recalibrate_cram(args.input[0], outs[0], cfg,
                                      use_oq=args.use_oq, set_oq=args.set_oq,
-                                     fasta_ref=args.fasta_ref, **common)
+                                     fasta_ref=args.fasta_ref, **common,
+                                     **multi)
     elif args.input[0].endswith((".bam", ".sam")):
         if len(args.input) != 1:
             raise SystemExit("BAM mode takes exactly one input")
@@ -166,12 +172,12 @@ def cmd_recalibrate(args) -> int:
             stats = recalibrate_bam_streaming(
                 args.input[0], outs[0], cfg, use_oq=args.use_oq,
                 set_oq=args.set_oq, chunk_records=args.chunk_reads,
-                **common)
+                **common, **multi)
         else:
             from ..pipeline import recalibrate_bam
             stats = recalibrate_bam(args.input[0], outs[0], cfg,
                                     use_oq=args.use_oq, set_oq=args.set_oq,
-                                    **common)
+                                    **common, **multi)
     else:
         sink = outs if len(outs) > 1 else outs[0]
         if args.stream or _over_auto_stream(args.input):
@@ -180,11 +186,12 @@ def cmd_recalibrate(args) -> int:
             stats = recalibrate_fastq_streaming(
                 args.input, sink, cfg, interleaved=args.interleaved,
                 chunk_reads=args.chunk_reads or DEFAULT_CHUNK_READS,
-                **common)
+                **common, **multi)
         else:
             from ..pipeline import recalibrate_fastq
             stats = recalibrate_fastq(args.input, sink, cfg,
-                                      interleaved=args.interleaved, **common)
+                                      interleaved=args.interleaved, **common,
+                                      **multi)
     _summary(stats, time.time() - t0)
     return 0
 

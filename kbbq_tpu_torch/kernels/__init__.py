@@ -39,6 +39,13 @@ LAUNCHES = {"bloom_probe": 0, "bloom_or_words": 0, "walk_errors": 0}
 ENTRY_LAUNCHES = {"bloom_probe_hashed": 0, "bloom_probe_words": 0,
                   "bloom_probe_trust": 0, "bloom_or_words": 0,
                   "hash_build": 0, "hash_only": 0, "walk_errors": 0}
+# the kernel of each entry point
+ENTRY_KERNEL = {"bloom_probe_hashed": "bloom_probe",
+                "bloom_probe_words": "bloom_probe",
+                "bloom_probe_trust": "bloom_probe",
+                "bloom_or_words": "bloom_or_words",
+                "hash_build": "bloom_or_words",
+                "hash_only": "bloom_or_words", "walk_errors": "walk_errors"}
 
 # reads per block of the tiled kernels and threads per block of the walk and
 # of the fused trust probe (in both a warp works on one read at a time),
@@ -66,6 +73,15 @@ def reset_launches() -> None:
 def _count(kernel: str, entry: str) -> None:
     LAUNCHES[kernel] += 1
     ENTRY_LAUNCHES[entry] += 1
+
+
+def add_launches(by_entry: dict) -> None:
+    """Add launches made in another process (a rank of
+    ``parallel.mesh.launch``, which writes its ``ENTRY_LAUNCHES`` at exit)
+    to this process's counts."""
+    for entry, n in by_entry.items():
+        LAUNCHES[ENTRY_KERNEL[entry]] += int(n)
+        ENTRY_LAUNCHES[entry] += int(n)
 
 
 def _find_nvcc() -> str:

@@ -142,6 +142,13 @@ class captured_tables:
         return False
 
 
+def note_tables(tables: CovariateTables) -> None:
+    """Hand `tables` to an open ``captured_tables`` (a table built in
+    another process, by rank 0 of a group, is noted by its caller)."""
+    if _table_capture is not None:
+        _table_capture["tables"] = tables
+
+
 def build_recal_table(tables: CovariateTables) -> np.ndarray:
     """Dense final-quality lookup Q'[rg, q, cycle_idx, dinuc(17)] int8 (D10).
 
@@ -149,8 +156,7 @@ def build_recal_table(tables: CovariateTables) -> np.ndarray:
     round-half-even; dinuc index DINUC_INVALID contributes ΔDin = 0.  The
     device recalibration pass is a pure gather over this table.
     """
-    if _table_capture is not None:
-        _table_capture["tables"] = tables
+    note_tables(tables)
     d = compute_deltas(tables)
     rg_n = tables.num_rg
     nc = 2 * tables.max_len

@@ -1,0 +1,232 @@
+"""The group of ranks: one process per device over ``torch.distributed``.
+
+Counterpart of ``kbbq_tpu/parallel/mesh.py::make_mesh``.  Where the JAX
+package shards one program over a device mesh, the port runs one process
+per device, each a rank of a ``torch.distributed`` group: NCCL on cards
+(rank r owns ``cuda:r``), gloo on the CPU (``device="cpu"``, what the tests
+run).  ``launch`` starts the ranks with the spawn start method (CUDA does
+not survive ``fork``), runs a function on each and returns what each
+returned, rank 0 first.  The caller holds no process group and no CUDA
+context of its own for it.
+
+The reads axis is the only one: rank r takes the contiguous rows
+``row_range(N, D, r)`` (the resident route) or every D-th window (the
+windowed route).  Sampling keys on the global read ordinal, so any split
+gives the same filters (DECISIONS D5).
+
+Arrays reach the ranks through memory-mapped files in a temporary
+directory (``SharedArrays``), and the output rows come back the same way:
+a file needs no ``/dev/shm`` capacity, which a container may hold small,
+and pages it through the host's page cache like shared memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import shutil
+import socket
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def available_devices(device_type: str) -> int:
+    """Cards on this host (``cuda``), or the CPUs this process may run on."""
+    if device_type == "cuda":
+        return torch.cuda.device_count()
+    return len(os.sched_getaffinity(0))
+
+
+def check_devices(devices: int, device_type: str) -> None:
+    """The reference's refusal of more devices than there are."""
+    avail = available_devices(device_type)
+    if devices > avail:
+        raise ValueError(f"--devices {devices} requested but only {avail} "
+                         f"device(s) available")
+
+
+def row_range(n: int, world: int, rank: int) -> tuple[int, int]:
+    """Rank `rank`'s contiguous share [s, e) of `n` rows."""
+    return n * rank // world, n * (rank + 1) // world
+
+
+@dataclasses.dataclass
+class Rank:
+    """What a rank knows of its group.  `stats` collects the merges'
+    seconds and bytes (``parallel/merge.py``)."""
+
+    rank: int
+    world: int
+    device: torch.device
+    backend: str
+    stats: dict = dataclasses.field(
+        default_factory=lambda: {"merge": 0.0, "merge_bytes": 0})
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _worker(rank, fn, world, device_type, port, result_dir, args):
+    """One rank: bind the device, join the group, run fn, write what it
+    returned and this process's kernel launches, leave the group."""
+    import torch.distributed as dist
+
+    from .. import kernels
+
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+        torch.set_num_threads(max(1, available_devices("cpu") // world))
+    backend = BACKENDS[device_type]
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{port}", world_size=world,
+        rank=rank, device_id=dev if device_type == "cuda" else None)
+    try:
+        ready = time.time()
+        kernels.reset_launches()
+        ctx = Rank(rank, world, dev, backend)
+        try:
+            out = fn(ctx, *args)
+        except BaseException as e:
+            # stamped: a rank whose peer failed fails later, in a collective
+            try:
+                blob = pickle.dumps((time.time_ns(), e))
+            except Exception:
+                blob = pickle.dumps((time.time_ns(), RuntimeError(repr(e))))
+            path = os.path.join(result_dir, f"{rank}.err")
+            with open(path + ".tmp", "wb") as f:
+                f.write(blob)
+            os.replace(path + ".tmp", path)    # whole, or not at all
+            raise
+        if device_type == "cuda":
+            torch.cuda.synchronize(dev)
+        with open(os.path.join(result_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump({"result": out, "ready": ready,
+                         "launches": dict(kernels.ENTRY_LAUNCHES),
+                         "stats": ctx.stats}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def launch(fn, devices: int, device_type: str, *args,
+           timings: dict | None = None) -> list:
+    """Run ``fn(rank, *args)`` on `devices` ranks, one spawned process each
+    (``rank`` a ``Rank``); returns the ranks' results, rank 0 first.
+
+    The ranks' kernel launches are added to this process's counters
+    (``kernels.add_launches``); ``timings``, when given, gets ``spawn`` (s
+    from the call to the last rank in the group), ``world``, ``backend``,
+    ``launches_by_rank`` and the slowest rank's ``merge`` seconds and
+    ``merge_bytes``.  An exception in any rank re-raises here (the first
+    failing rank's own exception, where it pickles); the other ranks are
+    stopped.
+    """
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    from .. import kernels
+
+    if device_type not in BACKENDS:
+        raise ValueError(f"no process group for device type {device_type!r}")
+    check_devices(devices, device_type)
+    result_dir = tempfile.mkdtemp(prefix="kbbq_ranks_")
+    t0 = time.time()
+    try:
+        try:
+            mp.start_processes(
+                _worker, args=(fn, devices, device_type, _free_port(),
+                               result_dir, args),
+                nprocs=devices, join=True, start_method="spawn")
+        except ProcessException as e:
+            errs = []
+            for name in os.listdir(result_dir):
+                if name.endswith(".err"):
+                    with open(os.path.join(result_dir, name), "rb") as f:
+                        try:
+                            errs.append(pickle.load(f))
+                        except Exception:   # torch's report stands instead
+                            pass
+            if errs:          # the first rank to fail, not the ones it stopped
+                raise min(errs, key=lambda te: te[0])[1] from e
+            raise
+        outs = []
+        for r in range(devices):
+            with open(os.path.join(result_dir, f"{r}.pkl"), "rb") as f:
+                outs.append(pickle.load(f))
+    finally:
+        shutil.rmtree(result_dir, ignore_errors=True)
+    for o in outs:
+        kernels.add_launches(o["launches"])
+    if timings is not None:
+        timings["spawn"] = round(max(o["ready"] for o in outs) - t0, 3)
+        timings["world"] = devices
+        timings["backend"] = BACKENDS[device_type]
+        timings["launches_by_rank"] = [o["launches"] for o in outs]
+        timings["merge"] = round(max(o["stats"]["merge"] for o in outs), 3)
+        timings["merge_bytes"] = max(o["stats"]["merge_bytes"]
+                                     for o in outs)
+    return [o["result"] for o in outs]
+
+
+def slowest(per_rank: list, timings: dict | None) -> None:
+    """Into `timings`: per stage the slowest rank's seconds (and the
+    largest ``*_peak_bytes``) of the ranks' own ``StageClock`` dicts."""
+    if timings is None:
+        return
+    for t in per_rank:
+        for name, v in t.items():
+            if isinstance(v, (int, float)):
+                timings[name] = max(timings.get(name, v), v)
+
+
+class SharedArrays:
+    """Named arrays in ``.npy`` files of one temporary directory: the parent
+    writes them (``put``) or makes them empty for the ranks to fill
+    (``empty``, ``write_rows``); a rank maps them (``get``) by the handle,
+    which pickles as its paths.  ``close`` removes the files; mappings made
+    before stay valid."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="kbbq_shared_")
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.dir, name + ".npy")
+
+    def empty(self, name: str, shape, dtype) -> None:
+        """A zeroed array for the ranks to fill (a sparse file)."""
+        mm = np.lib.format.open_memmap(self._path(name), mode="w+",
+                                       dtype=dtype, shape=tuple(shape))
+        del mm
+
+    def put(self, name: str, arr: np.ndarray) -> None:
+        """Write `arr` (plain writes: faster into the page cache than
+        stores through a mapping)."""
+        np.save(self._path(name), np.ascontiguousarray(arr))
+
+    def get(self, name: str) -> np.ndarray:
+        """The array mapped copy-on-write: writes stay in this process."""
+        return np.load(self._path(name), mmap_mode="c")
+
+    def write_rows(self, name: str, start: int, rows: np.ndarray) -> None:
+        """Write `rows` into the file's rows from `start` on (plain writes
+        at the offset; ranks write disjoint rows)."""
+        mm = np.load(self._path(name), mmap_mode="r")
+        off = mm.offset + start * mm.strides[0]
+        del mm
+        with open(self._path(name), "r+b") as f:
+            f.seek(off)
+            f.write(np.ascontiguousarray(rows).data)
+
+    def close(self) -> None:
+        shutil.rmtree(self.dir, ignore_errors=True)

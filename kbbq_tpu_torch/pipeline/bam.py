@@ -1,4 +1,4 @@
-"""BAM, SAM and CRAM recalibration on one device (BASELINE config 3).
+"""BAM, SAM and CRAM recalibration (BASELINE config 3).
 
 Counterpart of ``kbbq_tpu/pipeline/bam.py``: the same four passes as FASTQ,
 with the differences handled at the IO boundary: machine-order
@@ -25,7 +25,9 @@ supplementary records passed through untouched.  Two routes:
 All write the JAX package's bytes.  The output format follows the output's
 extension (``.sam``, ``.bam`` or ``.cram``, the last through
 ``io/cram_write.py::write_cram``; an unnamed sink keeps the input's, BAM for
-a CRAM input); the multi-device routes come with ROADMAP A15.
+a CRAM input).  With ``devices`` > 1 the recalibration runs on that many
+ranks (``parallel/``); the host stages of the whole-file routes stay in the
+caller's process.
 """
 
 from __future__ import annotations
@@ -197,7 +199,9 @@ def recalibrate_bam(in_path: str, out_path, config: RecalConfig,
                     checkpoint_dir: str | None = None,
                     report_out: str | None = None,
                     apply_report: str | None = None, device=None,
-                    timings: dict | None = None) -> dict:
+                    timings: dict | None = None,
+                    devices: int | None = None,
+                    bloom_layout: str = "auto") -> dict:
     """BAM or SAM (``.sam``, ``.sam.gz``) -> BAM or SAM recalibration with
     the whole file in host memory.
 
@@ -210,13 +214,16 @@ def recalibrate_bam(in_path: str, out_path, config: RecalConfig,
     first appearance over primary records).  device=None means the CUDA
     device (raises without one).  `timings` gets the pipeline's stages and
     the host's: ``read`` (file read and inflate), ``decode`` (index, scan
-    and decode), ``rewrite`` and ``write`` (compress and write).
+    and decode), ``rewrite`` and ``write`` (compress and write).  devices,
+    bloom_layout: as in ``run_pipeline`` (the host stages stay in this
+    process).
     """
     dev = resolve_device(device)
     is_sam = str(in_path).endswith((".sam", ".sam.gz"))
     fmt = _output_format(out_path, "sam" if is_sam else "bam")
     mark = _stage_marker(timings)
-    run_kw = dict(device=dev, timings=timings, checkpoint_dir=checkpoint_dir)
+    run_kw = dict(device=dev, timings=timings, checkpoint_dir=checkpoint_dir,
+                  devices=devices, bloom_layout=bloom_layout)
     if is_sam:
         bf, primary, arrays, lens, registry = _read_sam_arrays(in_path,
                                                                use_oq)
@@ -313,20 +320,28 @@ def recalibrate_bam_streaming(in_path: str, out_path, config: RecalConfig,
                               apply_report: str | None = None, device=None,
                               timings: dict | None = None,
                               host_cache_bytes: int | None = None,
-                              device_cache_bytes: int | None = None) -> dict:
+                              device_cache_bytes: int | None = None,
+                              bloom_layout: str = "auto") -> dict:
     """BAM -> BAM recalibration with O(chunk) host memory, through the
     windowed engine; the same bytes as ``recalibrate_bam`` for any
-    `chunk_records`.  One device: `devices` > 1 raises (ROADMAP A15).  The
-    output is BAM: a ``.sam`` or ``.cram`` name raises.
-    Arguments as ``recalibrate_bam`` and
-    ``stream_resident.recalibrate_bam_stream_resident``."""
-    if devices is not None and devices > 1:
-        raise NotImplementedError(
-            "the multi-device streamed route is not ported yet (ROADMAP "
-            "A15): pass devices=1")
+    `chunk_records`.  The output is BAM: a ``.sam`` or ``.cram`` name
+    raises.  devices > 1 runs the engine on that many ranks
+    (``parallel/sharded.py::recalibrate_bam_sharded``, refusals as in
+    ``run_pipeline``), the same bytes.  Arguments as ``recalibrate_bam``
+    and ``stream_resident.recalibrate_bam_stream_resident``."""
     if _output_format(out_path, "bam") != "bam":
         raise ValueError("the streamed route writes BAM; recalibrate_bam "
                          "writes SAM")
+    if devices is not None and devices > 1:
+        from ..parallel.sharded import recalibrate_bam_sharded
+        return recalibrate_bam_sharded(
+            in_path, out_path, config, devices, use_oq=use_oq,
+            set_oq=set_oq, checkpoint_dir=checkpoint_dir,
+            chunk_records=chunk_records, timings=timings,
+            report_out=report_out, apply_report=apply_report, device=device,
+            host_cache_bytes=host_cache_bytes,
+            device_cache_bytes=device_cache_bytes,
+            bloom_layout=bloom_layout)
     from .stream_resident import (DEFAULT_HOST_CACHE_BYTES,
                                   recalibrate_bam_stream_resident)
     return recalibrate_bam_stream_resident(
@@ -381,7 +396,8 @@ def recalibrate_cram(in_path: str, out_path, config: RecalConfig,
                      devices: int | None = None,
                      report_out: str | None = None,
                      apply_report: str | None = None, device=None,
-                     timings: dict | None = None) -> dict:
+                     timings: dict | None = None,
+                     bloom_layout: str = "auto") -> dict:
     """CRAM -> BAM, SAM or CRAM recalibration with the whole file in host
     memory; the JAX package's ``recalibrate_cram`` bytes.
 
@@ -389,15 +405,10 @@ def recalibrate_cram(in_path: str, out_path, config: RecalConfig,
     files against `fasta_ref`, or an embedded reference), laid back to back
     as BAM record bodies with their RG tags, and from there take
     ``recalibrate_bam``'s route.  The output format follows out_path's
-    extension (an unnamed sink gets BAM).  One device: `devices` > 1 raises
-    (ROADMAP A15).  use_oq, set_oq, checkpoint_dir, report_out,
-    apply_report, device and `timings` (``read`` is the CRAM decode) as in
-    ``recalibrate_bam``.
+    extension (an unnamed sink gets BAM).  use_oq, set_oq, checkpoint_dir,
+    report_out, apply_report, device, `timings` (``read`` is the CRAM
+    decode), devices and bloom_layout as in ``recalibrate_bam``.
     """
-    if devices is not None and devices > 1:
-        raise NotImplementedError(
-            "the multi-device CRAM route is not ported yet (ROADMAP A15): "
-            "pass devices=1")
     from ..io.cram import read_cram
 
     dev = resolve_device(device)
@@ -411,5 +422,6 @@ def recalibrate_cram(in_path: str, out_path, config: RecalConfig,
     return _recalibrate_records(
         header_text, refs, buf, offs, sizes, out_path, fmt, config, use_oq,
         set_oq, report_out, apply_report,
-        dict(device=dev, timings=timings, checkpoint_dir=checkpoint_dir),
+        dict(device=dev, timings=timings, checkpoint_dir=checkpoint_dir,
+             devices=devices, bloom_layout=bloom_layout),
         mark, cram=True)

@@ -1,12 +1,13 @@
-"""End-to-end recalibration entry points of the port (single device).
+"""End-to-end recalibration entry points of the port.
 
 Counterpart of ``kbbq_tpu/pipeline/recalibrate.py``: ``RecalConfig``,
 ``run_pipeline``, the pass-4-only ``apply_table_arrays`` and the FASTQ ->
 FASTQ entry point ``recalibrate_fastq`` with its GATKReport and checkpoint
 options.  ``run_pipeline`` takes the resident path when the data fits the
 card and nothing asks for the windowed engine (a checkpoint directory, a
-first ordinal other than 0).  Bit-exact parity authority: the NumPy oracle
-of the JAX package.
+first ordinal other than 0); with ``devices`` > 1 it runs a process per
+device (``parallel/``).  Bit-exact parity authority: the NumPy oracle of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -110,8 +111,9 @@ def run_pipeline(arrays: ReadArrays, config: RecalConfig,
                  device=None, timings: dict | None = None,
                  chunk_rows: int | None = None,
                  checkpoint_dir: str | None = None,
-                 start_ordinal: int = 0) -> np.ndarray:
-    """Recalibrate in-memory arrays on one device -> new quals int8 [N, L].
+                 start_ordinal: int = 0, devices: int | None = None,
+                 bloom_layout: str = "auto") -> np.ndarray:
+    """Recalibrate in-memory arrays -> new quals int8 [N, L].
 
     The resident path, unless checkpoint_dir is set (pass-boundary saves,
     resume), start_ordinal is not 0 (row r samples as ordinal
@@ -119,9 +121,22 @@ def run_pipeline(arrays: ReadArrays, config: RecalConfig,
     windowed engine (``stream_resident.recalibrate_arrays_windowed``),
     which gives the same bytes.  device=None means the CUDA device and
     raises without one; pass device="cpu" to run on the CPU.
+
+    devices: None or 1 is one device; N > 1 runs N ranks of a process group
+    (``parallel/``: one per card, or N CPU processes for device="cpu"),
+    the same bytes, by the reference's rules: more devices than there are,
+    a batch size that N does not divide and a layout other than the
+    replicated one (``bloom_layout``: "auto" picks it while both filters
+    hold at most ``REPLICATED_BLOOM_BUDGET`` bits) are refused.  Each rank
+    takes the resident path on its rows when nothing asks for the windowed
+    engine and its share fits its card.
     """
     from .. import resolve_device
     dev = resolve_device(device)
+    if devices is not None and devices > 1:
+        return _run_devices(arrays, config, devices, bloom_layout, dev,
+                            timings, chunk_rows, checkpoint_dir,
+                            start_ordinal)
     if arrays.num_reads == 0:
         return np.zeros((0, arrays.max_len), np.int8)
     if checkpoint_dir is None and start_ordinal == 0 and \
@@ -134,6 +149,28 @@ def run_pipeline(arrays: ReadArrays, config: RecalConfig,
         arrays, config, start_ordinal=start_ordinal,
         checkpoint_dir=checkpoint_dir, device=dev, timings=timings,
         chunk_rows=chunk_rows)
+
+
+def _run_devices(arrays, config, devices: int, bloom_layout: str, dev,
+                 timings, chunk_rows, checkpoint_dir, start_ordinal):
+    """``run_pipeline`` on `devices` ranks (the JAX package's
+    ``run_pipeline`` for devices > 1, line for line)."""
+    from ..parallel import sharded
+    from ..parallel.mesh import check_devices
+    check_devices(devices, dev.type)
+    if config.batch_size % devices:
+        raise ValueError(
+            f"batch size {config.batch_size} must be divisible by "
+            f"--devices {devices}")
+    lens = arrays.mask.sum(axis=1)
+    sharded.resolve_layout(bloom_layout, config, int(lens.sum()),
+                           int(np.maximum(lens - config.k + 1, 0).sum()))
+    if checkpoint_dir is None and start_ordinal == 0:
+        return sharded.run_arrays_sharded(arrays, config, devices, dev.type,
+                                          timings, chunk_rows)
+    return sharded.sharded_recalibrate_arrays(
+        arrays, config, devices, start_ordinal, checkpoint_dir, device=dev,
+        timings=timings, chunk_rows=chunk_rows)
 
 
 def apply_table_arrays(arrays: ReadArrays, recal_table: np.ndarray,
@@ -245,7 +282,9 @@ def recalibrate_fastq(in_paths, out_paths, config: RecalConfig,
                       timings: dict | None = None,
                       report_out: str | None = None,
                       apply_report: str | None = None,
-                      checkpoint_dir: str | None = None) -> dict:
+                      checkpoint_dir: str | None = None,
+                      devices: int | None = None,
+                      bloom_layout: str = "auto") -> dict:
     """FASTQ -> FASTQ recalibration (the reference CLI's main flow), with
     the whole input in host memory (``recalibrate_fastq_streaming`` reads
     it chunk by chunk).
@@ -262,7 +301,8 @@ def recalibrate_fastq(in_paths, out_paths, config: RecalConfig,
     written report instead (ApplyBQSR-equivalent; read groups match by
     input path, so pass the same inputs in the same order).
     checkpoint_dir: save passes 1-3 at their boundaries and resume from
-    the first one not saved (``run_pipeline``).
+    the first one not saved (``run_pipeline``).  devices, bloom_layout: as
+    in ``run_pipeline`` (apply_report runs pass 4 alone, on one device).
     """
     import time
 
@@ -275,7 +315,8 @@ def recalibrate_fastq(in_paths, out_paths, config: RecalConfig,
     t1 = time.time()
     new_quals = _run_or_apply(arrays, config, [str(p) for p in in_paths],
                               report_out, apply_report, device=dev,
-                              timings=timings, checkpoint_dir=checkpoint_dir)
+                              timings=timings, checkpoint_dir=checkpoint_dir,
+                              devices=devices, bloom_layout=bloom_layout)
     t2 = time.time()
     _write_fastq_outputs(fqs, mask_l, new_quals, out_paths)
     if timings is not None:

@@ -63,11 +63,11 @@ def arrays_to_device(arrays: ReadArrays, dev):
     return codes, quals, mask, rgs, seconds
 
 
-def apply_table_on_device(recal, codes, quals, mask, rgs, seconds,
-                          rows: int) -> np.ndarray:
+def apply_table_tensor(recal, codes, quals, mask, rgs, seconds,
+                       rows: int) -> torch.Tensor:
     """Pass 4: one flat gather per base from the Q' table (int8, a numpy
     array or a tensor), `rows` rows at a time -> new quals int8 [N, L] on
-    the host."""
+    the data's device."""
     N, L = codes.shape
     recal = torch.as_tensor(recal).to(codes.device)
     out = torch.empty((N, L), dtype=torch.int8, device=codes.device)
@@ -75,7 +75,14 @@ def apply_table_on_device(recal, codes, quals, mask, rgs, seconds,
         e = min(N, s + rows)
         out[s:e] = apply_recal_table(recal, codes[s:e], quals[s:e],
                                      mask[s:e], rgs[s:e], seconds[s:e])
-    return out.cpu().numpy()
+    return out
+
+
+def apply_table_on_device(recal, codes, quals, mask, rgs, seconds,
+                          rows: int) -> np.ndarray:
+    """``apply_table_tensor``, its result copied to the host."""
+    return apply_table_tensor(recal, codes, quals, mask, rgs, seconds,
+                              rows).cpu().numpy()
 
 
 class StageClock:

@@ -67,7 +67,8 @@ from ..oracle.lighter import coverage_thresholds
 from ..oracle.pipeline import bloom_params_for
 from ..state.convert import bloom_from_numpy, bloom_to_numpy
 from .resident import (DEFAULT_CHUNK_ROWS, StageClock,
-                       apply_table_on_device, arrays_to_device)
+                       apply_table_on_device, apply_table_tensor,
+                       arrays_to_device)
 
 # decoded FASTQ chunks kept on the host across passes, at most (the JAX
 # package's figure); a larger input re-reads its files every pass
@@ -261,8 +262,11 @@ class StreamResidentEngine:
     rgs, seconds, ...); the rest is the source's own, for pass 4."""
 
     def __init__(self, source, config, dev, device_cache_bytes=None,
-                 chunk_rows: int | None = None):
+                 chunk_rows: int | None = None, rank=None):
         self.source = source
+        # a rank of a process group (``parallel/mesh.py``): it stages every
+        # world-th window and merges at every pass boundary
+        self.rank = rank
         self.config = config
         self.dev = dev
         self.L = source.max_len
@@ -285,34 +289,52 @@ class StreamResidentEngine:
         # codes, quals, mask: 3 B per padded base; rgs 8 B, seconds 1 B a read
         budget = (default_device_cache_bytes(dev)
                   if device_cache_bytes is None else device_cache_bytes)
-        self._cache_on = source.num_reads * (3 * self.L + 9) <= budget
+        world = rank.world if rank is not None else 1
+        self._cache_on = -(-source.num_reads // world) * (3 * self.L + 9) \
+            <= budget
         self._dev_cache: list = []
         self._cache_complete = False
 
-    def _windows(self, host: bool = False):
+    def _mine(self, i: int) -> bool:
+        return self.rank is None or i % self.rank.world == self.rank.rank
+
+    def _windows(self, host: bool = False, every: bool = False):
         """(ordinal, device tensors (codes, quals, mask, rgs, seconds),
-        source item or None) per window.  Pass 1's staged windows are kept
-        when the device cache is on; a later pass replays them, re-reading
-        the source only when it needs the host side (`host`)."""
-        if self._cache_complete:
-            if not host:
-                for ordinal, w in self._dev_cache:
-                    yield ordinal, w, None
-                return
-            for (ordinal, w), item in zip(self._dev_cache,
-                                          self.source.windows()):
-                yield ordinal, w, item
+        source item or None) per window of this rank; with `every`, every
+        window in order, another rank's with None for its tensors.  Pass
+        1's staged windows are kept when the device cache is on; a later
+        pass replays them, re-reading the source only when it needs the
+        host side (`host`) or every window."""
+        replay = self._cache_complete
+        if replay and not (host or every):
+            for ordinal, w in self._dev_cache:
+                yield ordinal, w, None
             return
-        self._dev_cache.clear()                    # drop any partial fill
-        for item in self.source.windows():
-            ordinal, (codes, quals, mask, rgs, seconds) = item[0], item[1][:5]
-            w = arrays_to_device(ReadArrays(codes, quals, mask, rgs,
-                                            seconds), self.dev)
-            if self._cache_on:
-                self._dev_cache.append((ordinal, w))
+        if not replay:
+            self._dev_cache.clear()                # drop any partial fill
+        mine = 0
+        for i, item in enumerate(self.source.windows()):
+            if not self._mine(i):
+                if every:
+                    yield item[0], None, item
+                continue
+            if replay:
+                ordinal, w = self._dev_cache[mine]
+                mine += 1
+            else:
+                ordinal, arrs = item[0], item[1][:5]
+                w = arrays_to_device(ReadArrays(*arrs), self.dev)
+                if self._cache_on:
+                    self._dev_cache.append((ordinal, w))
             yield ordinal, w, item
         if self._cache_on:
             self._cache_complete = True
+
+    def _or_merge(self, filt: torch.Tensor) -> torch.Tensor:
+        if self.rank is None:
+            return filt
+        from ..parallel.merge import or_merge
+        return or_merge(self.rank, filt)
 
     def _zeros(self, log2_m: int) -> torch.Tensor:
         return torch.zeros(1 << (log2_m - 5), dtype=torch.int32,
@@ -323,7 +345,7 @@ class StreamResidentEngine:
         filt = self._zeros(self.la)
         for ordinal, w, _ in self._windows():
             hash_cache_into(w[0], filt, ordinal, k, h, self.threshold)
-        self.filt_a = filt
+        self.filt_a = self._or_merge(filt)
 
     def run_pass2(self) -> None:
         k, h = self.config.k, self.config.num_hashes
@@ -333,7 +355,7 @@ class StreamResidentEngine:
             trusted = trusted_from_cache(self.filt_a, h1, word, self.t_table,
                                          k, self.config.trust_threshold)
             bloom_or_words_into(filt, h1, word, trusted)
-        self.filt_b = filt
+        self.filt_b = self._or_merge(filt)
 
     def run_pass3(self) -> None:
         k, h = self.config.k, self.config.num_hashes
@@ -348,6 +370,9 @@ class StreamResidentEngine:
                                    self.config.ext_cap, trusted0=tr0[s:e])
                 accumulate_covariates(cov, codes[s:e], quals[s:e], mask[s:e],
                                       rgs[s:e], seconds[s:e], err)
+        if self.rank is not None:
+            from ..parallel.merge import sum_merge
+            sum_merge(self.rank, cov)
         self.tables = CovariateTables(
             self.num_rg, self.L,
             *(cov[name].cpu().numpy() for name in
@@ -355,22 +380,25 @@ class StreamResidentEngine:
 
     def run_passes_1_to_3(self, ckpt, mark) -> np.ndarray:
         """Passes 1-3 (each loaded from `ckpt` where it holds the pass),
-        then the Q' table; `mark` closes each stage."""
+        then the Q' table; `mark` closes each stage.  Of a group's ranks
+        every one loads, rank 0 alone saves (the merged state, in the
+        one-device files) and computes the table, which it broadcasts."""
+        saves = ckpt if self.rank is None or self.rank.rank == 0 else None
         rows = ckpt.load_array("rows_a") if ckpt else None
         if rows is not None:
             self.filt_a = bloom_from_numpy(rows, self.dev)
         else:
             self.run_pass1()
-            if ckpt:
-                ckpt.save_array("rows_a", bloom_to_numpy(self.filt_a))
+            if saves:
+                saves.save_array("rows_a", bloom_to_numpy(self.filt_a))
         mark("pass1")
         rows = ckpt.load_array("rows_b") if ckpt else None
         if rows is not None:
             self.filt_b = bloom_from_numpy(rows, self.dev)
         else:
             self.run_pass2()
-            if ckpt:
-                ckpt.save_array("rows_b", bloom_to_numpy(self.filt_b))
+            if saves:
+                saves.save_array("rows_b", bloom_to_numpy(self.filt_b))
         self.filt_a = None
         mark("pass2")
         loaded = ckpt.load_covariates() if ckpt else None
@@ -378,21 +406,47 @@ class StreamResidentEngine:
             self.tables = loaded
         else:
             self.run_pass3()
-            if ckpt:
-                ckpt.save_covariates(self.tables)
+            if saves:
+                saves.save_covariates(self.tables)
         self.filt_b = None
         mark("pass3")
-        recal = build_recal_table(self.tables)
+        if self.rank is None:
+            recal = build_recal_table(self.tables)
+        else:
+            from ..parallel.merge import broadcast_table
+            recal = broadcast_table(
+                self.rank, build_recal_table(self.tables)
+                if self.rank.rank == 0 else None, self.num_rg, self.L)
         mark("deltas")
         return recal
 
-    def gathered(self, recal: np.ndarray, host: bool = False):
+    def gathered(self, recal: np.ndarray, host: bool = False,
+                 every: bool = False):
         """Pass 4: (ordinal, new quals int8 [n, L] on the host, source item
-        or None) per window."""
+        or None) per window of this rank.  With `every`, rank 0 gets every
+        window in order, another rank's rows sent by their owner (a
+        point-to-point send of the gathered tensor), and the other ranks
+        get nothing."""
         recal_dev = torch.from_numpy(np.ascontiguousarray(recal)).to(self.dev)
-        for ordinal, w, item in self._windows(host):
-            yield ordinal, apply_table_on_device(recal_dev, *w,
-                                                 self.rows), item
+        if not every or self.rank is None:
+            for ordinal, w, item in self._windows(host):
+                yield ordinal, apply_table_on_device(recal_dev, *w,
+                                                     self.rows), item
+            return
+        import torch.distributed as dist
+        me, world = self.rank.rank, self.rank.world
+        for i, (ordinal, w, item) in enumerate(
+                self._windows(host, every=me == 0)):
+            if w is not None:
+                nq = apply_table_tensor(recal_dev, *w, self.rows)
+                if me:
+                    dist.send(nq, 0)
+                    continue
+            else:
+                nq = torch.empty((item[1][0].shape[0], self.L),
+                                 dtype=torch.int8, device=self.dev)
+                dist.recv(nq, i % world)
+            yield ordinal, nq.cpu().numpy(), item
 
 
 def recalibrate_arrays_windowed(arrays: ReadArrays, config,
@@ -498,19 +552,45 @@ def recalibrate_fastq_stream_resident(
         in_paths = [in_paths]
     scan = scan_fastq_files(in_paths, config.k, chunk_reads)
     clock.mark("scan")
-    src = FastqWindowSource(in_paths, scan, interleaved, chunk_reads,
-                            host_cache_bytes)
-    eng = StreamResidentEngine(src, config, dev, device_cache_bytes)
+    check_fastq_checkpoint(checkpoint_dir, config, in_paths, scan,
+                           chunk_reads, interleaved)
+    return fastq_windowed_run(
+        in_paths, out_paths, config, scan, checkpoint_dir, interleaved,
+        chunk_reads, clock, report_out, apply_report, dev, host_cache_bytes,
+        device_cache_bytes)
 
-    ckpt = None
-    if checkpoint_dir:
-        from ..state.checkpoint import Checkpoint, stream_fingerprint
-        ckpt = Checkpoint(checkpoint_dir)
-        fp = stream_fingerprint(config, in_paths, scan)
-        # pass 4 resumes by chunk, and pairing changes the covariates
-        fp["chunk_reads"] = int(chunk_reads)
-        fp["interleaved"] = bool(interleaved)
-        ckpt.check_fingerprint(fp)
+
+def check_fastq_checkpoint(checkpoint_dir, config, in_paths, scan,
+                           chunk_reads: int, interleaved: bool) -> None:
+    """Refuse a checkpoint of a streamed FASTQ run under other parameters
+    or inputs (``stream_fingerprint`` with chunk_reads and interleaved);
+    record the fingerprint on first use."""
+    if not checkpoint_dir:
+        return
+    from ..state.checkpoint import Checkpoint, stream_fingerprint
+    fp = stream_fingerprint(config, in_paths, scan)
+    # pass 4 resumes by chunk, and pairing changes the covariates
+    fp["chunk_reads"] = int(chunk_reads)
+    fp["interleaved"] = bool(interleaved)
+    Checkpoint(checkpoint_dir).check_fingerprint(fp)
+
+
+def fastq_windowed_run(in_paths, out_paths, config, scan, checkpoint_dir,
+                       interleaved: bool, chunk_reads: int, clock,
+                       report_out, apply_report, dev, host_cache_bytes: int,
+                       device_cache_bytes, rank=None) -> dict:
+    """The passes of ``recalibrate_fastq_stream_resident`` after its scan
+    and fingerprint check.  As a rank of a group (`rank`), the passes run
+    on the rank's windows and rank 0 alone writes the report, the
+    checkpoints and the output, every window in order."""
+    from ..state.checkpoint import Checkpoint
+    world = rank.world if rank is not None else 1
+    writes = rank is None or rank.rank == 0
+    src = FastqWindowSource(in_paths, scan, interleaved, chunk_reads,
+                            host_cache_bytes // world)
+    eng = StreamResidentEngine(src, config, dev, device_cache_bytes,
+                               rank=rank)
+    ckpt = Checkpoint(checkpoint_dir) if checkpoint_dir else None
     rg_names = [str(p) for p in in_paths]
     clock.mark("setup")
 
@@ -520,9 +600,17 @@ def recalibrate_fastq_stream_resident(
                                         rg_names, eng.L)
     else:
         recal = eng.run_passes_1_to_3(ckpt, clock.mark)
-        if report_out is not None:
+        if report_out is not None and writes:
             from ..gatk_report import write_gatk_report
             write_gatk_report(eng.tables, rg_names, report_out)
+    stats = {"num_reads": scan.num_reads, "total_bases": scan.total_bases,
+             "read_groups": eng.num_rg, "streamed": True,
+             "engine": "resident-window"}
+    if not writes:
+        for _ in eng.gathered(recal, every=True):
+            pass
+        clock.mark("pass4")
+        return stats
 
     # ---- pass 4: gather on the card, render + write in order on one thread
     p4 = ckpt.load_meta().get("pass4") if ckpt else None
@@ -537,7 +625,8 @@ def recalibrate_fastq_stream_resident(
     pending: list = []
     chunk_idx = 0
     try:
-        for _, nq, (_, arrs, fi, fq) in eng.gathered(recal, host=True):
+        for _, nq, (_, arrs, fi, fq) in eng.gathered(recal, host=True,
+                                                     every=True):
             if chunk_idx < done_chunks:
                 chunk_idx += 1
                 continue
@@ -565,9 +654,7 @@ def recalibrate_fastq_stream_resident(
             for f in opened:
                 f.close()
     clock.mark("pass4")
-    return {"num_reads": scan.num_reads, "total_bases": scan.total_bases,
-            "read_groups": eng.num_rg, "streamed": True,
-            "engine": "resident-window", "chunks": chunk_idx}
+    return {**stats, "chunks": chunk_idx}
 
 
 def recalibrate_bam_stream_resident(
@@ -592,31 +679,59 @@ def recalibrate_bam_stream_resident(
     set_oq, host_cache_bytes / device_cache_bytes, timings and device as in
     ``recalibrate_bam`` and ``recalibrate_fastq_stream_resident``.
     """
-    from ..io.bam_stream import (DEFAULT_CHUNK_RECORDS, BamStreamWriter,
-                                 open_bam_stream)
-    from ..io.bam_vec import rewrite_quals_chunk
-    from .bam import _registry_names, scan_bam
+    from ..io.bam_stream import DEFAULT_CHUNK_RECORDS
+    from .bam import scan_bam
 
     dev = resolve_device(device)
     clock = StageClock(timings, dev)
     chunk_records = int(chunk_records or DEFAULT_CHUNK_RECORDS)
-    k = config.k
-    n, bases, tk, max_len, registry = scan_bam(in_path, k, chunk_records)
+    scan = scan_bam(in_path, config.k, chunk_records)
     clock.mark("scan")
+    check_bam_checkpoint(checkpoint_dir, config, scan, use_oq)
+    return bam_windowed_run(in_path, out_path, config, scan, use_oq, set_oq,
+                            checkpoint_dir, chunk_records, clock, report_out,
+                            apply_report, dev, host_cache_bytes,
+                            device_cache_bytes)
+
+
+def check_bam_checkpoint(checkpoint_dir, config, scan, use_oq: bool) -> None:
+    """Refuse a checkpoint of a streamed BAM run under other parameters or
+    inputs (the JAX package's BAM fingerprint); record it on first use."""
+    if not checkpoint_dir:
+        return
+    from ..state.checkpoint import Checkpoint, effective_ext_cap
+    n, bases = scan[0], scan[1]
+    Checkpoint(checkpoint_dir).check_fingerprint({
+        "k": config.k, "alpha": config.alpha, "coverage": config.coverage,
+        "genome_length": config.genome_length,
+        "num_hashes": config.num_hashes,
+        "trust_threshold": config.trust_threshold,
+        "ext_cap": effective_ext_cap(config), "use_oq": use_oq,
+        "num_reads": n, "total_bases": bases, "bam": True})
+
+
+def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
+                     set_oq: bool, checkpoint_dir, chunk_records: int, clock,
+                     report_out, apply_report, dev, host_cache_bytes: int,
+                     device_cache_bytes, rank=None) -> dict:
+    """The passes of ``recalibrate_bam_stream_resident`` after its scan
+    (`scan`: ``scan_bam``'s tuple) and fingerprint check.  As a rank of a
+    group (`rank`), the passes run on the rank's windows and rank 0 alone
+    writes the report, the checkpoints and the output, every chunk in
+    order."""
+    from ..io.bam_stream import BamStreamWriter, open_bam_stream
+    from ..io.bam_vec import rewrite_quals_chunk
+    from ..state.checkpoint import Checkpoint
+    from .bam import _registry_names
+
+    world = rank.world if rank is not None else 1
+    writes = rank is None or rank.rank == 0
+    n, bases, tk, max_len, registry = scan
     src = BamWindowSource(in_path, registry, max_len, n, bases, tk, use_oq,
-                          chunk_records, host_cache_bytes)
-    eng = StreamResidentEngine(src, config, dev, device_cache_bytes)
-    ckpt = None
-    if checkpoint_dir:
-        from ..state.checkpoint import Checkpoint, effective_ext_cap
-        ckpt = Checkpoint(checkpoint_dir)
-        ckpt.check_fingerprint({
-            "k": k, "alpha": config.alpha, "coverage": config.coverage,
-            "genome_length": config.genome_length,
-            "num_hashes": config.num_hashes,
-            "trust_threshold": config.trust_threshold,
-            "ext_cap": effective_ext_cap(config), "use_oq": use_oq,
-            "num_reads": n, "total_bases": bases, "bam": True})
+                          chunk_records, host_cache_bytes // world)
+    eng = StreamResidentEngine(src, config, dev, device_cache_bytes,
+                               rank=rank)
+    ckpt = Checkpoint(checkpoint_dir) if checkpoint_dir else None
     rg_names = _registry_names(registry)
     clock.mark("setup")
 
@@ -626,9 +741,16 @@ def recalibrate_bam_stream_resident(
                                         rg_names, eng.L)
     else:
         recal = eng.run_passes_1_to_3(ckpt, clock.mark)
-        if report_out is not None:
+        if report_out is not None and writes:
             from ..gatk_report import write_gatk_report
             write_gatk_report(eng.tables, rg_names, report_out)
+    stats = {"num_reads": n, "total_bases": bases, "read_groups": eng.num_rg,
+             "streamed": True, "engine": "resident-window"}
+    if not writes:
+        for _ in eng.gathered(recal, every=True):
+            pass
+        clock.mark("pass4")
+        return stats
 
     # ---- pass 4: gather on the card, rewrite + write in order on one thread
     header_text, refs, reader = open_bam_stream(in_path)
@@ -644,7 +766,8 @@ def recalibrate_bam_stream_resident(
 
     windows = 0
     try:
-        for _, nq, (_, _, raws) in eng.gathered(recal, host=True):
+        for _, nq, (_, _, raws) in eng.gathered(recal, host=True,
+                                                every=True):
             windows += 1
             if len(pending) >= 2:     # at most two windows wait to be written
                 pending.pop(0).result()
@@ -662,6 +785,4 @@ def recalibrate_bam_stream_resident(
             wex.shutdown(wait=True)
             writer.close()
     clock.mark("pass4")
-    return {"num_reads": n, "total_bases": bases, "read_groups": eng.num_rg,
-            "streamed": True, "engine": "resident-window",
-            "windows": windows}
+    return {**stats, "windows": windows}

@@ -1,0 +1,38 @@
+"""Functions that tests/test_torch_parallel.py runs on every rank of a
+group (``kbbq_tpu_torch.parallel.mesh.launch`` pickles them by name, so
+they live in a module the spawned processes can import).  Each takes the
+rank first; they import only the port and torch."""
+
+import numpy as np
+import torch
+
+
+def merges(rank, words_by_rank: list, cov_by_rank: list, recal):
+    """or_merge of each rank's word arrays, sum_merge of its covariate
+    tables, broadcast_table of rank 0's table; one count of each kernel
+    entry point per rank, as a wrapper would add it."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.parallel.merge import (broadcast_table, or_merge,
+                                               sum_merge)
+    ors = [or_merge(rank, torch.from_numpy(w[rank.rank]).to(rank.device))
+           .cpu().numpy() for w in words_by_rank]
+    cov = {n: torch.from_numpy(a[rank.rank]).to(rank.device)
+           for n, a in cov_by_rank.items()}
+    sum_merge(rank, cov)
+    table = broadcast_table(rank, recal if rank.rank == 0 else None,
+                            recal.shape[0], recal.shape[2] // 2)
+    for entry, kernel in kernels.ENTRY_KERNEL.items():
+        kernels._count(kernel, entry)
+    return {"or": ors, "cov": {n: t.cpu().numpy() for n, t in cov.items()},
+            "table": table, "rank": rank.rank, "world": rank.world,
+            "backend": rank.backend}
+
+
+def fail_on_rank(rank, bad: int):
+    """Raise on rank `bad`; the others wait in a collective it never
+    joins."""
+    import torch.distributed as dist
+    if rank.rank == bad:
+        raise ValueError(f"rank {bad} failed on purpose")
+    dist.barrier()
+    return np.int64(rank.rank)

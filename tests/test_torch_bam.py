@@ -413,8 +413,9 @@ def test_bam_to_sam_and_unnamed_sinks(d, inputs, sink):
 def test_cram_output_and_devices_are_refused(d, inputs, monkeypatch):
     """The whole-file route writes a .cram output as the JAX package does
     (its gzip blocks stamp the clock: both writes run under one pinned
-    clock); the streamed route refuses .cram and .sam names and several
-    devices."""
+    clock); the streamed route refuses .cram and .sam names, and on
+    several devices more devices than there are and the hash-space-sharded
+    layout (ROADMAP B10)."""
     import time
     monkeypatch.setattr(time, "time", lambda: 1.7e9)
     for name, kw in (("plain", dict(set_oq=True)),
@@ -428,10 +429,15 @@ def test_cram_output_and_devices_are_refused(d, inputs, monkeypatch):
     with pytest.raises(ValueError, match="writes BAM"):
         recalibrate_bam_streaming(inputs["plain"], str(d / "x.cram"),
                                   RecalConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="B10"):
         recalibrate_bam_streaming(inputs["plain"], str(d / "x.bam"),
                                   RecalConfig(**CFG), devices=2,
+                                  device="cpu", bloom_layout="sharded")
+    with pytest.raises(ValueError, match="requested but only"):
+        recalibrate_bam_streaming(inputs["plain"], str(d / "x.bam"),
+                                  RecalConfig(**CFG), devices=100000,
                                   device="cpu")
+    assert not os.path.exists(d / "x.bam")
     with pytest.raises(ValueError, match="writes BAM"):
         recalibrate_bam_streaming(inputs["plain"], str(d / "x.sam"),
                                   RecalConfig(**CFG), device="cpu")

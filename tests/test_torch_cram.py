@@ -485,10 +485,17 @@ def test_bam_input_to_cram_output(tmp_path, pinned):
 
 
 def test_several_devices_refused(tmp_path):
+    """Several devices run (tests/test_torch_parallel.py); refused are more
+    devices than there are and the hash-space-sharded layout (ROADMAP
+    B10), before anything is written."""
     src, _ = _recal_input(tmp_path, "mixed")
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="B10"):
         recalibrate_cram(str(src), str(tmp_path / "x.cram"),
-                         RecalConfig(**CFG), devices=2, device="cpu")
+                         RecalConfig(**CFG), devices=2, device="cpu",
+                         bloom_layout="sharded")
+    with pytest.raises(ValueError, match="requested but only"):
+        recalibrate_cram(str(src), str(tmp_path / "x.cram"),
+                         RecalConfig(**CFG), devices=100000, device="cpu")
     assert not (tmp_path / "x.cram").exists()
 
 

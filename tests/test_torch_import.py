@@ -42,6 +42,8 @@ from kbbq_tpu_torch.pipeline.recalibrate import apply_table_arrays
 from kbbq_tpu_torch import benchmark, plot
 from kbbq_tpu_torch.cli.main import main as cli_main
 from kbbq_tpu_torch.utils import metrics
+from kbbq_tpu_torch import parallel
+from kbbq_tpu_torch.parallel import mesh, merge, resident_sharded, sharded
 cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
 src = {os.path.join(REPO, 'tests', 'data', 'tiny.fq')!r}
 assert cli_main(["recalibrate", src, "-k", "16", "-c", "18",
@@ -145,7 +147,9 @@ def test_no_source_imports_jax_or_the_jax_package():
                                    "recalibrate_bam",
                                    "recalibrate_bam_streaming",
                                    "recalibrate_cram",
-                                   "recalibrate_cram_stream_resident"])
+                                   "recalibrate_cram_stream_resident",
+                                   "recalibrate_arrays_resident_sharded",
+                                   "sharded_recalibrate_arrays"])
 def test_entry_points_default_to_the_card_and_raise_without_one(
         entry, tmp_path, monkeypatch):
     """device=None means CUDA; with no CUDA device the call raises (and
@@ -203,6 +207,13 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
             {"recalibrate_bam": recalibrate_bam,
              "recalibrate_bam_streaming": recalibrate_bam_streaming}[entry](
                 str(src), str(out), cfg)
+        elif entry == "recalibrate_arrays_resident_sharded":
+            from kbbq_tpu_torch.parallel import \
+                recalibrate_arrays_resident_sharded
+            recalibrate_arrays_resident_sharded(arrays, cfg, 2)
+        elif entry == "sharded_recalibrate_arrays":
+            from kbbq_tpu_torch.parallel import sharded_recalibrate_arrays
+            sharded_recalibrate_arrays(arrays, cfg, 2)
         else:
             recalibrate_arrays_resident(arrays, cfg)
     assert not out.exists()
