@@ -52,7 +52,20 @@ multi-device route (the resident path on each rank's rows) and through
 the streamed route on the ranks with a checkpoint, then resumed from its
 filters, each the main path's bytes, launches summed over the ranks;
 spawn seconds, the slowest rank's seconds by stage, the merges' seconds
-and bytes.  Last, BASELINE.json config
+and bytes.  Then the hash-space-sharded filters (``[sharded_kernels]``,
+``[sharded]``): on config 2's reads, filters A and B built over 4 virtual
+shards on the card (each fed the windows it owns) equal the one-device
+filters word for word and every owner's word test answers as the whole
+filter; the keep mode of the fused build, the rule-only trust and the
+round-based walk (``walk_round``: walk_start, walk_propose, walk_resolve,
+one chunk of 65,536 reads with the local word test) equal their
+counterparts and plain versions, each timed (the walk's rounds from CUDA
+graphs); then config 2 through run_pipeline's multi-device route with
+bloom_layout="sharded" at D = the card count, the streamed route on the
+ranks with a checkpoint and that run resumed after pass 2, each the main
+path's bytes, launches by rank held to the run's shape, each rank holding
+1/D of each filter, exchange seconds and bytes and peak device bytes
+printed.  Last, BASELINE.json config
 4 on the one card: 13,000,000 reads x 150 at 30x (``make_arrays_chunked``,
 a FASTQ over 2 GiB), the command line (its streamed engine) and the
 resident route in process write the same bytes, and against the run's
@@ -71,8 +84,14 @@ it is; ``launches_streamed``, ``launches_bam``, ``launches_bam_streamed``,
 FASTQ run), ``launches_scale`` and ``launches_scale_cli`` (config 4's
 resident and command-line runs), ``launches_devices`` and
 ``launches_devices_by_rank`` (config 2's resident run on the ranks, summed
-and per rank) and ``launches_scale_devices_by_rank`` (config 4's) beside
-it in every entry; the probe's and
+and per rank), ``launches_sharded``, ``launches_sharded_by_rank`` and
+``launches_sharded_streamed`` (the same with the hash-space-sharded
+filters: the resident run, the streamed run) and
+``launches_scale_devices_by_rank`` (config 4's) beside it in every entry;
+the entries of the sharded layout's entry points (``path`` "sharded":
+``launches`` is the sharded resident run's count, ``plain_ms`` of the walk's
+three the plain walk of the chunk, whole, beside ``walk_ms``, ``rounds``
+and ``round1_graph_ms``); the probe's and
 the walk's entries also their time, plain time and bound against config
 4's filter B, ``scale_*``), mismatches against the plain
 version, times in ms, the roofline bound; the probe's entries also
@@ -776,8 +795,9 @@ def phase_main_path(tmp, fastq_bytes, true_err, expected, cfg, read_len):
     want = {"bloom_probe_trust": 1, "bloom_probe_words": 1,
             "bloom_probe_hashed": 0, "hash_build": 1, "bloom_or_words": 1,
             "hash_only": 0, "walk_errors": chunks}
-    if by_entry != want or launches != {
-            "bloom_probe": 2, "bloom_or_words": 2, "walk_errors": chunks}:
+    if by_entry != {**NO_LAUNCHES, **want} or launches != {
+            "bloom_probe": 2, "bloom_or_words": 2, "walk_errors": chunks,
+            "walk_round": 0}:
         raise AssertionError(f"main path launched {by_entry} ({launches}), "
                              f"expected {want}")
 
@@ -918,7 +938,7 @@ def phase_streaming(tmp, src, out1, cfg, reads):
                    "bloom_probe_trust": W, "bloom_or_words": W,
                    "bloom_probe_words": W, "walk_errors": walks,
                    "bloom_probe_hashed": 0}
-    if by_entry != want_launch or info["chunks"] != W:
+    if by_entry != {**NO_LAUNCHES, **want_launch} or info["chunks"] != W:
         raise AssertionError(f"streamed path launched {by_entry} over "
                              f"{info['chunks']} windows, expected "
                              f"{want_launch}")
@@ -1068,21 +1088,27 @@ def devices_line(route: str, t: dict, wall: float, by_entry: dict) -> dict:
     caller = {k: t[k] for k in ("scan", "share") if k in t}
     stages = {k: v for k, v in t.items()
               if isinstance(v, float) and not k.endswith("_peak_bytes")
-              and k not in ("spawn", "merge", *caller)}
+              and k not in ("spawn", "merge", "exchange", *caller)}
     peaks = {k[:-len("_peak_bytes")]: v for k, v in t.items()
              if k.endswith("_peak_bytes")}
+    shards = {k: t[k] for k in ("shard_words_a", "shard_words_b") if k in t}
     rec = {"route": route, "world": t["world"], "backend": t["backend"],
            "wall_s": wall, "caller_s": caller, "spawn_s": t["spawn"],
            "merge_s": t["merge"],
-           "merge_bytes": t["merge_bytes"], "slowest_rank_s": stages,
+           "merge_bytes": t["merge_bytes"], "exchange_s": t["exchange"],
+           "exchange_bytes": t["exchange_bytes"], "slowest_rank_s": stages,
            "peak_device_bytes": peaks, "launches_by_entry": by_entry,
-           "launches_by_rank": t["launches_by_rank"]}
-    log(f"[devices] {route}: {t['world']} rank(s) over {t['backend']}, "
+           "launches_by_rank": t["launches_by_rank"], **shards}
+    tag = "[sharded]" if "sharded" in route else "[devices]"
+    log(f"{tag} {route}: {t['world']} rank(s) over {t['backend']}, "
         f"wall {wall:.3f} s of which spawn {t['spawn']:.3f} s and in the "
         f"caller {json.dumps(caller)}; merges "
         f"{t['merge']:.3f} s, {t['merge_bytes']} B sent by the busiest "
-        f"rank; slowest rank's seconds by stage {json.dumps(stages)}; "
-        f"launches summed over ranks {json.dumps(by_entry)}")
+        f"rank; filter exchanges {t['exchange']:.3f} s, "
+        f"{t['exchange_bytes']} B sent by the busiest rank; slowest rank's "
+        f"seconds by stage {json.dumps(stages)}; peak device bytes by stage "
+        f"{json.dumps(peaks)}; launches summed over ranks "
+        f"{json.dumps(by_entry)}")
     return rec
 
 
@@ -1222,7 +1248,455 @@ def phase_devices_scale(tmp, src, want, cfg, n):
     return rec
 
 
+SHARDS = 4                     # virtual shards of [sharded_kernels]
+
+
+def phase_sharded_kernels(arrays, cfg):
+    """The kernels of the hash-space-sharded layout on the card, on config
+    2's reads.  Filters A and B are built split over SHARDS virtual shards
+    (each shard fed only the windows it owns, through the cached build, as
+    an owner builds) and the shards end to end must equal the one-device
+    filters word for word; every owner's word test must answer as the whole
+    filter does.  The keep mode of the fused build must write
+    ``hash_build``'s planes and the plain hash pass's; the rule-only trust
+    must equal ``bloom_probe_trust`` and ``trusted_mask_batch`` on the same
+    hits; the round-based walk (``walk_round``: walk_start, then
+    walk_propose, the word test and walk_resolve per round) on one chunk of
+    65,536 reads with the local word test must mark what ``walk_errors`` and
+    the plain walk mark.  Returns the records of the new entry points."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.ops import bloom as tb
+    from kbbq_tpu_torch.ops.hash_cache import (hash_cache_build,
+                                               hash_cache_chunk)
+    from kbbq_tpu_torch.ops.inference import (infer_errors,
+                                              infer_errors_plain,
+                                              infer_errors_sharded)
+    from kbbq_tpu_torch.ops.trusted import (trusted_from_cache,
+                                            trusted_mask_batch)
+    from kbbq_tpu_torch.oracle import (alpha_threshold, bloom_params_for,
+                                       coverage_thresholds)
+    from kbbq_tpu_torch.constants import DEFAULT_EXT_CAP
+    from kbbq_tpu_torch.pipeline.resident import DEFAULT_CHUNK_ROWS
+
+    dev = torch.device(DEVICE)
+    k, h = cfg.k, cfg.num_hashes
+    N, L = arrays.codes.shape
+    n = L - k + 1
+    nwin = N * n
+    rows = DEFAULT_CHUNK_ROWS
+    W = min(cfg.ext_cap or DEFAULT_EXT_CAP, k)
+    alpha, coverage = cfg.resolve_alpha(N * L)
+    pa, pb = bloom_params_for(cfg, N * n, alpha, coverage)
+    thr = int(alpha_threshold(alpha))
+    T = k if cfg.trust_threshold is None else cfg.trust_threshold
+    records = []
+
+    def record(name, entry, replaces, mm, ms, plain_ms, bnd, **more):
+        records.append({
+            "name": name, "entry": entry, "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": replaces, "mismatches": mm,
+            "max_abs_err": float(min(1, mm)), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "path": "sharded", **more})
+
+    codes = torch.from_numpy(arrays.codes).to(dev)
+    h1, word, keep, filt_a = hash_cache_build(codes, 0, k, h, thr, pa.log2_m)
+
+    # ---- the keep mode of the fused entry point: hash_build's planes, and
+    # the plain hash pass's (timed over every chunk)
+    got = kernels.hash_keep(codes, 0, k, h, thr)
+    mm_keep = sum(mismatches(a, b) for a, b in zip(got, (h1, word, keep)))
+    del got
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for s in range(0, N, rows):
+        e = min(N, s + rows)
+        ids = torch.arange(s, e, dtype=torch.int64, device=dev)
+        p1, pw, pk = hash_cache_chunk(codes[s:e], ids, k, h, thr)
+        mm_keep += mismatches(p1, h1[s:e]) + mismatches(pw, word[s:e]) + \
+            mismatches(pk, keep[s:e])
+    torch.cuda.synchronize()
+    keep_plain_ms = (time.time() - t0) * 1e3
+    del p1, pw, pk
+    keep_ms = cuda_ms(lambda: kernels.hash_keep(codes, 0, k, h, thr))
+    log(f"[sharded_kernels] hash_keep: {mm_keep} mismatches over {nwin} "
+        f"windows (against hash_build's planes and the plain hash pass), "
+        f"{keep_ms:.4f} ms, plain {keep_plain_ms:.1f} ms")
+    # the fused build's bytes and operations less the filter's
+    record("bloom_or_words.hash_keep", "hash_keep",
+           "kbbq_tpu/parallel/sharded_bloom.py:294", mm_keep, keep_ms,
+           keep_plain_ms, bound(N * L + nwin * 9, nwin * 150), n=nwin,
+           kept=int(keep.sum()),
+           replaces_note="the XLA hash pass and sampling of step_sample; no "
+                         "Pallas counterpart")
+
+    # ---- filter A over SHARDS virtual shards: each shard built from the
+    # kept windows it owns, then each owner's word test of its windows
+    def shard_of(log2_m):
+        """Words a shard holds, and each window's owner."""
+        S = (1 << (log2_m - 5)) // SHARDS
+        h1_u32 = h1.to(torch.int64) & 0xFFFFFFFF
+        return S, (h1_u32 >> (S.bit_length() - 1)) & (SHARDS - 1)
+
+    def split_build(log2_m, sel):
+        S, owner = shard_of(log2_m)
+        parts = []
+        for d in range(SHARDS):
+            m = sel & (owner == d)
+            parts.append(kernels.bloom_or_words(
+                torch.zeros(S, dtype=torch.int32, device=dev), h1[m],
+                word[m], torch.ones(int(m.sum()), dtype=torch.bool,
+                                    device=dev)))
+        return parts, owner
+
+    def split_test(parts, owner, filt):
+        got = torch.zeros((N, n), dtype=torch.bool, device=dev)
+        for d, part in enumerate(parts):
+            m = (owner == d) & (word != 0)
+            got[m] = kernels.bloom_probe_words(part, h1[m], word[m])
+        return mismatches(got, tb.bloom_query_words(filt, h1, word))
+
+    parts, owner = split_build(pa.log2_m, keep)
+    mm_split = {"A_words": mismatches(torch.cat(parts), filt_a),
+                "A_test": split_test(parts, owner, filt_a)}
+    del parts, owner
+
+    # ---- the rule-only trust on the hits of filter A: the fused trust
+    # probe's bytes and the plain rule's
+    hits = tb.bloom_query_words(filt_a, h1, word)
+    t_table = torch.from_numpy(
+        coverage_thresholds(alpha, k).astype(np.int32)).to(dev)
+    trusted = kernels.trust_rule(hits, word, t_table, k, T)
+    mm_rule = mismatches(trusted, trusted_from_cache(filt_a, h1, word,
+                                                     t_table, k, T))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for s in range(0, N, rows):
+        e = min(N, s + rows)
+        mm_rule += mismatches(trusted_mask_batch(hits[s:e], word[s:e] != 0,
+                                                 t_table, k, T),
+                              trusted[s:e])
+    torch.cuda.synchronize()
+    rule_plain_ms = (time.time() - t0) * 1e3
+    out = torch.empty_like(trusted)
+    rule_ms = cuda_ms(lambda: kernels.trust_rule(hits, word, t_table, k, T,
+                                                 out=out))
+    rule_graph_ms = cuda_graph_ms(lambda: kernels.trust_rule(
+        hits, word, t_table, k, T, out=out), launches=5)
+    del out, hits
+    log(f"[sharded_kernels] trust_rule: {mm_rule} mismatches of {nwin} "
+        f"(against bloom_probe_trust and the plain rule on the same hits), "
+        f"{int(trusted.sum())} trusted; {rule_ms:.4f} ms "
+        f"({rule_graph_ms:.4f} from a graph), plain {rule_plain_ms:.1f} ms")
+    # bytes: the hit byte and the word in, the trusted byte out; operations
+    # as the fused trust probe's, less the filter read
+    record("bloom_probe.trust_rule", "trust_rule",
+           "kbbq_tpu/parallel/sharded_bloom.py:264", mm_rule, rule_ms,
+           rule_plain_ms, bound(nwin * 6, nwin * 14), n=nwin,
+           graph_ms=rule_graph_ms, trusted=int(trusted.sum()),
+           replaces_note="trusted_mask_batch inside step_trusted after the "
+                         "collective query; no Pallas counterpart")
+
+    # ---- filter B over the shards, and its owners' tests
+    filt_b = tb.bloom_build_words(h1, word, trusted, pb.log2_m)
+    parts, owner = split_build(pb.log2_m, trusted)
+    mm_split["B_words"] = mismatches(torch.cat(parts), filt_b)
+    mm_split["B_test"] = split_test(parts, owner, filt_b)
+    del parts, owner, trusted, keep, filt_a
+    log(f"[sharded_kernels] filters A (2^{pa.log2_m} bits) and B "
+        f"(2^{pb.log2_m}) built over {SHARDS} shards, each fed the windows "
+        f"it owns: mismatches against the one-device filters and their word "
+        f"tests {mm_split}")
+
+    # ---- walk_round on one chunk with the local word test
+    wr = min(WALK_READS, N)
+    c = codes[:wr]
+    tr0 = tb.bloom_query_words(filt_b, h1[:wr], word[:wr])
+    del h1, word
+    lanes_by_round = []
+
+    def test(a, b):
+        lanes_by_round.append(a.shape[0])
+        return kernels.bloom_probe_words(filt_b, a, b)
+
+    got = infer_errors_sharded(c, tr0, test, k, h, cfg.ext_cap)
+    rounds = len(lanes_by_round)
+    lanes = list(lanes_by_round)
+    mm_walk = mismatches(got, infer_errors(filt_b, c, k, h, cfg.ext_cap,
+                                           trusted0=tr0))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain = infer_errors_plain(filt_b, c, k, h, cfg.ext_cap, trusted0=tr0)
+    torch.cuda.synchronize()
+    walk_plain_ms = (time.time() - t0) * 1e3
+    mm_walk += mismatches(got, plain)
+    marks = int(got.sum())
+    del plain
+    walk_ms = cuda_ms(lambda: infer_errors_sharded(
+        c, tr0, lambda a, b: kernels.bloom_probe_words(filt_b, a, b), k, h,
+        cfg.ext_cap))
+    # each entry point from CUDA graphs: start; round 1's proposal; round
+    # 1's resolve and the whole round, each with the state put back first
+    # (the restore's own time is taken off)
+    st = kernels.walk_start(c, tr0, k)
+    start_graph_ms = cuda_graph_ms(lambda: kernels.walk_start(c, tr0, k))
+    lanes1 = st.active_lanes()
+    A1 = int(lanes1.numel())
+    saved = [x.clone() for x in (st.pk, st.fl, st.err, st.cur)]
+
+    def restore():
+        for x, y in zip((st.pk, st.fl, st.err, st.cur), saved):
+            x.copy_(y)
+
+    propose_graph_ms = cuda_graph_ms(
+        lambda: kernels.walk_propose(st, lanes1, h))
+    p1, pw = kernels.walk_propose(st, lanes1, h)
+    hits1 = kernels.bloom_probe_words(filt_b, p1, pw)
+
+    def resolve():
+        restore()
+        kernels.walk_resolve(st, lanes1, hits1, W)
+
+    def one_round():
+        restore()
+        a, b = kernels.walk_propose(st, lanes1, h)
+        kernels.walk_resolve(st, lanes1, kernels.bloom_probe_words(
+            filt_b, a, b), W)
+
+    restore_graph_ms = cuda_graph_ms(restore)
+    resolve_graph_ms = cuda_graph_ms(resolve) - restore_graph_ms
+    round_graph_ms = cuda_graph_ms(one_round) - restore_graph_ms
+    restore()
+    del st, saved, p1, pw, hits1
+    nw = (L + 31) // 32 + 1
+    # bounds: walk_start reads the codes and trust and writes the state; a
+    # proposal reads each lane's cursor, packed read and k flags and writes
+    # 3k pairs, ~90 integer operations each (patch, reverse complement,
+    # canonical form, two fmix32 pairs, the probe word); a resolve reads the
+    # 3k answers and k flags and writes the flags, the mark and the cursor
+    start_bytes = wr * (L + n) + wr * (nw * 8 + n + L + 8)
+    start_bound = bound(start_bytes, wr * L * 12)
+
+    def propose_bytes(a):
+        return a * (8 + nw * 8 + k + 3 * k * 8)
+
+    def resolve_bytes(a):
+        return a * (8 + 3 * k + 2 * k + 8 + 1)
+    propose_bound = bound(propose_bytes(A1), A1 * 3 * k * 90)
+    resolve_bound = bound(resolve_bytes(A1), A1 * (3 * k + n))
+    # the whole walk: every round's proposal, word test (9 B a pair and
+    # its filter word) and resolve at that round's lane count
+    walk_bound = bound(start_bytes + sum(
+        propose_bytes(a) + a * 3 * k * 9 + resolve_bytes(a) for a in lanes),
+        wr * L * 12 + sum(a * 3 * k * 94 for a in lanes))
+    log(f"[sharded_kernels] walk_round on {wr} reads with the local word "
+        f"test: {mm_walk} mismatches against walk_errors and the plain walk, "
+        f"{marks} bases marked, {rounds} rounds (lanes by round "
+        f"{lanes[:6]}...{lanes[-3:]}); the walk {walk_ms:.4f} ms (plain "
+        f"{walk_plain_ms:.1f} ms, bound {walk_bound[0]:.4f} ms), from graphs: "
+        f"walk_start {start_graph_ms:.4f} ms, round 1 ({A1} lanes) "
+        f"{round_graph_ms:.4f} ms of which walk_propose "
+        f"{propose_graph_ms:.4f} and walk_resolve {resolve_graph_ms:.4f} "
+        f"(the state's restore, {restore_graph_ms:.4f} ms, taken off)")
+    walk_info = dict(rounds=rounds, lanes_by_round=lanes, walk_ms=walk_ms,
+                     walk_plain_ms=walk_plain_ms, walk_bound_ms=walk_bound[0],
+                     walk_bound_by=walk_bound[1], marks=marks, n=wr,
+                     round1_lanes=A1, round1_graph_ms=round_graph_ms,
+                     restore_graph_ms=restore_graph_ms,
+                     plain_note="plain_ms: the plain walk of the chunk, "
+                                "whole (walk_plain with the local test)")
+    replaces = "kbbq_tpu/ops/pallas_walk.py:242"
+    note = ("_round_kernel where filter B is hash-space sharded "
+            "(kbbq_tpu/parallel/sharded_bloom.py:283)")
+    record("walk_round.start", "walk_start", replaces, mm_walk,
+           cuda_ms(lambda: kernels.walk_start(c, tr0, k)), walk_plain_ms,
+           start_bound, graph_ms=start_graph_ms, replaces_note=note,
+           **walk_info)
+    record("walk_round.propose", "walk_propose", replaces, mm_walk,
+           propose_graph_ms, walk_plain_ms, propose_bound,
+           graph_ms=propose_graph_ms, replaces_note=note, **walk_info)
+    record("walk_round.resolve", "walk_resolve", replaces, mm_walk,
+           resolve_graph_ms, walk_plain_ms, resolve_bound,
+           graph_ms=resolve_graph_ms, replaces_note=note, **walk_info)
+    del codes, filt_b, c, tr0
+    bad = [r["name"] for r in records if r["mismatches"]]
+    if bad or any(mm_split.values()):
+        raise AssertionError(f"sharded kernels disagree: {bad} {mm_split}")
+    log(f"[sharded_kernels] {smi_line()}")
+    return records
+
+
+def sharded_want(windows_by_rank, n: int, passes, resident: bool):
+    """Per rank (the launches fixed by the data's shape, the owner's word
+    tests at most, the owner's inserts at most) of a hash-space-sharded run
+    whose rank r takes the windows of windows_by_rank[r] rows (the resident
+    path: one window, the rank's rows) through `passes`, at n windows a
+    read.  Every step exchanges in as many chunks as its busiest rank
+    needs; an owner launches its test or build in a chunk only when it
+    received pairs."""
+    from kbbq_tpu_torch.parallel.sharded_bloom import EXCHANGE_CHUNK
+    steps = max(len(w) for w in windows_by_rank)
+    chunks = [max(-(-w[i] * n // EXCHANGE_CHUNK) if i < len(w) else 0
+                  for w in windows_by_rank) for i in range(steps)]
+    tests = ((2 in passes) + (3 in passes)) * sum(chunks)
+    inserts = ((1 in passes) + (2 in passes)) * sum(chunks)
+    out = []
+    for wins in windows_by_rank:
+        busy = sum(1 for w in wins if w)
+        out.append(({"hash_keep": busy if 1 in passes else 0,
+                     "hash_only": 0 if resident else
+                     ((2 in passes) + (3 in passes)) * busy,
+                     "trust_rule": busy if 2 in passes else 0,
+                     "walk_start": sum(-(-w // DEVICES_CHUNK) for w in wins)
+                     if 3 in passes else 0,
+                     "bloom_probe_trust": 0, "bloom_probe_hashed": 0,
+                     "hash_build": 0, "walk_errors": 0}, tests, inserts))
+    return out
+
+
+def check_sharded_launches(route: str, by_rank: list, want: list) -> None:
+    """A sharded run's launches, rank by rank: the shape-fixed entry points
+    exactly; a resolve for every proposal; the owner's word tests (one per
+    chunk of the passes' tests that brought it pairs, and one per walk
+    round that did: a round has a proposal on some rank) and builds within
+    their counts, exactly so on one rank, where every chunk and round
+    brings pairs; a walk round somewhere."""
+    rounds = sum(g["walk_propose"] for g in by_rank)
+    for r, (got, (fixed, tests, inserts)) in enumerate(zip(by_rank, want)):
+        bad = {e: (got[e], v) for e, v in fixed.items() if got[e] != v}
+        if got["walk_propose"] != got["walk_resolve"]:
+            bad["walk_resolve"] = (got["walk_resolve"], got["walk_propose"])
+        probes, builds = got["bloom_probe_words"], got["bloom_or_words"]
+        if len(by_rank) == 1:
+            if probes != tests + rounds or builds != inserts:
+                bad["owner"] = (probes, builds, tests, inserts)
+        elif probes > tests + rounds or builds > inserts or (
+                inserts and not builds):
+            bad["owner"] = (probes, builds, tests, inserts)
+        if bad:
+            raise AssertionError(f"{route}, rank {r}: launches {got}; "
+                                 f"(got, expected): {bad}")
+    if not any(g["walk_propose"] for g in by_rank):
+        raise AssertionError(f"{route}: no walk round was launched")
+
+
+def phase_sharded(tmp, cfg, reads, world=None):
+    """The hash-space-sharded layout (``kbbq_tpu_torch.parallel.
+    sharded_bloom``) at D = torch.cuda.device_count() ranks, one NCCL rank
+    per card, on config 2's reads: run_pipeline's multi-device route with
+    bloom_layout="sharded" (the resident path on each rank's rows, called
+    as ``phase_devices`` calls it), then the streamed route on the ranks
+    with a checkpoint, then resumed after pass 2 from the gathered filters.
+    Each writes the main path's bytes; the launches by entry point and rank
+    are held to the run's shape (``check_sharded_launches``); each rank held
+    1/D of each filter.  `world` runs D ranks other than the card count.
+    Returns the resident run's launches by rank and summed, and the
+    streamed run's summed."""
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.parallel.mesh import row_range
+    from kbbq_tpu_torch.parallel.sharded import (recalibrate_fastq_sharded,
+                                                 run_arrays_sharded)
+    from kbbq_tpu_torch.parallel.sharded_bloom import sharded_params
+    from kbbq_tpu_torch.pipeline.recalibrate import (_load_fastq_arrays,
+                                                     _write_fastq_outputs)
+
+    D = world or torch.cuda.device_count()
+    src, want = os.path.join(tmp, "reads.fq"), os.path.join(tmp, "out1.fq")
+    fqs, mask_l, arrays = _load_fastq_arrays([src], False)
+    n = arrays.max_len - cfg.k + 1
+    lens = arrays.mask.sum(axis=1)
+    alpha, coverage = cfg.resolve_alpha(int(lens.sum()))
+    pa, pb = sharded_params(cfg, int(np.maximum(lens - cfg.k + 1, 0).sum()),
+                            alpha, coverage, D)
+    runs = []
+    out = os.path.join(tmp, "sharded.fq")
+    t: dict = {}
+    kernels.reset_launches()
+    t0 = time.time()
+    nq = run_arrays_sharded(arrays, cfg, D, DEVICE, t, None, "sharded")
+    wall = time.time() - t0
+    by_entry = dict(kernels.ENTRY_LAUNCHES)
+    _write_fastq_outputs(fqs, mask_l, nq, out)
+    del fqs, mask_l, arrays, nq
+    if "h2d" not in t:
+        raise AssertionError("the sharded layout took the windowed engine, "
+                             "not the resident path")
+    shares = [e - s for s, e in (row_range(reads, D, r) for r in range(D))]
+    check_sharded_launches(f"sharded resident path on {D} ranks",
+                           t["launches_by_rank"],
+                           sharded_want([[w] for w in shares], n, (1, 2, 3),
+                                        True))
+    if (t["shard_words_a"], t["shard_words_b"]) != (
+            pa.m // 32 // D, pb.m // 32 // D):
+        raise AssertionError(f"a rank held {t['shard_words_a']} and "
+                             f"{t['shard_words_b']} words of the filters")
+    if not same_file(out, want):
+        raise AssertionError(f"the sharded layout on {D} ranks wrote other "
+                             f"bytes than the main path")
+    os.remove(out)
+    runs.append(devices_line(f"sharded, resident, {reads} reads", t, wall,
+                             by_entry))
+
+    sizes = [min(STREAM_WINDOW, reads - s)
+             for s in range(0, reads, STREAM_WINDOW)]
+    W = len(sizes)
+    by_rank_windows = [sizes[r::D] for r in range(D)]
+    ck = os.path.join(tmp, "sharded_ck")
+    for name, passes in (("streamed with a checkpoint", (1, 2, 3)),
+                         ("resumed after pass 2", (3,))):
+        if passes == (3,):
+            path = os.path.join(ck, "meta.json")
+            with open(path) as f:
+                meta = json.load(f)
+            if meta["passes_done"] != ["rows_a", "rows_b", "covariates"]:
+                raise AssertionError(f"checkpoint of the ranks: {meta}")
+            words = [np.load(os.path.join(ck, f"{f}.npy"), mmap_mode="r")
+                     .shape[0] for f in ("rows_a", "rows_b")]
+            if words != [pa.m // 32, pb.m // 32]:
+                raise AssertionError(f"saved filters of {words} words")
+            meta["passes_done"] = ["rows_a", "rows_b"]
+            meta.pop("pass4", None)
+            with open(path, "w") as f:
+                json.dump(meta, f)
+            os.remove(out)
+        t = {}
+        kernels.reset_launches()
+        t0 = time.time()
+        info = recalibrate_fastq_sharded(src, out, cfg, D, checkpoint_dir=ck,
+                                         timings=t, device=DEVICE,
+                                         bloom_layout="sharded")
+        wall = time.time() - t0
+        by_entry = dict(kernels.ENTRY_LAUNCHES)
+        check_sharded_launches(f"sharded, {name}, on {D} ranks",
+                               t["launches_by_rank"],
+                               sharded_want(by_rank_windows, n, passes,
+                                            False))
+        if info["chunks"] != W or not same_file(out, want):
+            raise AssertionError(f"sharded, {name}, on {D} ranks wrote "
+                                 f"other bytes than the main path")
+        runs.append(devices_line(f"sharded, {name}, {W} windows", t, wall,
+                                 by_entry))
+    os.remove(out)
+    shutil.rmtree(ck, ignore_errors=True)
+    log(f"[sharded] filters A 2^{pa.log2_m} and B 2^{pb.log2_m} bits, "
+        f"{pa.m // 32 // D} and {pb.m // 32 // D} words a rank; "
+        f"{smi_line()}")
+    result = {"devices": D, "runs": runs, "card": smi_line()}
+    if D == 1:
+        log("[sharded] this machine has 1 CUDA device: the layout ran at one "
+            "NCCL rank (every exchange at world size 1, each owner's shard "
+            "the whole filter); the exchange between cards is unchecked "
+            "here; scripts/torch_devices_check.py runs it on a host with "
+            "several cards")
+    log("[sharded] " + json.dumps(result))
+    return (runs[0]["launches_by_rank"], runs[0]["launches_by_entry"],
+            runs[1]["launches_by_entry"])
+
+
 def check_launches(route: str, by_entry: dict, want: dict) -> None:
+    """The launches by entry point of a route are `want`, every entry point
+    `want` does not name at 0."""
+    want = {**NO_LAUNCHES, **want}
     if by_entry != want:
         raise AssertionError(f"{route} launched {by_entry}, expected {want}")
 
@@ -1848,8 +2322,10 @@ atexit.register(report)
 runpy.run_module("kbbq_tpu_torch", run_name="__main__", alter_sys=True)
 """
 NO_LAUNCHES = {"bloom_probe_hashed": 0, "bloom_probe_words": 0,
-               "bloom_probe_trust": 0, "bloom_or_words": 0, "hash_build": 0,
-               "hash_only": 0, "walk_errors": 0}
+               "bloom_probe_trust": 0, "trust_rule": 0, "bloom_or_words": 0,
+               "hash_build": 0, "hash_keep": 0, "hash_only": 0,
+               "walk_errors": 0, "walk_start": 0, "walk_propose": 0,
+               "walk_resolve": 0}
 
 
 def run_cli(tmp, argv, reads=None, expect_ok=True, name="cli"):
@@ -2362,6 +2838,8 @@ def main(argv=None) -> int:
 
     records, expected = phase_kernels(arrays, cfg)
     torch.cuda.empty_cache()
+    records += phase_sharded_kernels(arrays, cfg)
+    torch.cuda.empty_cache()
     fastq_bytes = arrays_to_fastq_bytes(arrays)
 
     tmp = tempfile.mkdtemp(prefix="kbbq_smoke_")
@@ -2377,6 +2855,8 @@ def main(argv=None) -> int:
         streamed = phase_streaming(tmp, src, out1, cfg, args.reads)
         phase_checkpoint(tmp)
         dev_by_rank, dev_launches = phase_devices(tmp, cfg, args.reads)
+        sh_by_rank, sh_launches, sh_streamed = phase_sharded(tmp, cfg,
+                                                             args.reads)
         starts = read_starts(genome_len, read_len, args.reads, args.seed)
         bam, bam_streamed, bam_quals = phase_bam(tmp, arrays, starts, cfg)
         phase_resident_need(arrays, cfg)
@@ -2406,6 +2886,9 @@ def main(argv=None) -> int:
         r["launches_cli"] = cli[r["entry"]]
         r["launches_devices"] = dev_launches[r["entry"]]
         r["launches_devices_by_rank"] = [c[r["entry"]] for c in dev_by_rank]
+        r["launches_sharded"] = sh_launches[r["entry"]]
+        r["launches_sharded_by_rank"] = [c[r["entry"]] for c in sh_by_rank]
+        r["launches_sharded_streamed"] = sh_streamed[r["entry"]]
         if scale is not None:
             r["launches_scale"] = \
                 scale["resident_launches_by_entry"][r["entry"]]
@@ -2423,8 +2906,8 @@ def main(argv=None) -> int:
                 r["scale_bound_ms"] = scale[f"{kind}_bound_ms"]
                 if kind == "probe":
                     r["scale_library_ms"] = scale["probe_library_ms"]
-        r["launches"] = (streamed if r.get("path") == "streamed"
-                         else launches)[r["entry"]]
+        r["launches"] = {"streamed": streamed, "sharded": sh_launches}.get(
+            r.get("path"), launches)[r["entry"]]
     log(f"[done] {time.time() - t_start:.0f} s in all")
     print(json.dumps({"kernels": records}), flush=True)
     print(smi_line(), flush=True)

@@ -4,10 +4,10 @@ Counterpart of ``kbbq_tpu/cli/main.py``: the same subcommands
 (``recalibrate``, ``applybqsr``, ``benchmark``, ``plot``), flags, defaults,
 routing rules, messages and exit codes, onto the port's entry points.
 ``--devices N`` runs N ranks, one process per card over NCCL (``0``: every
-card), with the replicated filters (``--bloom-layout auto`` or
-``replicated``).  What the port does not have yet is refused with a
-``SystemExit`` that names its ROADMAP item: the hash-space-sharded filters
-(``--bloom-layout sharded``: B10) and ``--multihost`` (A16).
+card), with replicated or hash-space-sharded filters (``--bloom-layout``;
+``auto`` picks by the filters' size).  What the port does not have yet is
+refused with a ``SystemExit`` that names its ROADMAP item: ``--multihost``
+(A16).
 
 Every route runs on the CUDA device; without one it fails with
 ``resolve_device``'s error.  There is no flag for the CPU: the tests call
@@ -58,7 +58,7 @@ def _add_recal_args(p: argparse.ArgumentParser) -> None:
                    choices=("auto", "replicated", "sharded"),
                    help="multi-device Bloom placement: per-device replicas "
                         "or hash-space sharded (auto = by filter size; "
-                        "sharded is not ported yet, ROADMAP B10)")
+                        "sharded needs a power-of-two --devices)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save/resume pass-boundary checkpoints here")
     p.add_argument("--ext-cap", type=int, default=DEFAULT_EXT_CAP,
@@ -96,16 +96,11 @@ def _add_recal_args(p: argparse.ArgumentParser) -> None:
 
 
 def _refuse_unported(args) -> int | None:
-    """Refuse what the port does not have yet (several hosts, the
-    hash-space-sharded filters); returns the device count (``--devices 0``
-    = every card)."""
+    """Refuse what the port does not have yet (several hosts); returns the
+    device count (``--devices 0`` = every card)."""
     if args.multihost:
         raise SystemExit("--multihost is not ported yet (ROADMAP A16): run "
                          "one process on one host")
-    if args.bloom_layout == "sharded":
-        raise SystemExit("--bloom-layout sharded (hash-space-sharded "
-                         "filters) is not ported yet (ROADMAP B10); use "
-                         "auto or replicated")
     devices = args.devices
     if devices == 0:  # 0 = all available
         import torch

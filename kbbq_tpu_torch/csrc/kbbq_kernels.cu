@@ -216,6 +216,10 @@ __device__ __forceinline__ void tile_copy(uint8_t* dst, const uint8_t* src,
 //     same body (the TPU version left them to XLA).  The Pallas kernel's
 //     [rows, 128] row gather and lane select exist only because Mosaic
 //     lowers 2-D gathers alone: here the word is simply loaded.
+//   - Its rule-only mode (kbbq_trust_rule, pass 2 of the hash-space-sharded
+//     layout) takes the hits plane of the collective word test in place of
+//     the filter: the tile stages a byte per window instead of h1, a hit
+//     stands in for the filter word, and the rule below runs unchanged.
 //   - bloom_probe_trust (pass 2) keeps the answers on the SM.  A block stages
 //     a tile of reads' h1 and word rows in shared memory with wide streamed
 //     loads; a warp takes a read, thread t the windows t, t+32, ..: it starts
@@ -354,11 +358,17 @@ __host__ __device__ inline int trust_tile_bytes(int n, int k, int rows,
                  4);
 }
 
+// kRule: the rule-only mode.  `hits` [num_reads, n] (bytes 0/1) holds every
+// window's answer from a word test made elsewhere (the collective test of
+// the hash-space-sharded layout) and stands in for the probe; there is no
+// filter and no h1 plane.
+template <bool kRule>
 __global__ void bloom_probe_trust_kernel(
     const uint32_t* __restrict__ packed, uint32_t block_mask,
-    const uint32_t* __restrict__ h1, const uint32_t* __restrict__ word,
-    const int32_t* __restrict__ thresholds, uint8_t* __restrict__ out,
-    int64_t num_reads, int n, int k, int trust_threshold, int tile_rows) {
+    const uint32_t* __restrict__ h1, const uint8_t* __restrict__ hits,
+    const uint32_t* __restrict__ word, const int32_t* __restrict__ thresholds,
+    uint8_t* __restrict__ out, int64_t num_reads, int n, int k,
+    int trust_threshold, int tile_rows) {
   extern __shared__ uint4 smem4[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
   const int L = n + k - 1;
@@ -367,7 +377,9 @@ __global__ void bloom_probe_trust_kernel(
   const int64_t rest = num_reads - r0;
   const int R = rest < tile_rows ? (int)rest : tile_rows;
 
-  const uint8_t* gh1 = reinterpret_cast<const uint8_t*>(h1 + r0 * n);
+  // the h1 rows, or in rule-only mode the hits rows, a byte per window
+  const uint8_t* gh1 = kRule ? hits + r0 * n
+                             : reinterpret_cast<const uint8_t*>(h1 + r0 * n);
   const uint8_t* gword = reinterpret_cast<const uint8_t*>(word + r0 * n);
   uint8_t* gout = out + r0 * n;
   const int plane = round16(tile_rows * n * 4 + 16);
@@ -383,7 +395,7 @@ __global__ void bloom_probe_trust_kernel(
   uint32_t* valid = hit + nw;
   uint32_t* cov = valid + nw;
 
-  tile_copy<1>(sh1, gh1, R * n * 4, tid, nthreads);
+  tile_copy<1>(sh1, gh1, R * n * (kRule ? 1 : 4), tid, nthreads);
   tile_copy<1>(sword, gword, R * n * 4, tid, nthreads);
   for (int i = tid; i <= k; i += nthreads) st[i] = thresholds[i];
   __syncthreads();
@@ -394,6 +406,7 @@ __global__ void bloom_probe_trust_kernel(
   if (lane == 0) hit[nc] = valid[nc] = cov[lc] = 0u;  // the words never set
   for (int r = tid >> 5; r < R; r += nthreads >> 5) {
     const uint32_t* rh = reinterpret_cast<const uint32_t*>(sh1) + r * n;
+    const uint8_t* rhit = sh1 + r * n;
     const uint32_t* rw = reinterpret_cast<const uint32_t*>(sword) + r * n;
     // 1. the probes: hit and valid, a bit per window
     for (int c0 = 0; c0 < nc; c0 += kTrustUnroll) {
@@ -404,7 +417,9 @@ __global__ void bloom_probe_trust_kernel(
         w[u] = got[u] = 0u;
         if (j < n) {
           w[u] = rw[j];
-          got[u] = filter_word(packed + (rh[j] & block_mask), policy);
+          // rule-only: a hit passes the word test as the filter word itself
+          got[u] = kRule ? (rhit[j] ? w[u] : 0u)
+                         : filter_word(packed + (rh[j] & block_mask), policy);
         }
       }
 #pragma unroll
@@ -480,6 +495,13 @@ __global__ void bloom_probe_trust_kernel(
 //   planes are collected in shared memory and stored by the whole block, so
 //   the stores of the flat [N * n] arrays coalesce; kHashSeg is odd, which
 //   keeps the threads' shared-memory words on distinct banks.
+//   Keep mode of the fused entry point (kbbq_hash_keep: pass 1 of the
+//   hash-space-sharded layout, where no rank holds filter A whole and the
+//   kept windows travel to their owners before any insert; it replaces the
+//   hash and sampling inside kbbq_tpu/parallel/sharded_bloom.py::step_sample):
+//   the same tile, rolls and sampling hash, writing h1, word and keep, and no
+//   atomic.  A one-word stand-in filter would have served too, at the cost of
+//   every kept window's atomic landing on that one word.
 //   Hash-only mode of the fused entry point (kbbq_hash_only: passes 2 and 3
 //   of the windowed engine, where no window's hash cache outlives its pass;
 //   it replaces the hash pass inside kbbq_tpu/pipeline/stream_resident.py::
@@ -503,12 +525,18 @@ __global__ void bloom_or_words_kernel(uint32_t* __restrict__ packed,
     if (keep[i]) or_word<true>(packed, block_mask, h1[i], word[i]);
 }
 
+// The three modes of the fused entry point: the hash cache and the sampled
+// inserts (pass 1), the hash cache and the keep plane with no filter (pass 1
+// of the hash-space-sharded layout, whose inserts travel to the filter's
+// owners first), and (h1, word) alone (passes 2 and 3 of the windowed engine).
+constexpr int kModeHashOnly = 0, kModeKeep = 1, kModeBuild = 2;
+
 // (h1, word, keep) of windows [j0, j1) of one read, and their inserts; in
-// hash-only mode (kInsert false: passes 2 and 3 of the windowed engine) the
-// pair (h1, word) alone, with no sampling, keep plane or filter.
+// keep mode no insert; in hash-only mode the pair (h1, word) alone, with no
+// sampling, keep plane or filter.
 // c: the read's codes [L]; oh1, oword, okeep: the read's rows of the output
 // planes [n]; rid: the 32-bit pattern of the read's global ordinal.
-template <bool kInsert>
+template <int kMode>
 __device__ __forceinline__ void hash_segment(
     const int8_t* c, int j0, int j1, int k, int num_hashes, uint32_t rid,
     uint32_t threshold, uint32_t* oh1, uint32_t* oword, uint8_t* okeep,
@@ -534,11 +562,11 @@ __device__ __forceinline__ void hash_segment(
     if (!valid) w = 0u;
     oh1[j] = h1;
     oword[j] = w;
-    if (kInsert) {
+    if (kMode != kModeHashOnly) {
       const bool kp =
           valid && fmix32(sr ^ ((uint32_t)j * kGolden)) <= threshold;
       okeep[j] = kp ? 1 : 0;
-      if (kp) or_word<false>(packed, block_mask, h1, w);
+      if (kMode == kModeBuild && kp) or_word<false>(packed, block_mask, h1, w);
     }
   }
 }
@@ -549,7 +577,7 @@ __host__ __device__ inline int hash_tile_bytes(int L, int n, int rows) {
          round16(rows * n + 16);
 }
 
-template <bool kInsert>
+template <int kMode>
 __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
                                   uint32_t* __restrict__ packed,
                                   uint32_t block_mask,
@@ -568,7 +596,7 @@ __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
   const int R = left < tile_rows ? (int)left : tile_rows;
 
   const uint8_t* gcodes = reinterpret_cast<const uint8_t*>(codes) + r0 * L;
-  uint8_t* gkeep = kInsert ? keep + r0 * n : nullptr;
+  uint8_t* gkeep = kMode != kModeHashOnly ? keep + r0 * n : nullptr;
   const int plane = round16(tile_rows * n * 4);
   uint8_t* sc = smem + ((uintptr_t)gcodes & 15u);
   uint32_t* sh1 =
@@ -585,7 +613,7 @@ __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
     const int r = item / nseg;
     const int j0 = (item - r * nseg) * kHashSeg;
     const int j1 = j0 + kHashSeg < n ? j0 + kHashSeg : n;
-    hash_segment<kInsert>(reinterpret_cast<const int8_t*>(sc) + r * L, j0,
+    hash_segment<kMode>(reinterpret_cast<const int8_t*>(sc) + r * L, j0,
                           j1, k, num_hashes,
                           (uint32_t)(uint64_t)(first_id + r0 + r), threshold,
                           sh1 + r * n, sword + r * n, skeep + r * n, packed,
@@ -599,7 +627,7 @@ __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
     gh1[i] = sh1[i];
     gword[i] = sword[i];
   }
-  if (kInsert) tile_copy(gkeep, skeep, R * n, tid, nthreads);
+  if (kMode != kModeHashOnly) tile_copy(gkeep, skeep, R * n, tid, nthreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -951,6 +979,184 @@ __global__ void walk_errors_kernel(const int8_t* __restrict__ codes,
   tile_copy(gerr, se, R * L, tid, nthreads);
 }
 
+// ---------------------------------------------------------------------------
+// K4  walk_round
+//
+// Replaces: kbbq_tpu/ops/pallas_walk.py::_round_kernel where its filter is
+//   hash-space sharded (kbbq_tpu/parallel/sharded_bloom.py::step_covariates
+//   plugs the collective query _gather_query into
+//   kbbq_tpu/ops/inference.py::infer_errors_core): the correction walk
+//   against a filter B that no rank holds whole.  What it computes is
+//   kbbq_tpu/oracle/lighter.py::infer_read_errors, as walk_errors does.
+// Bound by: the exchange, not the card.  Every candidate query has to leave
+//   the rank, so one round of the walk is three launches around one
+//   collective word test, and the round count is the largest number of
+//   breaks any lane of any rank meets.
+// Design: walk_errors keeps a lane in a warp from its first break to the
+//   read's end, reading the filter directly; here the walk is cut into
+//   ROUNDS, each settling one break per active (read, direction) lane, with
+//   the lane's state in device memory between rounds:
+//     pk   [N, packed_words(L)]  packed working copy of each read (2 bits a
+//                                base, first base in the highest bits)
+//     fl   [N, n]   effective trust of each window: 1 trusted, 2 break
+//                   (valid, not trusted), 0 a window with an N
+//     err  [N, L]   error marks
+//     cur  [N, 2]   each lane's break, counted on the walk's own strand
+//                   (right: j; left: n-1-j), -1 when the lane is done
+//   walk_start (a thread a read) copies the codes and the initial trust in and
+//   runs walk_scan_read (the same anchor, flags and first breaks as
+//   walk_errors).  A round is then:
+//   1. walk_propose, a thread per (active lane, window offset t < k): the
+//      3 candidate codes of the base entering the lane's break window, in
+//      ascending order of the ORIGINAL code, patched into window j+t of the
+//      working copy, hashed to the cached (h1, word) pair; word 0 where the
+//      window lies past the read's end or holds an N (never a hit).  All k
+//      windows of all 3 candidates at once: the extension needs the first W
+//      (W = k at the repo's k = 32), and the commit needs the chosen one's k
+//      windows, so one exchange a round serves both, where the plain walk
+//      queried twice for W < k.  Membership answers are deterministic, so a
+//      superset of queries changes no bit.
+//   2. the caller's word test of those pairs (the collective test of the
+//      sharded filter, or a local one).
+//   3. walk_resolve, a thread per active lane: each candidate's extension is
+//      its leading hits among the first min(W, n-j) windows; the largest
+//      wins, ties to the smallest code (the oracle's strict '>'); the base is
+//      marked; a winner is committed with an atomic XOR of its two bits (the
+//      other direction of the read may commit into the same 64-bit word in
+//      the same launch, k+1 bases away) and its k windows' effective trust
+//      is set from its answers; the cursor moves past the extension (one
+//      window for a break with no candidate) to the next break.
+//   The right and left walks touch disjoint windows and bases (see K2), so
+//   one round serves both directions of a read.  The caller loops while an
+//   all-reduce over the ranks says some lane is active: a rank with no
+//   active lane still takes part in every round's exchange.
+// ---------------------------------------------------------------------------
+
+__global__ void walk_start_kernel(const int8_t* __restrict__ codes,
+                                  const uint8_t* __restrict__ trusted0,
+                                  uint64_t* __restrict__ pk,
+                                  uint8_t* __restrict__ fl,
+                                  uint8_t* __restrict__ err,
+                                  int32_t* __restrict__ cur, int64_t num_reads,
+                                  int L, int k) {
+  const int n = L - k + 1, nw = packed_words(L);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       r < num_reads; r += stride) {
+    uint8_t* e = err + r * L;
+    uint8_t* f = fl + r * n;
+    for (int i = 0; i < L; ++i) e[i] = (uint8_t)codes[r * L + i];
+    for (int j = 0; j < n; ++j) f[j] = trusted0[r * n + j];
+    int right, left;
+    walk_scan_read(reinterpret_cast<int8_t*>(e), pk + r * nw, f, L, n, k,
+                   right, left);
+    cur[2 * r] = right;
+    cur[2 * r + 1] = left;
+  }
+}
+
+// one active lane of a round: its read, direction and break window
+struct RoundLane {
+  int64_t r;
+  int dir, j, jo, po;
+  __device__ __forceinline__ RoundLane(const int32_t* lanes,
+                                       const int32_t* cur, int64_t a, int n,
+                                       int k) {
+    const int id = lanes[a];
+    r = id >> 1;
+    dir = id & 1;
+    j = cur[id];
+    jo = ow(j, n);
+    po = dir == 0 ? jo + k - 1 : jo;  // the base entering the break window
+  }
+  __device__ __forceinline__ int ow(int x, int n) const {
+    return dir == 0 ? x : n - 1 - x;
+  }
+};
+
+__global__ void walk_propose_kernel(const uint64_t* __restrict__ pk,
+                                    const uint8_t* __restrict__ fl,
+                                    const int32_t* __restrict__ cur,
+                                    const int32_t* __restrict__ lanes,
+                                    int64_t num_lanes,
+                                    uint32_t* __restrict__ out_h1,
+                                    uint32_t* __restrict__ out_word, int L,
+                                    int k, int num_hashes) {
+  const int n = L - k + 1, nw = packed_words(L);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < num_lanes * k; i += stride) {
+    const int64_t a = i / k;
+    const int t = (int)(i - a * k);
+    const RoundLane ln(lanes, cur, a, n, k);
+    WalkCtx cx;
+    cx.pk = const_cast<uint64_t*>(pk + ln.r * nw);
+    cx.k = k;
+    cx.num_hashes = num_hashes;
+    cx.block_mask = 0xFFFFFFFFu;  // the whole h1: the caller routes by it
+    const int x = ln.j + t;
+    const int xo = ln.ow(x, n);
+    const bool live = x < n && fl[ln.r * n + xo] != 0;
+    const int orig = cx.base(ln.po);
+    const uint64_t f = live ? window_kmer(cx.pk, xo, k) : 0ull;
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      uint32_t h1 = 0u, word = 0u;
+      if (live) cx.hash(cx.patch(f, ln.po - xo, u + (u >= orig ? 1 : 0)), h1,
+                        word);
+      const int64_t o = (a * 3 + u) * k + t;
+      out_h1[o] = h1;
+      out_word[o] = word;
+    }
+  }
+}
+
+__global__ void walk_resolve_kernel(uint64_t* __restrict__ pk,
+                                    uint8_t* __restrict__ fl,
+                                    uint8_t* __restrict__ err,
+                                    int32_t* __restrict__ cur,
+                                    const int32_t* __restrict__ lanes,
+                                    int64_t num_lanes,
+                                    const uint8_t* __restrict__ hits, int L,
+                                    int k, int W) {
+  const int n = L - k + 1, nw = packed_words(L);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t a = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       a < num_lanes; a += stride) {
+    const RoundLane ln(lanes, cur, a, n, k);
+    uint64_t* p = pk + ln.r * nw;
+    uint8_t* f = fl + ln.r * n;
+    const int sh = 2 * (31 - (ln.po & 31));
+    // the other direction flips only its own bits of this word
+    const int orig = (int)((p[ln.po >> 5] >> sh) & 3ull);
+    const int lim = W < n - ln.j ? W : n - ln.j;
+    int best_u = -1, best_c = -1, best_ext = 0;
+    for (int u = 0; u < 3; ++u) {  // ascending ORIGINAL code
+      const uint8_t* hu = hits + (a * 3 + u) * k;
+      int ext = 0;
+      while (ext < lim && hu[ext]) ++ext;
+      if (ext > best_ext) {  // strict: ties keep the first
+        best_ext = ext;
+        best_u = u;
+        best_c = u + (u >= orig ? 1 : 0);
+      }
+    }
+    err[ln.r * L + ln.po] = 1;
+    if (best_ext >= 1) {
+      atomicXor(reinterpret_cast<unsigned long long*>(p + (ln.po >> 5)),
+                (unsigned long long)(orig ^ best_c) << sh);
+      const uint8_t* hb = hits + (a * 3 + best_u) * k;
+      for (int t = 0; t < k && ln.j + t < n; ++t) {
+        const int xo = ln.ow(ln.j + t, n);
+        if (f[xo] != 0) f[xo] = hb[t] ? kFlagTrusted : kFlagBreak;
+      }
+    }
+    int x = ln.j + (best_ext >= 1 ? best_ext : 1);
+    while (x < n && f[ln.ow(x, n)] != kFlagBreak) ++x;
+    cur[2 * ln.r + ln.dir] = x < n ? x : -1;
+  }
+}
+
 __global__ void empty_kernel() {}
 
 // blocks of a probe launch: a thread takes 4 windows a step
@@ -1014,10 +1220,10 @@ int kbbq_hash_build(const void* codes, void* packed, uint32_t block_mask,
   if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
   if (tile_rows < 1) return (int)cudaErrorInvalidValue;
   const int smem = hash_tile_bytes(L, n, tile_rows);
-  const int rc = set_smem((const void*)hash_build_kernel<true>, smem);
+  const int rc = set_smem((const void*)hash_build_kernel<kModeBuild>, smem);
   if (rc != 0) return rc;
   const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
-  hash_build_kernel<true><<<(unsigned)blocks, kThreads, smem,
+  hash_build_kernel<kModeBuild><<<(unsigned)blocks, kThreads, smem,
                             (cudaStream_t)stream>>>(
       (const int8_t*)codes, (uint32_t*)packed, block_mask, (uint32_t*)h1,
       (uint32_t*)word, (uint8_t*)keep, num_reads, first_id, L, k, num_hashes,
@@ -1035,13 +1241,35 @@ int kbbq_hash_only(const void* codes, void* h1, void* word,
   if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
   if (tile_rows < 1) return (int)cudaErrorInvalidValue;
   const int smem = hash_tile_bytes(L, n, tile_rows);
-  const int rc = set_smem((const void*)hash_build_kernel<false>, smem);
+  const int rc = set_smem((const void*)hash_build_kernel<kModeHashOnly>, smem);
   if (rc != 0) return rc;
   const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
-  hash_build_kernel<false><<<(unsigned)blocks, kThreads, smem,
+  hash_build_kernel<kModeHashOnly><<<(unsigned)blocks, kThreads, smem,
                              (cudaStream_t)stream>>>(
       (const int8_t*)codes, nullptr, 0u, (uint32_t*)h1, (uint32_t*)word,
       nullptr, num_reads, 0, L, k, num_hashes, 0u, tile_rows);
+  return (int)cudaGetLastError();
+}
+
+// The keep mode of the fused entry point (pass 1 of the hash-space-sharded
+// layout): h1, word int32 and keep bool [num_reads, L-k+1] written in full,
+// as kbbq_hash_build writes them, and no filter touched.
+int kbbq_hash_keep(const void* codes, void* h1, void* word, void* keep,
+                   int64_t num_reads, int64_t first_id, int L, int k,
+                   int num_hashes, uint32_t threshold, int tile_rows,
+                   void* stream) {
+  const int n = L - k + 1;
+  if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (tile_rows < 1) return (int)cudaErrorInvalidValue;
+  const int smem = hash_tile_bytes(L, n, tile_rows);
+  const int rc = set_smem((const void*)hash_build_kernel<kModeKeep>, smem);
+  if (rc != 0) return rc;
+  const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
+  hash_build_kernel<kModeKeep><<<(unsigned)blocks, kThreads, smem,
+                                 (cudaStream_t)stream>>>(
+      (const int8_t*)codes, nullptr, 0u, (uint32_t*)h1, (uint32_t*)word,
+      (uint8_t*)keep, num_reads, first_id, L, k, num_hashes, threshold,
+      tile_rows);
   return (int)cudaGetLastError();
 }
 
@@ -1059,14 +1287,37 @@ int kbbq_bloom_probe_trust(const void* packed, uint32_t block_mask,
       threads % 32)
     return (int)cudaErrorInvalidValue;
   const int smem = trust_tile_bytes(n, k, tile_rows, threads);
-  const int rc = set_smem((const void*)bloom_probe_trust_kernel, smem);
+  const int rc = set_smem((const void*)bloom_probe_trust_kernel<false>, smem);
   if (rc != 0) return rc;
   const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
-  bloom_probe_trust_kernel<<<(unsigned)blocks, threads, smem,
-                             (cudaStream_t)stream>>>(
-      (const uint32_t*)packed, block_mask, (const uint32_t*)h1,
+  bloom_probe_trust_kernel<false><<<(unsigned)blocks, threads, smem,
+                                    (cudaStream_t)stream>>>(
+      (const uint32_t*)packed, block_mask, (const uint32_t*)h1, nullptr,
       (const uint32_t*)word, (const int32_t*)thresholds, (uint8_t*)out,
       num_reads, n, k, trust_threshold, tile_rows);
+  return (int)cudaGetLastError();
+}
+
+// The rule-only mode: hits bool [num_reads, n], the answers of a word test
+// made elsewhere, in place of the filter; word int32 [num_reads, n] (0 marks
+// an invalid window); the rest as kbbq_bloom_probe_trust.
+int kbbq_trust_rule(const void* hits, const void* word,
+                    const void* thresholds, void* out, int64_t num_reads,
+                    int n, int k, int trust_threshold, int tile_rows,
+                    int threads, void* stream) {
+  if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (k < 1 || k > 32 || tile_rows < 1 || threads < 32 || threads > 1024 ||
+      threads % 32)
+    return (int)cudaErrorInvalidValue;
+  const int smem = trust_tile_bytes(n, k, tile_rows, threads);
+  const int rc = set_smem((const void*)bloom_probe_trust_kernel<true>, smem);
+  if (rc != 0) return rc;
+  const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
+  bloom_probe_trust_kernel<true><<<(unsigned)blocks, threads, smem,
+                                   (cudaStream_t)stream>>>(
+      nullptr, 0u, nullptr, (const uint8_t*)hits, (const uint32_t*)word,
+      (const int32_t*)thresholds, (uint8_t*)out, num_reads, n, k,
+      trust_threshold, tile_rows);
   return (int)cudaGetLastError();
 }
 
@@ -1089,6 +1340,47 @@ int kbbq_walk_errors(const void* codes, const void* trusted0,
                        (cudaStream_t)stream>>>(
       (const int8_t*)codes, (const uint8_t*)trusted0, (const uint32_t*)packed,
       block_mask, (uint8_t*)err, num_reads, L, k, W, num_hashes, tile_rows);
+  return (int)cudaGetLastError();
+}
+
+// The walk_round entry points.  State (see K4): pk int64 [num_reads,
+// packed_words(L)], fl and err bool-sized [num_reads, L-k+1] and
+// [num_reads, L], cur int32 [num_reads, 2]; walk_start writes all of it
+// from codes int8 [num_reads, L] and trusted0 bool [num_reads, L-k+1].
+// lanes int32 [num_lanes]: the active lanes (2 * read + direction, cur >= 0).
+// walk_propose writes h1, word int32 [num_lanes, 3, k]; walk_resolve reads
+// hits bool [num_lanes, 3, k], the word test of those pairs.
+int kbbq_walk_start(const void* codes, const void* trusted0, void* pk,
+                    void* fl, void* err, void* cur, int64_t num_reads, int L,
+                    int k, void* stream) {
+  if (num_reads <= 0 || L - k + 1 <= 0) return (int)cudaGetLastError();
+  walk_start_kernel<<<grid_for(num_reads, kThreads), kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const int8_t*)codes, (const uint8_t*)trusted0, (uint64_t*)pk,
+      (uint8_t*)fl, (uint8_t*)err, (int32_t*)cur, num_reads, L, k);
+  return (int)cudaGetLastError();
+}
+
+int kbbq_walk_propose(const void* pk, const void* fl, const void* cur,
+                      const void* lanes, int64_t num_lanes, void* h1,
+                      void* word, int L, int k, int num_hashes, void* stream) {
+  if (num_lanes <= 0) return (int)cudaGetLastError();
+  walk_propose_kernel<<<grid_for(num_lanes * k, kThreads), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const uint64_t*)pk, (const uint8_t*)fl, (const int32_t*)cur,
+      (const int32_t*)lanes, num_lanes, (uint32_t*)h1, (uint32_t*)word, L, k,
+      num_hashes);
+  return (int)cudaGetLastError();
+}
+
+int kbbq_walk_resolve(void* pk, void* fl, void* err, void* cur,
+                      const void* lanes, int64_t num_lanes, const void* hits,
+                      int L, int k, int W, void* stream) {
+  if (num_lanes <= 0) return (int)cudaGetLastError();
+  walk_resolve_kernel<<<grid_for(num_lanes, kThreads), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (uint64_t*)pk, (uint8_t*)fl, (uint8_t*)err, (int32_t*)cur,
+      (const int32_t*)lanes, num_lanes, (const uint8_t*)hits, L, k, W);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,11 @@
 """Build, ctypes binding and wrappers of ``csrc/kbbq_kernels.cu``.
 
-The three kernels (``bloom_probe`` with three entry points,
-``bloom_or_words`` with two, the fused one also in a hash-only mode,
-``walk_errors``) are CUDA C++ for sm_90a with a plain C interface.  ``build()`` compiles them with nvcc into
+The four kernels (``bloom_probe`` with three entry points, the fused trust
+probe also in a rule-only mode; ``bloom_or_words`` with two, the fused one
+also in a keep mode and a hash-only mode; ``walk_errors``; ``walk_round``,
+the walk against a hash-space-sharded filter, with three: ``walk_start``,
+``walk_propose`` and ``walk_resolve``) are CUDA C++ for sm_90a with a plain
+C interface.  ``build()`` compiles them with nvcc into
 ``kbbq_tpu_torch/build/libkbbq_kernels.so`` at first use (and again when
 the source is newer); the library is loaded with ctypes.  Nothing here
 runs at import time, so the module imports on a machine without nvcc or a
@@ -35,17 +38,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel since the last reset_launches(), and the same launches
 # split by entry point (C function)
-LAUNCHES = {"bloom_probe": 0, "bloom_or_words": 0, "walk_errors": 0}
+LAUNCHES = {"bloom_probe": 0, "bloom_or_words": 0, "walk_errors": 0,
+            "walk_round": 0}
 ENTRY_LAUNCHES = {"bloom_probe_hashed": 0, "bloom_probe_words": 0,
-                  "bloom_probe_trust": 0, "bloom_or_words": 0,
-                  "hash_build": 0, "hash_only": 0, "walk_errors": 0}
+                  "bloom_probe_trust": 0, "trust_rule": 0,
+                  "bloom_or_words": 0, "hash_build": 0, "hash_keep": 0,
+                  "hash_only": 0, "walk_errors": 0, "walk_start": 0,
+                  "walk_propose": 0, "walk_resolve": 0}
 # the kernel of each entry point
 ENTRY_KERNEL = {"bloom_probe_hashed": "bloom_probe",
                 "bloom_probe_words": "bloom_probe",
                 "bloom_probe_trust": "bloom_probe",
+                "trust_rule": "bloom_probe",
                 "bloom_or_words": "bloom_or_words",
                 "hash_build": "bloom_or_words",
-                "hash_only": "bloom_or_words", "walk_errors": "walk_errors"}
+                "hash_keep": "bloom_or_words",
+                "hash_only": "bloom_or_words", "walk_errors": "walk_errors",
+                "walk_start": "walk_round", "walk_propose": "walk_round",
+                "walk_resolve": "walk_round"}
 
 # reads per block of the tiled kernels and threads per block of the walk and
 # of the fused trust probe (in both a warp works on one read at a time),
@@ -130,15 +140,23 @@ def _bind(lib) -> None:
     lib.kbbq_hash_build.argtypes = [p, p, u32, p, p, p, i64, i64, i, i, i,
                                     u32, i, p]
     lib.kbbq_hash_only.argtypes = [p, p, p, i64, i, i, i, i, p]
+    lib.kbbq_hash_keep.argtypes = [p, p, p, p, i64, i64, i, i, i, u32, i, p]
+    lib.kbbq_trust_rule.argtypes = [p, p, p, p, i64, i, i, i, i, i, p]
     lib.kbbq_walk_errors.argtypes = [p, p, p, u32, p, i64, i, i, i, i, i, i,
                                      p]
+    lib.kbbq_walk_start.argtypes = [p, p, p, p, p, p, i64, i, i, p]
+    lib.kbbq_walk_propose.argtypes = [p, p, p, p, i64, p, p, i, i, i, p]
+    lib.kbbq_walk_resolve.argtypes = [p, p, p, p, p, i64, p, i, i, i, p]
     lib.kbbq_walk_tile_bytes.argtypes = [i, i, i]
     lib.kbbq_hash_tile_bytes.argtypes = [i, i, i]
     lib.kbbq_trust_tile_bytes.argtypes = [i, i, i, i]
     lib.kbbq_empty_launch.argtypes = [p]
     for fn in (lib.kbbq_bloom_probe_hashed, lib.kbbq_bloom_probe_words,
-               lib.kbbq_bloom_probe_trust, lib.kbbq_bloom_or_words,
-               lib.kbbq_hash_build, lib.kbbq_hash_only, lib.kbbq_walk_errors,
+               lib.kbbq_bloom_probe_trust, lib.kbbq_trust_rule,
+               lib.kbbq_bloom_or_words, lib.kbbq_hash_build,
+               lib.kbbq_hash_keep, lib.kbbq_hash_only, lib.kbbq_walk_errors,
+               lib.kbbq_walk_start, lib.kbbq_walk_propose,
+               lib.kbbq_walk_resolve,
                lib.kbbq_walk_tile_bytes, lib.kbbq_hash_tile_bytes,
                lib.kbbq_trust_tile_bytes, lib.kbbq_empty_launch):
         fn.restype = ctypes.c_int
@@ -292,6 +310,41 @@ def bloom_probe_trust(packed: torch.Tensor, h1: torch.Tensor,
     return out
 
 
+def trust_rule(hits: torch.Tensor, word: torch.Tensor,
+               thresholds: torch.Tensor, k: int, trust_threshold: int,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel bloom_probe, the fused trust entry point in its rule-only
+    mode: the coverage rule of ``bloom_probe_trust`` on the answers of a
+    word test made elsewhere (the collective test of the hash-space-sharded
+    layout).  hits bool [N, n] (False where word == 0), word int32 [N, n]
+    (0: a window with an N), thresholds int32 [k+1].  Returns bool [N, n],
+    written into `out` when given; N == 0 or n == 0 launches nothing."""
+    dev = hits.device
+    _check(hits, "hits", torch.bool, dev)
+    _check(word, "word", torch.int32, dev)
+    _check(thresholds, "thresholds", torch.int32, dev)
+    if hits.dim() != 2 or hits.shape != word.shape:
+        raise ValueError("hits and word must be [N, n], of one shape")
+    if not 1 <= k <= 32 or tuple(thresholds.shape) != (k + 1,):
+        raise ValueError("need 1 <= k <= 32 and thresholds of k+1 entries")
+    out = _out_like(hits, out)
+    N, n = hits.shape
+    if N == 0 or n == 0:
+        return out
+    with torch.cuda.device(dev):
+        lib = library()
+        rows = _fit_tile_rows(
+            lambda L, k, r: lib.kbbq_trust_tile_bytes(L, k, r, TRUST_THREADS),
+            n + int(k) - 1, int(k), TRUST_TILE_ROWS)
+        rc = lib.kbbq_trust_rule(
+            hits.data_ptr(), word.data_ptr(), thresholds.data_ptr(),
+            out.data_ptr(), N, n, int(k), int(trust_threshold), rows,
+            TRUST_THREADS, _stream())
+    _raise_on(rc, "bloom_probe (trust rule)")
+    _count("bloom_probe", "trust_rule")
+    return out
+
+
 def bloom_or_words(packed: torch.Tensor, h1: torch.Tensor,
                    word: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     """Kernel bloom_or_words, cached entry point: ``packed[h1 & mask] |=
@@ -357,6 +410,41 @@ def hash_build(codes: torch.Tensor, packed: torch.Tensor, first_id: int,
             int(num_hashes), int(threshold), rows, _stream())
     _raise_on(rc, "bloom_or_words (hash_build)")
     _count("bloom_or_words", "hash_build")
+    return h1, word, keep
+
+
+def hash_keep(codes: torch.Tensor, first_id: int, k: int, num_hashes: int,
+              threshold: int):
+    """Kernel bloom_or_words, fused entry point in its keep mode: the
+    (h1, word, keep) planes of ``hash_build`` with no filter touched (pass 1
+    of the hash-space-sharded layout, whose kept windows go to the filter's
+    owners before any insert).  Arguments and result as ``hash_build``,
+    less the filter."""
+    dev = codes.device
+    _check(codes, "codes", torch.int8, dev)
+    if codes.dim() != 2:
+        raise ValueError("codes must be [N, L]")
+    if not 1 <= k <= 32 or num_hashes < 1:
+        raise ValueError("need 1 <= k <= 32 and num_hashes >= 1")
+    if not 0 <= threshold < (1 << 32):
+        raise ValueError("threshold must lie in [0, 2^32)")
+    N, L = codes.shape
+    n = max(L - k + 1, 0)
+    h1 = torch.empty((N, n), dtype=torch.int32, device=dev)
+    word = torch.empty((N, n), dtype=torch.int32, device=dev)
+    keep = torch.empty((N, n), dtype=torch.bool, device=dev)
+    if N == 0 or n == 0:
+        return h1, word, keep
+    with torch.cuda.device(dev):
+        lib = library()
+        rows = _fit_tile_rows(lib.kbbq_hash_tile_bytes, L, int(k),
+                              HASH_TILE_ROWS)
+        rc = lib.kbbq_hash_keep(
+            codes.data_ptr(), h1.data_ptr(), word.data_ptr(),
+            keep.data_ptr(), N, int(first_id), L, int(k), int(num_hashes),
+            int(threshold), rows, _stream())
+    _raise_on(rc, "bloom_or_words (hash_keep)")
+    _count("bloom_or_words", "hash_keep")
     return h1, word, keep
 
 
@@ -428,6 +516,109 @@ def walk_errors(codes: torch.Tensor, trusted0: torch.Tensor,
     _raise_on(rc, "walk_errors")
     _count("walk_errors", "walk_errors")
     return err
+
+
+class WalkState:
+    """The state of a round-based walk (kernel walk_round) between rounds,
+    on the card: pk int64 [N, packed_words(L)] (packed working copies),
+    fl uint8 [N, n] (effective trust: 1 trusted, 2 break, 0 invalid), err
+    bool [N, L] (the marks), cur int32 [N, 2] (each (read, direction)
+    lane's break on its own strand, -1 when done)."""
+
+    def __init__(self, N: int, L: int, k: int, dev):
+        n = L - k + 1
+        self.L, self.k = L, k
+        self.pk = torch.empty((N, (L + 31) // 32 + 1), dtype=torch.int64,
+                              device=dev)
+        self.fl = torch.empty((N, n), dtype=torch.uint8, device=dev)
+        self.err = torch.zeros((N, L), dtype=torch.bool, device=dev)
+        self.cur = torch.full((N, 2), -1, dtype=torch.int32, device=dev)
+
+    def active_lanes(self) -> torch.Tensor:
+        """int32 [A]: the lanes (2 * read + direction) still walking."""
+        return torch.nonzero(self.cur.view(-1) >= 0).view(-1).to(torch.int32)
+
+
+def walk_start(codes: torch.Tensor, trusted0: torch.Tensor,
+               k: int) -> WalkState:
+    """Kernel walk_round, entry point walk_start: a thread per read packs
+    its working copy, finds the anchor (longest initially trusted run, ties
+    leftmost) and each direction's first break.  codes int8 [N, L];
+    trusted0 bool [N, L-k+1].  N == 0 launches nothing (no lane active)."""
+    dev = codes.device
+    _check(codes, "codes", torch.int8, dev)
+    _check(trusted0, "trusted0", torch.bool, dev)
+    if codes.dim() != 2:
+        raise ValueError("codes must be [N, L]")
+    N, L = codes.shape
+    if not 1 <= k <= 32 or L - k + 1 < 1:
+        raise ValueError("need 1 <= k <= 32 and L >= k")
+    if tuple(trusted0.shape) != (N, L - k + 1):
+        raise ValueError("trusted0 must be [N, L-k+1]")
+    st = WalkState(N, L, k, dev)
+    if N == 0:
+        return st
+    with torch.cuda.device(dev):
+        rc = library().kbbq_walk_start(
+            codes.data_ptr(), trusted0.data_ptr(), st.pk.data_ptr(),
+            st.fl.data_ptr(), st.err.data_ptr(), st.cur.data_ptr(), N, L,
+            int(k), _stream())
+    _raise_on(rc, "walk_round (walk_start)")
+    _count("walk_round", "walk_start")
+    return st
+
+
+def _check_lanes(st: WalkState, lanes: torch.Tensor) -> None:
+    _check(lanes, "lanes", torch.int32, st.pk.device)
+    if lanes.dim() != 1:
+        raise ValueError("lanes must be 1-D")
+
+
+def walk_propose(st: WalkState, lanes: torch.Tensor, num_hashes: int):
+    """Kernel walk_round, entry point walk_propose: for each active lane
+    (int32 [A], ``WalkState.active_lanes``) the cached (h1, word) pair of
+    every window t < k of its 3 candidates, int32 patterns [A, 3, k] each
+    (word 0: past the read's end or a window with an N).  A == 0 launches
+    nothing."""
+    _check_lanes(st, lanes)
+    A, k = int(lanes.numel()), st.k
+    dev = st.pk.device
+    h1 = torch.empty((A, 3, k), dtype=torch.int32, device=dev)
+    word = torch.empty((A, 3, k), dtype=torch.int32, device=dev)
+    if A == 0:
+        return h1, word
+    with torch.cuda.device(dev):
+        rc = library().kbbq_walk_propose(
+            st.pk.data_ptr(), st.fl.data_ptr(), st.cur.data_ptr(),
+            lanes.data_ptr(), A, h1.data_ptr(), word.data_ptr(), st.L, k,
+            int(num_hashes), _stream())
+    _raise_on(rc, "walk_round (walk_propose)")
+    _count("walk_round", "walk_propose")
+    return h1, word
+
+
+def walk_resolve(st: WalkState, lanes: torch.Tensor, hits: torch.Tensor,
+                 W: int) -> None:
+    """Kernel walk_round, entry point walk_resolve: the rest of the round
+    from the answers `hits` bool [A, 3, k] to ``walk_propose``'s pairs
+    (extension rule, mark, commit, effective trust, next break), IN PLACE
+    on `st`.  A == 0 launches nothing."""
+    _check_lanes(st, lanes)
+    _check(hits, "hits", torch.bool, st.pk.device)
+    A, k = int(lanes.numel()), st.k
+    if tuple(hits.shape) != (A, 3, k):
+        raise ValueError("hits must be [A, 3, k]")
+    if not 1 <= W <= k:
+        raise ValueError("need 1 <= W <= k")
+    if A == 0:
+        return
+    with torch.cuda.device(st.pk.device):
+        rc = library().kbbq_walk_resolve(
+            st.pk.data_ptr(), st.fl.data_ptr(), st.err.data_ptr(),
+            st.cur.data_ptr(), lanes.data_ptr(), A, hits.data_ptr(), st.L,
+            k, int(W), _stream())
+    _raise_on(rc, "walk_round (walk_resolve)")
+    _count("walk_round", "walk_resolve")
 
 
 def empty_launch() -> None:

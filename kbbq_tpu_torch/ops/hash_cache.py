@@ -16,6 +16,10 @@ of the hash pass (about 150 elementwise ops over int64 lanes); with
 builds into a filter the caller holds (pass 1 of the windowed engine, one
 window at a time).
 
+``hash_keep`` is its keep mode (the (h1, word, keep) planes with no
+filter): pass 1 of the hash-space-sharded layout, whose kept windows go to
+the filter's owners first (``parallel/sharded_bloom.py``).
+
 ``hash_windows`` is the hash-only mode of the same kernel entry point
 (h1 and word, no keep plane, no filter): passes 2 and 3 of the windowed
 engine, where no window's cache outlives its pass, re-hash each window with
@@ -90,6 +94,31 @@ def hash_windows(codes: torch.Tensor, k: int, num_hashes: int):
     return hash_windows_plain(codes, k, num_hashes)
 
 
+def hash_keep(codes: torch.Tensor, first_id: int, k: int, num_hashes: int,
+              threshold: int, chunk_rows: int | None = None):
+    """The hash cache (h1, word, keep) of all reads of `codes` with no
+    filter: arguments and result as ``hash_cache_into``, less the filter.
+    CUDA tensors go through the keep mode of the fused kernel entry point
+    (one launch, none when N or n is 0), CPU tensors through
+    ``hash_cache_chunk`` in chunks of `chunk_rows` rows."""
+    if codes.is_cuda:
+        from .. import kernels
+        return kernels.hash_keep(codes, first_id, k, num_hashes, threshold)
+    N, L = codes.shape
+    n = max(L - k + 1, 0)
+    rows = int(chunk_rows or PLAIN_CHUNK_ROWS)
+    h1 = torch.empty((N, n), dtype=torch.int32)
+    word = torch.empty((N, n), dtype=torch.int32)
+    keep = torch.empty((N, n), dtype=torch.bool)
+    if n:
+        for s in range(0, N, rows):
+            e = min(N, s + rows)
+            ids = torch.arange(first_id + s, first_id + e, dtype=torch.int64)
+            h1[s:e], word[s:e], keep[s:e] = hash_cache_chunk(
+                codes[s:e], ids, k, num_hashes, threshold)
+    return h1, word, keep
+
+
 def hash_cache_into(codes: torch.Tensor, packed: torch.Tensor,
                     first_id: int, k: int, num_hashes: int, threshold: int,
                     chunk_rows: int | None = None):
@@ -98,21 +127,12 @@ def hash_cache_into(codes: torch.Tensor, packed: torch.Tensor,
     [2^(log2_m-5)]: OR commutes, so windows of one dataset may come in any
     order).  Arguments and result as ``hash_cache_build``, less the
     filter."""
-    N, L = codes.shape
     if codes.is_cuda:
         from .. import kernels
         return kernels.hash_build(codes, packed, first_id, k, num_hashes,
                                   threshold)
-    n = max(L - k + 1, 0)
-    rows = int(chunk_rows or PLAIN_CHUNK_ROWS)
-    h1 = torch.empty((N, n), dtype=torch.int32)
-    word = torch.empty((N, n), dtype=torch.int32)
-    keep = torch.empty((N, n), dtype=torch.bool)
-    for s in range(0, N, rows):
-        e = min(N, s + rows)
-        ids = torch.arange(first_id + s, first_id + e, dtype=torch.int64)
-        h1[s:e], word[s:e], keep[s:e] = hash_cache_chunk(
-            codes[s:e], ids, k, num_hashes, threshold)
+    h1, word, keep = hash_keep(codes, first_id, k, num_hashes, threshold,
+                               chunk_rows)
     packed |= bloom_build_words_plain(h1, word, keep, _log2_m_of(packed))
     return h1, word, keep
 

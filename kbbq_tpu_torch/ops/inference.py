@@ -28,6 +28,15 @@ The right walk runs from the end of the anchor (the longest trusted run),
 the left walk from its start, on the same state: they touch disjoint
 windows and bases.  Breaks can only land on valid (N-free) windows, which
 subsumes the oracle's explicit N-window skips.
+
+The sweep takes its membership test as a callable (``walk_plain``; the JAX
+package's ``query_fn``): ``infer_errors_plain`` passes the local test of a
+packed filter, and ``infer_errors_sharded`` the collective word test of a
+hash-space-sharded filter (``parallel/sharded_bloom.py``), with an
+all-reduce that keeps every rank in every round.  On the card that second
+walk is the round-based ``walk_round`` kernel: ``walk_propose`` writes each
+active lane's candidate windows as cached (h1, word) pairs, the caller's
+test answers them, ``walk_resolve`` finishes the round.
 """
 
 from __future__ import annotations
@@ -35,8 +44,9 @@ from __future__ import annotations
 import torch
 
 from ..constants import DEFAULT_EXT_CAP
-from .bloom import _query_rows_w, bloom_query_rows
-from .kmers import M32, _canonical_w, _kmer_lanes_w, canonical_kmers_batch
+from .bloom import _probe_word_w, _query_rows_w, bloom_query_rows
+from .kmers import (M32, _canonical_w, _kmer_hashes_w, _kmer_lanes_w,
+                    canonical_kmers_batch, wide_to_u32)
 
 
 def _longest_run_anchors(trusted: torch.Tensor):
@@ -87,12 +97,19 @@ def _patch_lanes(hi, lo, bitpos, val):
     return torch.where(in_hi, nhi, hi), torch.where(in_hi, lo, nlo)
 
 
-def _walk_rounds(packed, work, lanes, valid, teff, err, j, k, W,
-                 num_hashes, step):
+def _local_any(active: bool) -> bool:
+    return active
+
+
+def _walk_rounds(query, work, lanes, valid, teff, err, j, k, W, step,
+                 reduce_any=_local_any):
     """All rounds of one directional walk, updating work / lanes / teff /
     err IN PLACE.  step = +1 walks right (the base entering window j is
     j+k-1), step = -1 walks left (entering base j).  j: [B] cursor at each
-    read's first break; n (right) or -1 (left) means done.
+    read's first break; n (right) or -1 (left) means done.  query(hi, lo):
+    membership of canonical k-mers (wide lanes) -> bool of their shape; it
+    is called once a round, also with no rows, until ``reduce_any`` of
+    "a row is active" is False.
     """
     dev = work.device
     n = teff.shape[1]
@@ -101,7 +118,7 @@ def _walk_rounds(packed, work, lanes, valid, teff, err, j, k, W,
     c3i = torch.arange(3, dtype=torch.int64, device=dev)
     while True:
         rows = torch.nonzero(j != done)[:, 0]
-        if rows.numel() == 0:
+        if not reduce_any(rows.numel() > 0):
             return
         ja = j[rows]
         win = ja[:, None] + step * t[None, :]               # [A, k]
@@ -124,10 +141,11 @@ def _walk_rounds(packed, work, lanes, valid, teff, err, j, k, W,
                                     2 * d, 3 - cval)
         chi, clo = _canonical_w(pf_hi, pf_lo, pr_hi, pr_lo)  # [A, 3, k]
 
+        # all k windows of every candidate in ONE query: the extension
+        # reads the first W, the chosen candidate's trust all k
+        q = query(chi, clo) & wvalid[:, None, :]
         # extension = leading trusted windows, at most W and inside the read
-        q = _query_rows_w(packed, chi[:, :, :W], clo[:, :, :W],
-                          num_hashes) & wvalid[:, None, :W]
-        ext = q.to(torch.int64).cumprod(dim=-1).sum(dim=-1)  # [A, 3]
+        ext = q[:, :, :W].to(torch.int64).cumprod(dim=-1).sum(dim=-1)
         # strict '>' in the oracle: ties go to the smallest code
         bi = (ext * 4 + (2 - c3i)[None, :]).argmax(dim=1)
         best_ext = ext.gather(1, bi[:, None])[:, 0]
@@ -137,18 +155,12 @@ def _walk_rounds(packed, work, lanes, valid, teff, err, j, k, W,
         cr = torch.nonzero(best_ext >= 1)[:, 0]
         if cr.numel():
             bic = bi[cr]
-            q_all = q[cr, bic]                              # [C, W]
-            if W < k:
-                # windows [W, k) of the CHOSEN sequence get their real trust
-                q2 = _query_rows_w(packed, chi[cr, bic][:, W:],
-                                   clo[cr, bic][:, W:], num_hashes)
-                q_all = torch.cat([q_all, q2 & wvalid[cr][:, W:]], dim=1)
             sel = inb[cr]
             rr = rows[cr][:, None].expand(-1, k)[sel]
             ww = winc[cr][sel]
             for lane, new in zip(lanes, (pf_hi, pf_lo, pr_hi, pr_lo)):
                 lane[rr, ww] = new[cr, bic][sel]
-            teff[rr, ww] = q_all[sel]
+            teff[rr, ww] = q[cr, bic][sel]
             work[rows[cr], p[cr]] = best_c[cr].to(work.dtype)
 
         x = ja + step * best_ext.clamp(min=1)
@@ -158,23 +170,24 @@ def _walk_rounds(packed, work, lanes, valid, teff, err, j, k, W,
             j[rows] = _prev_break(teff[rows], valid[rows], x)
 
 
-def infer_errors_plain(packed: torch.Tensor, codes: torch.Tensor, k: int,
-                       num_hashes: int, ext_cap: int | None = None,
-                       trusted0: torch.Tensor | None = None
-                       ) -> torch.Tensor:
-    """Plain PyTorch error inference (round-based; module docstring).
-    Runs on whatever device its tensors lie on."""
+def walk_plain(query, codes: torch.Tensor, k: int, W: int,
+               trusted0: torch.Tensor | None = None,
+               reduce_any=_local_any) -> torch.Tensor:
+    """The round-based plain walk (module docstring) with its membership
+    test `query(hi, lo)` (canonical k-mers as wide lanes -> bool of their
+    shape) and its round agreement `reduce_any` (``_walk_rounds``):
+    the error mask bool [B, L].  trusted0: the initial trust of every
+    window, ``query & valid`` bool [B, n]; None asks `query`.  B == 0 still
+    takes part in every round (a rank with no rows)."""
     B, L = codes.shape
     n = L - k + 1
     err = torch.zeros((B, L), dtype=torch.bool, device=codes.device)
-    if n <= 0 or B == 0:
+    if n <= 0:
         return err
-    W = min(ext_cap if ext_cap is not None else DEFAULT_EXT_CAP, k)
-
     fhi, flo, rhi, rlo, valid = _kmer_lanes_w(codes, k)
     if trusted0 is None:
         hi, lo = _canonical_w(fhi, flo, rhi, rlo)
-        trusted0 = _query_rows_w(packed, hi, lo, num_hashes) & valid
+        trusted0 = query(hi, lo) & valid
     any_valid = valid.any(dim=1)
     all_tr = (trusted0 | ~valid).all(dim=1)
     a, b, has_anchor = _longest_run_anchors(trusted0)
@@ -185,13 +198,70 @@ def infer_errors_plain(packed: torch.Tensor, codes: torch.Tensor, k: int,
     teff = trusted0.clone()
     n_t = torch.full_like(a, n)
     j0 = _next_break(teff, valid, torch.where(active, b + 1, n_t), n)
-    _walk_rounds(packed, work, lanes, valid, teff, err, j0, k, W,
-                 num_hashes, +1)
+    _walk_rounds(query, work, lanes, valid, teff, err, j0, k, W, +1,
+                 reduce_any)
     j0 = _prev_break(teff, valid,
                      torch.where(active, a - 1, torch.full_like(a, -1)))
-    _walk_rounds(packed, work, lanes, valid, teff, err, j0, k, W,
-                 num_hashes, -1)
+    _walk_rounds(query, work, lanes, valid, teff, err, j0, k, W, -1,
+                 reduce_any)
     return err
+
+
+def _ext_width(ext_cap: int | None, k: int) -> int:
+    return min(ext_cap if ext_cap is not None else DEFAULT_EXT_CAP, k)
+
+
+def infer_errors_plain(packed: torch.Tensor, codes: torch.Tensor, k: int,
+                       num_hashes: int, ext_cap: int | None = None,
+                       trusted0: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Plain PyTorch error inference (round-based; module docstring) against
+    the packed filter: ``walk_plain`` with its local test.  Runs on
+    whatever device its tensors lie on."""
+    B, L = codes.shape
+    if L - k + 1 <= 0 or B == 0:
+        return torch.zeros((B, L), dtype=torch.bool, device=codes.device)
+    return walk_plain(lambda hi, lo: _query_rows_w(packed, hi, lo,
+                                                   num_hashes),
+                      codes, k, _ext_width(ext_cap, k), trusted0)
+
+
+def infer_errors_sharded(codes: torch.Tensor, trusted0: torch.Tensor,
+                         test, k: int, num_hashes: int,
+                         ext_cap: int | None = None,
+                         reduce_any=_local_any) -> torch.Tensor:
+    """Error mask per base, bool [B, L], against a filter reached only
+    through `test(h1, word)`: the word test of cached (h1, word) pairs
+    (int32 patterns of any shape -> bool of that shape, False where word
+    == 0), which on a hash-space-sharded filter is a collective.
+    `reduce_any(active)` agrees over the ranks whether any lane of any rank
+    is still walking; every rank calls `test` once per round, also with
+    nothing to ask (B == 0 included).  trusted0: bool [B, L-k+1], the
+    initial trust of every window.
+
+    CUDA tensors go through the ``walk_round`` kernel (``walk_start``,
+    then per round ``walk_propose``, `test`, ``walk_resolve``); CPU tensors
+    through ``walk_plain`` with `test` behind the hashing of its k-mers.
+    Both give ``infer_errors``' marks.
+    """
+    B, L = codes.shape
+    W = _ext_width(ext_cap, k)
+    if L - k + 1 <= 0:
+        return torch.zeros((B, L), dtype=torch.bool, device=codes.device)
+    if not codes.is_cuda:
+        def query(hi, lo):
+            h1, h2 = _kmer_hashes_w(hi, lo)
+            return test(wide_to_u32(h1),
+                        wide_to_u32(_probe_word_w(h2, num_hashes)))
+        return walk_plain(query, codes, k, W, trusted0, reduce_any)
+    from .. import kernels
+    st = kernels.walk_start(codes, trusted0, k)
+    while True:
+        lanes = st.active_lanes()
+        if not reduce_any(lanes.numel() > 0):
+            return st.err
+        h1, word = kernels.walk_propose(st, lanes, num_hashes)
+        kernels.walk_resolve(st, lanes, test(h1, word), W)
 
 
 def infer_errors(packed: torch.Tensor, codes: torch.Tensor, k: int,
@@ -216,5 +286,5 @@ def infer_errors(packed: torch.Tensor, codes: torch.Tensor, k: int,
     if trusted0 is None:
         hi, lo, valid = canonical_kmers_batch(codes, k)
         trusted0 = bloom_query_rows(packed, hi, lo, num_hashes) & valid
-    W = min(ext_cap if ext_cap is not None else DEFAULT_EXT_CAP, k)
-    return kernels.walk_errors(codes, trusted0, packed, k, W, num_hashes)
+    return kernels.walk_errors(codes, trusted0, packed, k,
+                               _ext_width(ext_cap, k), num_hashes)

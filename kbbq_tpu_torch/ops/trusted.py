@@ -10,6 +10,11 @@ the card it is ONE launch of the ``bloom_probe`` kernel's fused entry point
 plane of hits); ``trusted_from_cache_plain`` beside it is the plain PyTorch
 version (the cached word test, then ``trusted_mask_batch``, by row chunks)
 and serves CPU tensors.
+
+``trusted_from_hits`` is the same decision from a plane of hits made
+elsewhere (the collective word test of the hash-space-sharded layout,
+``parallel/sharded_bloom.py``): on the card the fused entry point's
+rule-only mode (``kernels.trust_rule``), on the CPU ``trusted_mask_batch``.
 """
 
 from __future__ import annotations
@@ -110,3 +115,31 @@ def trusted_from_cache(packed: torch.Tensor, h1: torch.Tensor,
             packed, h1, word, thresholds.to(torch.int32), k, T, out=out)
     return trusted_from_cache_plain(packed, h1, word, thresholds, k,
                                     trust_threshold, out=out)
+
+
+def trusted_from_hits(hits: torch.Tensor, word: torch.Tensor,
+                      thresholds: torch.Tensor, k: int,
+                      trust_threshold: int | None = None,
+                      out: torch.Tensor | None = None,
+                      chunk_rows: int | None = None) -> torch.Tensor:
+    """Trusted bit of every window from its answer `hits` (bool [N, n],
+    False where word == 0) and its cached `word` (int32 [N, n], 0 marking
+    a window with an N); thresholds and trust_threshold as
+    ``trusted_from_cache``.  CUDA tensors go through one launch of the
+    rule-only mode of the fused kernel entry point; CPU tensors through
+    ``trusted_mask_batch``, `chunk_rows` rows at a time."""
+    T = k if trust_threshold is None else trust_threshold
+    if hits.is_cuda:
+        from .. import kernels
+        return kernels.trust_rule(hits, word, thresholds.to(torch.int32), k,
+                                  T, out=out)
+    N, n = hits.shape
+    if out is None:
+        out = torch.empty((N, n), dtype=torch.bool)
+    rows = int(chunk_rows or PLAIN_CHUNK_ROWS)
+    if n:
+        for s in range(0, N, rows):
+            e = min(N, s + rows)
+            out[s:e] = trusted_mask_batch(hits[s:e], word[s:e] != 0,
+                                          thresholds, k, T)
+    return out

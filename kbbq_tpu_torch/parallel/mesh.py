@@ -59,14 +59,16 @@ def row_range(n: int, world: int, rank: int) -> tuple[int, int]:
 @dataclasses.dataclass
 class Rank:
     """What a rank knows of its group.  `stats` collects the merges'
-    seconds and bytes (``parallel/merge.py``)."""
+    seconds and bytes (``parallel/merge.py``) and the sharded filters'
+    exchanges' (``parallel/sharded_bloom.py``)."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
     stats: dict = dataclasses.field(
-        default_factory=lambda: {"merge": 0.0, "merge_bytes": 0})
+        default_factory=lambda: {"merge": 0.0, "merge_bytes": 0,
+                                 "exchange": 0.0, "exchange_bytes": 0})
 
 
 def _free_port() -> int:
@@ -127,8 +129,8 @@ def launch(fn, devices: int, device_type: str, *args,
     The ranks' kernel launches are added to this process's counters
     (``kernels.add_launches``); ``timings``, when given, gets ``spawn`` (s
     from the call to the last rank in the group), ``world``, ``backend``,
-    ``launches_by_rank`` and the slowest rank's ``merge`` seconds and
-    ``merge_bytes``.  An exception in any rank re-raises here (the first
+    ``launches_by_rank`` and the slowest rank's ``merge`` and ``exchange``
+    seconds and ``merge_bytes`` and ``exchange_bytes``.  An exception in any rank re-raises here (the first
     failing rank's own exception, where it pickles); the other ranks are
     stopped.
     """
@@ -173,9 +175,10 @@ def launch(fn, devices: int, device_type: str, *args,
         timings["world"] = devices
         timings["backend"] = BACKENDS[device_type]
         timings["launches_by_rank"] = [o["launches"] for o in outs]
-        timings["merge"] = round(max(o["stats"]["merge"] for o in outs), 3)
-        timings["merge_bytes"] = max(o["stats"]["merge_bytes"]
-                                     for o in outs)
+        for name in ("merge", "exchange"):
+            timings[name] = round(max(o["stats"][name] for o in outs), 3)
+            timings[name + "_bytes"] = max(o["stats"][name + "_bytes"]
+                                           for o in outs)
     return [o["result"] for o in outs]
 
 

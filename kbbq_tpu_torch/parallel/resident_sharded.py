@@ -1,9 +1,11 @@
-"""The resident path over the ranks of a group (replicated filters).
+"""The resident path over the ranks of a group.
 
 Counterpart of ``kbbq_tpu/parallel/resident_sharded.py::
-recalibrate_arrays_resident_sharded``: ``pipeline/resident.py``'s four
-passes, each rank on its contiguous share of the rows, every rank holding
-whole filters (the replicated layout):
+recalibrate_arrays_resident_sharded`` (the replicated layout) and of
+``kbbq_tpu/parallel/sharded_bloom.py::sharded_bloom_recalibrate_arrays``
+(the hash-space-sharded one): ``pipeline/resident.py``'s four passes, each
+rank on its contiguous share of the rows.  With the replicated layout every
+rank holds whole filters:
 
   pass 1  hash cache of the rank's rows with ``first_id`` = the global
           ordinal of its first row (sampling keys on it, DECISIONS D5),
@@ -13,6 +15,18 @@ whole filters (the replicated layout):
           ``sum_merge`` of the tables
   deltas  on rank 0, the Q' table broadcast
   pass 4  the local gather, written into the caller's rows
+
+With the sharded layout each rank holds 1/D of each filter
+(``sharded_bloom.ShardedFilter``) and no filter is merged:
+
+  pass 1  hash cache and keep plane (the fused kernel's keep mode), the kept
+          windows routed to filter A's owners
+  pass 2  the collective word test against A, the trust rule on its hits
+          (the fused trust kernel's rule-only mode), the trusted windows
+          routed to filter B's owners
+  pass 3  the collective word test against B for the initial trust, then
+          per row chunk (as many on every rank) the round-based walk, whose
+          every round asks B's owners
 
 The input rows reach the ranks through ``mesh.SharedArrays`` and the output
 rows come back the same way.  The result does not depend on the number of
@@ -50,24 +64,33 @@ class Plan:
     alpha: float
     log2_ma: int
     log2_mb: int
+    layout: str = "replicated"
 
 
-def plan_for(arrays: ReadArrays, config) -> Plan:
-    """The ``Plan`` of `arrays` under `config`; refuses filters the
-    replicated layout cannot hold (``check_layout_capacity``)."""
+def plan_for(arrays: ReadArrays, config, layout: str = "replicated",
+             devices: int = 1) -> Plan:
+    """The ``Plan`` of `arrays` under `config` and the Bloom `layout` on
+    `devices` ranks: the sharded layout's sizes are bumped
+    (``sharded_bloom.sharded_params``); refuses filters the layout cannot
+    hold (``check_layout_capacity``)."""
     k = config.k
     lens = arrays.mask.sum(axis=1)
     total_bases = int(lens.sum())
     total_kmers = int(np.maximum(lens - k + 1, 0).sum())
     alpha, coverage = config.resolve_alpha(total_bases)
-    pa, pb = bloom_params_for(config, total_kmers, alpha, coverage)
-    for p in (pa, pb):
-        # every rank holds both filters whole, as packed words
-        check_layout_capacity(p, 33, "replicated resident",
-                              "use --bloom-layout sharded")
+    if layout == "sharded":
+        from .sharded_bloom import sharded_params
+        pa, pb = sharded_params(config, total_kmers, alpha, coverage,
+                                devices)
+    else:
+        pa, pb = bloom_params_for(config, total_kmers, alpha, coverage)
+        for p in (pa, pb):
+            # every rank holds both filters whole, as packed words
+            check_layout_capacity(p, 33, "replicated resident",
+                                  "use --bloom-layout sharded")
     return Plan(arrays.num_reads, arrays.max_len,
                 int(arrays.rgs.max(initial=0)) + 1, total_bases, total_kmers,
-                alpha, pa.log2_m, pb.log2_m)
+                alpha, pa.log2_m, pb.log2_m, layout)
 
 
 def share_arrays(arrays: ReadArrays) -> SharedArrays:
@@ -93,22 +116,17 @@ def resident_rank(rank, shared: SharedArrays, plan: Plan, config,
                   chunk_rows: int | None):
     """One rank's share of the resident path -> (its stage timings, the
     merged CovariateTables on rank 0, else None)."""
-    from ..ops.bloom import bloom_build_words, bloom_query_words
-    from ..ops.covariate import accumulate_covariates, new_covariate_state
-    from ..ops.hash_cache import hash_cache_build
-    from ..ops.inference import infer_errors
-    from ..ops.trusted import trusted_from_cache
     from ..oracle.covariate import CovariateTables
     from ..oracle.gatk import build_recal_table
     from ..pipeline.resident import (DEFAULT_CHUNK_ROWS, StageClock,
                                      apply_table_on_device,
                                      arrays_to_device)
-    from .merge import COV_NAMES, broadcast_table, or_merge, sum_merge
+    from .merge import COV_NAMES, broadcast_table, sum_merge
 
     dev = rank.device
     timings: dict = {}
     mark = StageClock(timings, dev).mark
-    k, h = config.k, config.num_hashes
+    k = config.k
     rows = int(chunk_rows or DEFAULT_CHUNK_ROWS)
     s, e = row_range(plan.num_reads, rank.world, rank.rank)
     threshold = int(alpha_threshold(plan.alpha))
@@ -120,30 +138,14 @@ def resident_rank(rank, shared: SharedArrays, plan: Plan, config,
     t_table = torch.from_numpy(t_host.astype(np.int32)).to(dev)
     mark("h2d")
 
-    # ---- pass 1: hash cache of the rank's rows, merged filter A
-    h1, word, flag, filt = hash_cache_build(codes, s, k, h, threshold,
-                                            plan.log2_ma, chunk_rows=rows)
-    filt_a = or_merge(rank, filt)
-    del filt
-    mark("pass1")
-
-    # ---- pass 2: trust against the merged A, merged filter B
-    trusted_from_cache(filt_a, h1, word, t_table, k, config.trust_threshold,
-                       out=flag)
-    del filt_a
-    filt_b = or_merge(rank, bloom_build_words(h1, word, flag, plan.log2_mb))
-    mark("pass2")
-
-    # ---- pass 3: walks + histogram of the rank's rows, summed tables
-    cov = new_covariate_state(plan.num_rg, plan.max_len, dev)
-    tr0 = bloom_query_words(filt_b, h1, word)
-    for cs in range(0, e - s, rows):
-        ce = min(e - s, cs + rows)
-        err = infer_errors(filt_b, codes[cs:ce], k, h, config.ext_cap,
-                           trusted0=tr0[cs:ce])
-        accumulate_covariates(cov, codes[cs:ce], quals[cs:ce], mask[cs:ce],
-                              rgs[cs:ce], seconds[cs:ce], err)
-    del tr0, h1, word, flag, filt_b
+    if plan.layout == "sharded":
+        cov = _sharded_passes_1_to_3(rank, plan, config, codes, quals, mask,
+                                     rgs, seconds, s, threshold, t_table,
+                                     rows, mark, timings)
+    else:
+        cov = _replicated_passes_1_to_3(rank, plan, config, codes, quals,
+                                        mask, rgs, seconds, s, threshold,
+                                        t_table, rows, mark)
     sum_merge(rank, cov)
     tables = CovariateTables(plan.num_rg, plan.max_len,
                              *(cov[n].cpu().numpy() for n in COV_NAMES))
@@ -159,6 +161,93 @@ def resident_rank(rank, shared: SharedArrays, plan: Plan, config,
         recal, codes, quals, mask, rgs, seconds, rows))
     mark("pass4")
     return timings, tables if rank.rank == 0 else None
+
+
+def _replicated_passes_1_to_3(rank, plan: Plan, config, codes, quals, mask,
+                              rgs, seconds, s: int, threshold: int, t_table,
+                              rows: int, mark) -> dict:
+    """Passes 1-3 of the replicated layout on the rank's rows -> its
+    covariate state (not yet summed over the ranks)."""
+    from ..ops.bloom import bloom_build_words, bloom_query_words
+    from ..ops.covariate import accumulate_covariates, new_covariate_state
+    from ..ops.hash_cache import hash_cache_build
+    from ..ops.inference import infer_errors
+    from ..ops.trusted import trusted_from_cache
+    from .merge import or_merge
+
+    k, h = config.k, config.num_hashes
+    n_rows = codes.shape[0]
+    # ---- pass 1: hash cache of the rank's rows, merged filter A
+    h1, word, flag, filt = hash_cache_build(codes, s, k, h, threshold,
+                                            plan.log2_ma, chunk_rows=rows)
+    filt_a = or_merge(rank, filt)
+    del filt
+    mark("pass1")
+
+    # ---- pass 2: trust against the merged A, merged filter B
+    trusted_from_cache(filt_a, h1, word, t_table, k, config.trust_threshold,
+                       out=flag)
+    del filt_a
+    filt_b = or_merge(rank, bloom_build_words(h1, word, flag, plan.log2_mb))
+    mark("pass2")
+
+    # ---- pass 3: walks + histogram of the rank's rows
+    cov = new_covariate_state(plan.num_rg, plan.max_len, codes.device)
+    tr0 = bloom_query_words(filt_b, h1, word)
+    for cs in range(0, n_rows, rows):
+        ce = min(n_rows, cs + rows)
+        err = infer_errors(filt_b, codes[cs:ce], k, h, config.ext_cap,
+                           trusted0=tr0[cs:ce])
+        accumulate_covariates(cov, codes[cs:ce], quals[cs:ce], mask[cs:ce],
+                              rgs[cs:ce], seconds[cs:ce], err)
+    return cov
+
+
+def _sharded_passes_1_to_3(rank, plan: Plan, config, codes, quals, mask,
+                           rgs, seconds, s: int, threshold: int, t_table,
+                           rows: int, mark, timings: dict) -> dict:
+    """Passes 1-3 of the hash-space-sharded layout on the rank's rows ->
+    its covariate state (not yet summed over the ranks); the shards' word
+    counts go to `timings` (``shard_words_a``, ``shard_words_b``)."""
+    from ..ops.covariate import accumulate_covariates, new_covariate_state
+    from ..ops.hash_cache import hash_keep
+    from ..ops.trusted import trusted_from_hits
+    from .sharded_bloom import ShardedFilter, agreed_max
+
+    k, h = config.k, config.num_hashes
+    n_rows = codes.shape[0]
+    # ---- pass 1: hash cache and keep plane, kept windows to A's owners
+    h1, word, flag = hash_keep(codes, s, k, h, threshold, chunk_rows=rows)
+    filt_a = ShardedFilter(rank, plan.log2_ma)
+    filt_a.insert(h1, word, flag)
+    timings["shard_words_a"] = int(filt_a.words.numel())
+    mark("pass1")
+
+    # ---- pass 2: collective test against A, the rule, trusted windows to
+    # B's owners
+    hits = filt_a.test(h1, word)
+    del filt_a
+    trusted_from_hits(hits, word, t_table, k, config.trust_threshold,
+                      out=flag)
+    del hits
+    filt_b = ShardedFilter(rank, plan.log2_mb)
+    filt_b.insert(h1, word, flag)
+    timings["shard_words_b"] = int(filt_b.words.numel())
+    mark("pass2")
+
+    # ---- pass 3: collective initial trust, the round walk per row chunk
+    cov = new_covariate_state(plan.num_rg, plan.max_len, codes.device)
+    tr0 = filt_b.test(h1, word)
+    del h1, word, flag
+    for c in range(agreed_max(rank, -(-n_rows // rows))):
+        cs = min(n_rows, c * rows)
+        ce = min(n_rows, cs + rows)
+        err = filt_b.walk(codes[cs:ce], tr0[cs:ce], k, h, config.ext_cap)
+        if ce > cs:
+            accumulate_covariates(cov, codes[cs:ce], quals[cs:ce],
+                                  mask[cs:ce], rgs[cs:ce], seconds[cs:ce],
+                                  err)
+    return cov
 
 
 def check_batch(config, devices: int) -> None:

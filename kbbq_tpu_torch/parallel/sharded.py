@@ -1,15 +1,20 @@
-"""The windowed engine over the ranks of a group (replicated filters), and
-the dispatch of the multi-device routes.
+"""The windowed engine over the ranks of a group, and the dispatch of the
+multi-device routes with either Bloom layout.
 
 Counterpart of ``kbbq_tpu/parallel/sharded.py`` (``ShardedRecalPipeline``,
-``sharded_recalibrate_arrays``) and of the multi-device branches of
+``sharded_recalibrate_arrays``), of
+``kbbq_tpu/parallel/sharded_bloom.py::sharded_bloom_recalibrate_arrays``
+and of the multi-device branches of
 ``kbbq_tpu/pipeline/streaming.py::recalibrate_fastq_streaming`` and
 ``kbbq_tpu/pipeline/bam.py::recalibrate_bam_streaming``.  Each rank runs
 ``pipeline/stream_resident.py``'s engine on windows w with w mod D = its
-rank, at their global ordinals; filters merge by ``or_merge`` and the
-tables by ``sum_merge`` at every pass boundary.  Rank 0 writes the
-checkpoints, in the one-device files (the fingerprint holds no device
-count, so a checkpoint written by D ranks resumes on any count), and the
+rank, at their global ordinals; the tables merge by ``sum_merge``.  With
+the replicated layout the filters merge by ``or_merge`` at every pass
+boundary; with the hash-space-sharded one (``sharded_bloom.py``) each rank
+holds its shard of each filter and the passes exchange with the owners.
+Rank 0 writes the checkpoints, in the one-device files (the fingerprint
+holds no device count, so a checkpoint written by D ranks resumes on any
+count; a sharded filter's shards reach its host one at a time), and the
 report.  Pass 4: over in-memory arrays every rank writes its windows' rows
 into the caller's output; on the streamed routes rank 0's writer takes
 every window in order, the other ranks' rows sent to it.
@@ -30,6 +35,7 @@ import time
 import numpy as np
 
 from .mesh import check_devices, launch, slowest
+from .sharded_bloom import check_power_of_two
 from .resident_sharded import (Plan, check_batch, plan_for, resident_rank,
                                run_ranks, shared_rows)
 
@@ -39,10 +45,11 @@ REPLICATED_BLOOM_BUDGET = 4 << 30
 
 
 def resolve_layout(bloom_layout: str, config, total_bases: int,
-                   total_kmers: int) -> str:
-    """'replicated' for "replicated", and for "auto" when both filters
-    together hold at most REPLICATED_BLOOM_BUDGET bits (the reference's
-    rule); the hash-space-sharded layout is refused."""
+                   total_kmers: int, devices: int | None = None) -> str:
+    """'replicated' or 'sharded': "auto" picks the replicated layout while
+    both filters together hold at most REPLICATED_BLOOM_BUDGET bits (the
+    reference's rule), else the hash-space-sharded one, which is refused
+    for a device count that is not a power of two (`devices`)."""
     if bloom_layout == "auto":
         from ..oracle.pipeline import bloom_params_for
         alpha, coverage = config.resolve_alpha(int(total_bases))
@@ -50,22 +57,20 @@ def resolve_layout(bloom_layout: str, config, total_bases: int,
         bloom_layout = ("replicated"
                         if pa.m + pb.m <= REPLICATED_BLOOM_BUDGET
                         else "sharded")
-    if bloom_layout == "sharded":
-        raise ValueError(
-            "the hash-space-sharded Bloom layout (filters over "
-            f"{REPLICATED_BLOOM_BUDGET} bits, or --bloom-layout sharded) is "
-            "not ported yet (ROADMAP B10); use --bloom-layout replicated or "
-            "one device")
-    if bloom_layout != "replicated":
+    if bloom_layout not in ("replicated", "sharded"):
         raise ValueError(f"unknown bloom layout {bloom_layout!r}")
+    if bloom_layout == "sharded" and devices is not None:
+        check_power_of_two(devices)
     return bloom_layout
 
 
 def windowed_rank(rank, shared, config, start_ordinal: int, checkpoint_dir,
-                  chunk_rows, window_rows: int):
-    """One rank's windows of the in-memory arrays -> (its stage timings,
-    the tables on rank 0, else None); each window's rows go into the
-    caller's output."""
+                  chunk_rows, window_rows: int, layout: str = "replicated"):
+    """One rank's windows of the in-memory arrays -> (its stage timings, the
+    tables on rank 0, else None); each window's rows go into the
+    caller's output.  The sharded layout's filters are checkpointed as
+    ``rows_a_sharded`` / ``rows_b_sharded`` (the reference's names on this
+    route)."""
     from ..pipeline.resident import StageClock
     from ..pipeline.stream_resident import (ArraysWindowSource,
                                             StreamResidentEngine)
@@ -76,8 +81,11 @@ def windowed_rank(rank, shared, config, start_ordinal: int, checkpoint_dir,
     arrays = shared_rows(shared, 0, None)
     ckpt = Checkpoint(checkpoint_dir) if checkpoint_dir else None
     src = ArraysWindowSource(arrays, window_rows, start_ordinal)
+    names = ("rows_a_sharded", "rows_b_sharded") if layout == "sharded" \
+        else ("rows_a", "rows_b")
     eng = StreamResidentEngine(src, config, rank.device,
-                               chunk_rows=chunk_rows, rank=rank)
+                               chunk_rows=chunk_rows, rank=rank,
+                               layout=layout, filter_names=names)
     clock.mark("setup")
     recal = eng.run_passes_1_to_3(ckpt, clock.mark)
     for ordinal, nq, _ in eng.gathered(recal):
@@ -88,8 +96,8 @@ def windowed_rank(rank, shared, config, start_ordinal: int, checkpoint_dir,
 
 def arrays_rank(rank, shared, plan: Plan, config, chunk_rows):
     """The resident path when every rank's share fits its card (its rows
-    and both filters, ``resident_need_bytes``), else the windowed engine;
-    the ranks agree by an all-reduce of the answer."""
+    and both filters, or their shards, ``resident_need_bytes``), else the
+    windowed engine; the ranks agree by an all-reduce of the answer."""
     import torch
     import torch.distributed as dist
 
@@ -99,25 +107,31 @@ def arrays_rank(rank, shared, plan: Plan, config, chunk_rows):
     if rank.device.type == "cuda":
         need = resident_need_bytes(
             -(-plan.num_reads // rank.world), plan.max_len, plan.total_bases,
-            plan.total_kmers, config, chunk_rows)
+            plan.total_kmers, config, chunk_rows,
+            shards=rank.world if plan.layout == "sharded" else None)
         fits = int(need <= torch.cuda.mem_get_info(rank.device)[0])
     flag = torch.tensor([fits], dtype=torch.int32, device=rank.device)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN)
     if int(flag.item()):
         return resident_rank(rank, shared, plan, config, chunk_rows)
     return windowed_rank(rank, shared, config, 0, None, chunk_rows,
-                         max(int(config.batch_size), DEFAULT_CHUNK_READS))
+                         max(int(config.batch_size), DEFAULT_CHUNK_READS),
+                         plan.layout)
 
 
 def run_arrays_sharded(arrays, config, devices: int, device_type: str,
                        timings: dict | None = None,
-                       chunk_rows: int | None = None) -> np.ndarray:
+                       chunk_rows: int | None = None,
+                       layout: str = "replicated") -> np.ndarray:
     """``run_pipeline``'s route over `devices` ranks with nothing to resume
     (no checkpoint, first ordinal 0): the resident path, or the windowed
-    engine where a rank's share is over its card's free memory."""
+    engine where a rank's share is over its card's free memory; `layout`
+    "replicated" or "sharded" (``resolve_layout``'s answer).  With the
+    sharded layout `timings` also gets ``shard_words_a`` / ``_b``, the words
+    of each filter a rank held (resident path)."""
     if arrays.num_reads == 0:
         return np.zeros((0, arrays.max_len), np.int8)
-    plan = plan_for(arrays, config)
+    plan = plan_for(arrays, config, layout, devices)
     return run_ranks(arrays_rank, arrays, devices, device_type, timings,
                      plan, config, chunk_rows)
 
@@ -127,10 +141,12 @@ def sharded_recalibrate_arrays(arrays, config, devices: int,
                                checkpoint_dir: str | None = None,
                                device=None, timings: dict | None = None,
                                chunk_rows: int | None = None,
-                               window_rows: int | None = None
-                               ) -> np.ndarray:
+                               window_rows: int | None = None,
+                               layout: str = "replicated") -> np.ndarray:
     """Full pipeline over in-memory arrays through the windowed engine on
-    `devices` ranks -> new quals int8 [N, L], the bytes of one device.
+    `devices` ranks -> new quals int8 [N, L], the bytes of one device (of
+    the reference's sharded pipeline with `layout` "sharded", which bumps
+    the filters of a small input).
 
     Windows of `window_rows` rows (default ``max(config.batch_size,
     DEFAULT_CHUNK_READS)``, as on one device; the result does not depend
@@ -146,7 +162,7 @@ def sharded_recalibrate_arrays(arrays, config, devices: int,
     check_batch(config, devices)
     if arrays.num_reads == 0:
         return np.zeros((0, arrays.max_len), np.int8)
-    plan_for(arrays, config)
+    plan_for(arrays, config, layout, devices)
     if checkpoint_dir:
         from ..state.checkpoint import Checkpoint, run_fingerprint
         Checkpoint(checkpoint_dir).check_fingerprint(
@@ -155,7 +171,7 @@ def sharded_recalibrate_arrays(arrays, config, devices: int,
                                   DEFAULT_CHUNK_READS))
     return run_ranks(windowed_rank, arrays, devices, dev.type, timings,
                      config, int(start_ordinal), checkpoint_dir, chunk_rows,
-                     rows)
+                     rows, layout)
 
 
 class _Relay:
@@ -250,8 +266,8 @@ def recalibrate_fastq_sharded(in_paths, out_paths, config, devices: int,
     t0 = time.time()
     scan = scan_fastq_files(in_paths, config.k, chunk_reads)
     t_scan = time.time() - t0
-    resolve_layout(bloom_layout, config, scan.total_bases,
-                   scan.total_kmers(config.k))
+    layout = resolve_layout(bloom_layout, config, scan.total_bases,
+                            scan.total_kmers(config.k), devices)
     check_fastq_checkpoint(checkpoint_dir, config, in_paths, scan,
                            chunk_reads, interleaved)
     relay = _Relay(out_paths)
@@ -261,7 +277,7 @@ def recalibrate_fastq_sharded(in_paths, out_paths, config, devices: int,
               report_out=report_out, apply_report=apply_report,
               host_cache_bytes=DEFAULT_HOST_CACHE_BYTES
               if host_cache_bytes is None else host_cache_bytes,
-              device_cache_bytes=device_cache_bytes)
+              device_cache_bytes=device_cache_bytes, layout=layout)
     return _run_streamed(fastq_windowed_run, kw, relay, devices, dev.type,
                          timings, t_scan)
 
@@ -289,7 +305,7 @@ def recalibrate_bam_sharded(in_path: str, out_path, config, devices: int,
     t0 = time.time()
     scan = scan_bam(in_path, config.k, chunk_records)
     t_scan = time.time() - t0
-    resolve_layout(bloom_layout, config, scan[1], scan[2])
+    layout = resolve_layout(bloom_layout, config, scan[1], scan[2], devices)
     check_bam_checkpoint(checkpoint_dir, config, scan, use_oq)
     relay = _Relay(out_path)
     kw = dict(in_path=in_path, out_path=relay.paths, config=config,
@@ -298,7 +314,7 @@ def recalibrate_bam_sharded(in_path: str, out_path, config, devices: int,
               report_out=report_out, apply_report=apply_report,
               host_cache_bytes=DEFAULT_HOST_CACHE_BYTES
               if host_cache_bytes is None else host_cache_bytes,
-              device_cache_bytes=device_cache_bytes)
+              device_cache_bytes=device_cache_bytes, layout=layout)
     return _run_streamed(bam_windowed_run, kw, relay, devices, dev.type,
                          timings, t_scan)
 

@@ -73,7 +73,8 @@ CHUNK_BYTES_PER_CELL = 78
 
 def resident_need_bytes(num_reads: int, max_len: int, total_bases: int,
                         total_kmers: int, config: RecalConfig,
-                        chunk_rows: int | None = None) -> int:
+                        chunk_rows: int | None = None,
+                        shards: int | None = None) -> int:
     """Device bytes the resident path needs at its peak for `num_reads`
     reads padded to `max_len` (holding `total_bases` bases and
     `total_kmers` k-mers) under `config`, from the shapes: codes, quals and
@@ -81,17 +82,28 @@ def resident_need_bytes(num_reads: int, max_len: int, total_bases: int,
     window of the [N, max_len - k + 1] hash cache its h1 and word (4 B
     each), the keep / trust plane and pass 3's initial trust (1 B each);
     filters A and B (m / 8 bytes each); and pass 3's per-chunk temporaries
-    (CHUNK_BYTES_PER_CELL per chunk row and padded base)."""
+    (CHUNK_BYTES_PER_CELL per chunk row and padded base).  With `shards`
+    (the hash-space-sharded layout on that many ranks) each filter counts
+    at its shard, 1/shards of its bumped size, and one chunk of the
+    filters' exchange is added."""
     from ..oracle.pipeline import bloom_params_for
     from .resident import DEFAULT_CHUNK_ROWS
     N, L = int(num_reads), int(max_len)
     alpha, coverage = config.resolve_alpha(int(total_bases))
-    pa, pb = bloom_params_for(config, int(total_kmers), alpha, coverage)
+    if shards:
+        from ..parallel.sharded_bloom import (EXCHANGE_BYTES_PER_ENTRY,
+                                              EXCHANGE_CHUNK, sharded_params)
+        pa, pb = sharded_params(config, int(total_kmers), alpha, coverage,
+                                shards)
+        extra = EXCHANGE_CHUNK * EXCHANGE_BYTES_PER_ENTRY
+    else:
+        pa, pb = bloom_params_for(config, int(total_kmers), alpha, coverage)
+        shards, extra = 1, 0
     windows = N * max(L - config.k + 1, 0)
     rows = min(N, int(chunk_rows or DEFAULT_CHUNK_ROWS))
     return (3 * N * L + 9 * N + 10 * windows
-            + ((1 << pa.log2_m) + (1 << pb.log2_m)) // 8
-            + CHUNK_BYTES_PER_CELL * rows * L)
+            + ((1 << pa.log2_m) + (1 << pb.log2_m)) // 8 // shards
+            + CHUNK_BYTES_PER_CELL * rows * L + extra)
 
 
 def fits_resident(arrays: ReadArrays, dev, config: RecalConfig,
@@ -124,12 +136,14 @@ def run_pipeline(arrays: ReadArrays, config: RecalConfig,
 
     devices: None or 1 is one device; N > 1 runs N ranks of a process group
     (``parallel/``: one per card, or N CPU processes for device="cpu"),
-    the same bytes, by the reference's rules: more devices than there are,
-    a batch size that N does not divide and a layout other than the
-    replicated one (``bloom_layout``: "auto" picks it while both filters
-    hold at most ``REPLICATED_BLOOM_BUDGET`` bits) are refused.  Each rank
-    takes the resident path on its rows when nothing asks for the windowed
-    engine and its share fits its card.
+    the same bytes, by the reference's rules: more devices than there are
+    and a batch size that N does not divide are refused.  ``bloom_layout``
+    "replicated" holds whole filters on every rank, "sharded" 1/N of each
+    (the hash-space-sharded layout: N must be a power of two, and a small
+    input's filters are bumped as in the reference), "auto" the replicated
+    one while both filters hold at most ``REPLICATED_BLOOM_BUDGET`` bits.
+    Each rank takes the resident path on its rows when nothing asks for
+    the windowed engine and its share fits its card.
     """
     from .. import resolve_device
     dev = resolve_device(device)
@@ -163,14 +177,15 @@ def _run_devices(arrays, config, devices: int, bloom_layout: str, dev,
             f"batch size {config.batch_size} must be divisible by "
             f"--devices {devices}")
     lens = arrays.mask.sum(axis=1)
-    sharded.resolve_layout(bloom_layout, config, int(lens.sum()),
-                           int(np.maximum(lens - config.k + 1, 0).sum()))
+    layout = sharded.resolve_layout(
+        bloom_layout, config, int(lens.sum()),
+        int(np.maximum(lens - config.k + 1, 0).sum()), devices)
     if checkpoint_dir is None and start_ordinal == 0:
         return sharded.run_arrays_sharded(arrays, config, devices, dev.type,
-                                          timings, chunk_rows)
+                                          timings, chunk_rows, layout)
     return sharded.sharded_recalibrate_arrays(
         arrays, config, devices, start_ordinal, checkpoint_dir, device=dev,
-        timings=timings, chunk_rows=chunk_rows)
+        timings=timings, chunk_rows=chunk_rows, layout=layout)
 
 
 def apply_table_arrays(arrays: ReadArrays, recal_table: np.ndarray,

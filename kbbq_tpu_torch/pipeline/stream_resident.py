@@ -34,6 +34,15 @@ which re-cuts them into windows of one size for jit, has no use here.
 Pass boundaries are checkpoints (``state/checkpoint.py``: the JAX package's
 files), and a streamed FASTQ run into one plain file resumes pass 4 at the
 chunk it had reached.
+
+As a rank of a group the engine stages every world-th window.  With the
+replicated layout its filters are merged at the pass boundaries; with the
+hash-space-sharded layout (``parallel/sharded_bloom.py``) it holds its
+shard of each filter, and every insert, word test and walk round is an
+exchange with the other ranks.  Those are collectives, and ranks own
+different numbers of windows, so the sharded passes step in lockstep
+(``_steps``): every rank takes as many steps as the busiest rank has
+windows, with an empty window where it has none left.
 """
 
 from __future__ import annotations
@@ -262,11 +271,17 @@ class StreamResidentEngine:
     rgs, seconds, ...); the rest is the source's own, for pass 4."""
 
     def __init__(self, source, config, dev, device_cache_bytes=None,
-                 chunk_rows: int | None = None, rank=None):
+                 chunk_rows: int | None = None, rank=None,
+                 layout: str = "replicated",
+                 filter_names=("rows_a", "rows_b")):
         self.source = source
         # a rank of a process group (``parallel/mesh.py``): it stages every
-        # world-th window and merges at every pass boundary
+        # world-th window and merges at every pass boundary, or with the
+        # "sharded" layout holds its shard of each filter
         self.rank = rank
+        self.sharded = layout == "sharded"
+        # the checkpoint files of filters A and B
+        self.filter_names = tuple(filter_names)
         self.config = config
         self.dev = dev
         self.L = source.max_len
@@ -277,13 +292,18 @@ class StreamResidentEngine:
         self.threshold = int(alpha_threshold(alpha))
         self.t_table = torch.from_numpy(
             coverage_thresholds(alpha, k).astype(np.int32)).to(dev)
-        params_a, params_b = bloom_params_for(
-            config, source.total_kmers(k), alpha, coverage)
-        for p in (params_a, params_b):
-            # the device holds packed words only (m/8 bytes per filter)
-            check_layout_capacity(p, 33, "single-device windowed",
-                                  "lower the bits per key or split the "
-                                  "input")
+        if self.sharded:
+            from ..parallel.sharded_bloom import sharded_params
+            params_a, params_b = sharded_params(
+                config, source.total_kmers(k), alpha, coverage, rank.world)
+        else:
+            params_a, params_b = bloom_params_for(
+                config, source.total_kmers(k), alpha, coverage)
+            for p in (params_a, params_b):
+                # the device holds packed words only (m/8 bytes per filter)
+                check_layout_capacity(p, 33, "single-device windowed",
+                                      "lower the bits per key or split the "
+                                      "input")
         self.la, self.lb = params_a.log2_m, params_b.log2_m
         self.filt_a = self.filt_b = self.tables = None
         # codes, quals, mask: 3 B per padded base; rgs 8 B, seconds 1 B a read
@@ -330,6 +350,25 @@ class StreamResidentEngine:
         if self._cache_on:
             self._cache_complete = True
 
+    def _steps(self):
+        """The sharded passes' lockstep: this rank's windows as
+        ``_windows`` gives them, then None, until no rank has one left."""
+        from ..parallel.sharded_bloom import agreed_max
+        it = self._windows()
+        while True:
+            got = next(it, None)
+            if not agreed_max(self.rank, got is not None):
+                return
+            yield got
+
+    def _step_tensors(self, got):
+        """A step's device tensors (codes, quals, mask, rgs, seconds), with
+        no rows where the rank has no window."""
+        if got is not None:
+            return got[1]
+        return (torch.empty((0, self.L), dtype=torch.int8, device=self.dev),
+                None, None, None, None)
+
     def _or_merge(self, filt: torch.Tensor) -> torch.Tensor:
         if self.rank is None:
             return filt
@@ -342,6 +381,16 @@ class StreamResidentEngine:
 
     def run_pass1(self) -> None:
         k, h = self.config.k, self.config.num_hashes
+        if self.sharded:
+            from ..ops.hash_cache import hash_keep
+            from ..parallel.sharded_bloom import ShardedFilter
+            filt = ShardedFilter(self.rank, self.la)
+            for got in self._steps():
+                codes = self._step_tensors(got)[0]
+                filt.insert(*hash_keep(codes, got[0] if got else 0, k, h,
+                                       self.threshold))
+            self.filt_a = filt
+            return
         filt = self._zeros(self.la)
         for ordinal, w, _ in self._windows():
             hash_cache_into(w[0], filt, ordinal, k, h, self.threshold)
@@ -349,6 +398,18 @@ class StreamResidentEngine:
 
     def run_pass2(self) -> None:
         k, h = self.config.k, self.config.num_hashes
+        if self.sharded:
+            from ..ops.trusted import trusted_from_hits
+            from ..parallel.sharded_bloom import ShardedFilter
+            filt = ShardedFilter(self.rank, self.lb)
+            for got in self._steps():
+                h1, word = hash_windows(self._step_tensors(got)[0], k, h)
+                trusted = trusted_from_hits(
+                    self.filt_a.test(h1, word), word, self.t_table, k,
+                    self.config.trust_threshold)
+                filt.insert(h1, word, trusted)
+            self.filt_b = filt
+            return
         filt = self._zeros(self.lb)
         for _, w, _ in self._windows():
             h1, word = hash_windows(w[0], k, h)
@@ -357,10 +418,33 @@ class StreamResidentEngine:
             bloom_or_words_into(filt, h1, word, trusted)
         self.filt_b = self._or_merge(filt)
 
+    def _pass3_sharded(self, cov: dict) -> None:
+        from ..parallel.sharded_bloom import agreed_max
+        k, h = self.config.k, self.config.num_hashes
+        for got in self._steps():
+            codes, quals, mask, rgs, seconds = self._step_tensors(got)
+            h1, word = hash_windows(codes, k, h)
+            tr0 = self.filt_b.test(h1, word)
+            del h1, word
+            N = codes.shape[0]
+            # as many chunks on every rank: each walk round is collective
+            for c in range(agreed_max(self.rank, -(-N // self.rows))):
+                s = min(N, c * self.rows)
+                e = min(N, s + self.rows)
+                err = self.filt_b.walk(codes[s:e], tr0[s:e], k, h,
+                                       self.config.ext_cap)
+                if e > s:
+                    accumulate_covariates(cov, codes[s:e], quals[s:e],
+                                          mask[s:e], rgs[s:e], seconds[s:e],
+                                          err)
+
     def run_pass3(self) -> None:
         k, h = self.config.k, self.config.num_hashes
         cov = new_covariate_state(self.num_rg, self.L, self.dev)
-        for _, (codes, quals, mask, rgs, seconds), _ in self._windows():
+        if self.sharded:
+            self._pass3_sharded(cov)
+        for _, (codes, quals, mask, rgs, seconds), _ in (
+                () if self.sharded else self._windows()):
             h1, word = hash_windows(codes, k, h)
             tr0 = bloom_query_words(self.filt_b, h1, word)
             del h1, word
@@ -384,21 +468,22 @@ class StreamResidentEngine:
         every one loads, rank 0 alone saves (the merged state, in the
         one-device files) and computes the table, which it broadcasts."""
         saves = ckpt if self.rank is None or self.rank.rank == 0 else None
-        rows = ckpt.load_array("rows_a") if ckpt else None
+        name_a, name_b = self.filter_names
+        rows = ckpt.load_array(name_a) if ckpt else None
         if rows is not None:
-            self.filt_a = bloom_from_numpy(rows, self.dev)
+            self.filt_a = self._load_filter(rows)
         else:
             self.run_pass1()
-            if saves:
-                saves.save_array("rows_a", bloom_to_numpy(self.filt_a))
+            if ckpt:
+                self._save_filter(saves, name_a, self.filt_a)
         mark("pass1")
-        rows = ckpt.load_array("rows_b") if ckpt else None
+        rows = ckpt.load_array(name_b) if ckpt else None
         if rows is not None:
-            self.filt_b = bloom_from_numpy(rows, self.dev)
+            self.filt_b = self._load_filter(rows)
         else:
             self.run_pass2()
-            if saves:
-                saves.save_array("rows_b", bloom_to_numpy(self.filt_b))
+            if ckpt:
+                self._save_filter(saves, name_b, self.filt_b)
         self.filt_a = None
         mark("pass2")
         loaded = ckpt.load_covariates() if ckpt else None
@@ -419,6 +504,23 @@ class StreamResidentEngine:
                 if self.rank.rank == 0 else None, self.num_rg, self.L)
         mark("deltas")
         return recal
+
+    def _load_filter(self, rows: np.ndarray):
+        """A saved filter (uint32 [m/32]): the whole filter on the device,
+        or with the sharded layout this rank's slice of it."""
+        if self.sharded:
+            from ..parallel.sharded_bloom import ShardedFilter
+            return ShardedFilter.from_host(self.rank, rows)
+        return bloom_from_numpy(rows, self.dev)
+
+    def _save_filter(self, saves, name: str, filt) -> None:
+        """Save a filter into `saves` (rank 0's checkpoint, None on the
+        other ranks); the sharded layout's shards reach rank 0's host one
+        at a time, every rank taking part."""
+        host = filt.to_host() if self.sharded else (
+            bloom_to_numpy(filt) if saves else None)
+        if saves:
+            saves.save_array(name, host)
 
     def gathered(self, recal: np.ndarray, host: bool = False,
                  every: bool = False):
@@ -578,18 +680,20 @@ def check_fastq_checkpoint(checkpoint_dir, config, in_paths, scan,
 def fastq_windowed_run(in_paths, out_paths, config, scan, checkpoint_dir,
                        interleaved: bool, chunk_reads: int, clock,
                        report_out, apply_report, dev, host_cache_bytes: int,
-                       device_cache_bytes, rank=None) -> dict:
+                       device_cache_bytes, rank=None,
+                       layout: str = "replicated") -> dict:
     """The passes of ``recalibrate_fastq_stream_resident`` after its scan
     and fingerprint check.  As a rank of a group (`rank`), the passes run
-    on the rank's windows and rank 0 alone writes the report, the
-    checkpoints and the output, every window in order."""
+    on the rank's windows with the filters' `layout`, and rank 0 alone
+    writes the report, the checkpoints and the output, every window in
+    order."""
     from ..state.checkpoint import Checkpoint
     world = rank.world if rank is not None else 1
     writes = rank is None or rank.rank == 0
     src = FastqWindowSource(in_paths, scan, interleaved, chunk_reads,
                             host_cache_bytes // world)
     eng = StreamResidentEngine(src, config, dev, device_cache_bytes,
-                               rank=rank)
+                               rank=rank, layout=layout)
     ckpt = Checkpoint(checkpoint_dir) if checkpoint_dir else None
     rg_names = [str(p) for p in in_paths]
     clock.mark("setup")
@@ -713,12 +817,13 @@ def check_bam_checkpoint(checkpoint_dir, config, scan, use_oq: bool) -> None:
 def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
                      set_oq: bool, checkpoint_dir, chunk_records: int, clock,
                      report_out, apply_report, dev, host_cache_bytes: int,
-                     device_cache_bytes, rank=None) -> dict:
+                     device_cache_bytes, rank=None,
+                     layout: str = "replicated") -> dict:
     """The passes of ``recalibrate_bam_stream_resident`` after its scan
     (`scan`: ``scan_bam``'s tuple) and fingerprint check.  As a rank of a
-    group (`rank`), the passes run on the rank's windows and rank 0 alone
-    writes the report, the checkpoints and the output, every chunk in
-    order."""
+    group (`rank`), the passes run on the rank's windows with the filters'
+    `layout`, and rank 0 alone writes the report, the checkpoints and the
+    output, every chunk in order."""
     from ..io.bam_stream import BamStreamWriter, open_bam_stream
     from ..io.bam_vec import rewrite_quals_chunk
     from ..state.checkpoint import Checkpoint
@@ -730,7 +835,7 @@ def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
     src = BamWindowSource(in_path, registry, max_len, n, bases, tk, use_oq,
                           chunk_records, host_cache_bytes // world)
     eng = StreamResidentEngine(src, config, dev, device_cache_bytes,
-                               rank=rank)
+                               rank=rank, layout=layout)
     ckpt = Checkpoint(checkpoint_dir) if checkpoint_dir else None
     rg_names = _registry_names(registry)
     clock.mark("setup")

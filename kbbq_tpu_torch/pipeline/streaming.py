@@ -28,11 +28,13 @@ def recalibrate_fastq_streaming(
     as ``stream_resident.recalibrate_fastq_stream_resident``.
 
     devices: None or 1 is one device; N > 1 runs N ranks (one per card, or
-    CPU processes for device="cpu"), refused as in ``run_pipeline`` (too
-    many devices, a batch size N does not divide, a layout other than the
-    replicated one, ``bloom_layout``).  `timings` then also gets
-    ``spawn``, ``merge``, ``merge_bytes``, ``world``, ``backend`` and
-    ``launches_by_rank``, and the slowest rank's stages.
+    CPU processes for device="cpu"), with the filters' ``bloom_layout`` and
+    the refusals of ``run_pipeline`` (too many devices, a batch size N does
+    not divide, the sharded layout on N not a power of two; checkpoints
+    keep the one-device names).  `timings` then also gets
+    ``spawn``, ``merge``, ``merge_bytes``, ``exchange``,
+    ``exchange_bytes``, ``world``, ``backend`` and ``launches_by_rank``,
+    and the slowest rank's stages.
     """
     if devices is not None and devices > 1:
         from ..parallel.sharded import recalibrate_fastq_sharded

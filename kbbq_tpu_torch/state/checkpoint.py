@@ -10,6 +10,9 @@ formats, so each package resumes from the other's streamed checkpoints:
                 and, for a streamed FASTQ run, ``pass4`` = {chunks, bytes}
   rows_a.npy    filter A after pass 1, packed uint32 [m/32]
   rows_b.npy    filter B after pass 2, packed uint32 [m/32]
+                (``rows_a_sharded`` / ``rows_b_sharded`` for the in-memory
+                route with the hash-space-sharded layout, the reference's
+                names there; the same words, gathered from the shards)
   cov_*.npy     the four int64 covariate tables after pass 3
 
 Filters are saved as their packed words (``state/convert.py``), never as a
@@ -131,10 +134,12 @@ class Checkpoint:
         self._mark(self.load_meta(), name)
 
     def load_array(self, name: str) -> np.ndarray | None:
-        """The artifact if its pass is marked done, else None."""
+        """The artifact if its pass is marked done, else None; mapped
+        read-only (a rank of the sharded layout reads only its slice)."""
         if name not in self.load_meta()["passes_done"]:
             return None
-        return np.load(os.path.join(self.path, f"{name}.npy"))
+        return np.load(os.path.join(self.path, f"{name}.npy"),
+                       mmap_mode="r")
 
     def save_covariates(self, tables: CovariateTables) -> None:
         os.makedirs(self.path, exist_ok=True)

@@ -12,9 +12,12 @@ host codec from this checkout, draws chip_smoke.py's config 2 dataset
 ``recalibrate_fastq``, then runs chip_smoke.py's ``[devices]`` phase at
 D = the card count (run_pipeline's multi-device route at D and at 2 ranks;
 the streamed route on D ranks with a checkpoint, then resumed after pass
-2) and the command line with ``--devices 0``.  Every run must write the
-one-device bytes, its launches summed over the ranks asserted by entry
-point.  Any difference raises, so the exit code is non-zero; the last
+2), its ``[sharded]`` phase at D and at 2 ranks (the hash-space-sharded
+filters: the resident route, the streamed route with a checkpoint, then
+resumed after pass 2) and the command line with ``--devices 0`` and with
+``--devices 0 --bloom-layout sharded``.  Every run must write the
+one-device bytes, its launches asserted by entry point (by rank for the
+sharded layout).  Any difference raises, so the exit code is non-zero; the last
 two lines are the card's name and power limit and a JSON summary.
 """
 
@@ -76,17 +79,35 @@ def main(argv=None) -> int:
         cs.log(f"[devices_check] one device: {one_wall:.3f} s, launches "
                f"{json.dumps(one)}")
         by_rank, launches = cs.phase_devices(tmp, cfg, args.reads)
+        sharded = {}
+        for world in sorted({D, 2}, reverse=True):
+            t0 = time.time()
+            sh_by_rank, _, sh_streamed = cs.phase_sharded(tmp, cfg,
+                                                          args.reads, world)
+            sharded[world] = {"launches_by_rank": sh_by_rank,
+                              "streamed_launches": sh_streamed,
+                              "seconds": time.time() - t0}
         cli_out = os.path.join(tmp, "cli.fq")
-        rc, wall, last, by_entry, _ = cs.run_cli(
-            tmp, ["recalibrate", src, "-o", cli_out, "--devices", "0",
-                  "-k", str(cfg.k), "-c", f"{cfg.coverage:g}",
-                  "--batch-size", str(cfg.batch_size)], args.reads,
-            name="devices_0")
-        cs.check_launches(f"command line --devices 0 ({D} cards)", by_entry,
-                          cs.resident_ranks_launches(args.reads, D))
-        if not cs.same_file(cli_out, want):
-            raise AssertionError("--devices 0 wrote other bytes than one "
-                                 "device")
+        cli = {}
+        for layout in ("auto", "sharded"):
+            rc, wall, last, by_entry, _ = cs.run_cli(
+                tmp, ["recalibrate", src, "-o", cli_out, "--devices", "0",
+                      "--bloom-layout", layout, "-k", str(cfg.k), "-c",
+                      f"{cfg.coverage:g}", "--batch-size",
+                      str(cfg.batch_size)], args.reads,
+                name=f"devices_0_{layout}")
+            if layout == "auto":
+                cs.check_launches(f"command line --devices 0 ({D} cards)",
+                                  by_entry,
+                                  cs.resident_ranks_launches(args.reads, D))
+            elif not by_entry["walk_propose"] or by_entry["walk_errors"]:
+                raise AssertionError(f"--bloom-layout sharded launched "
+                                     f"{by_entry}")
+            if not cs.same_file(cli_out, want):
+                raise AssertionError(f"--devices 0 --bloom-layout {layout} "
+                                     f"wrote other bytes than one device")
+            cli[layout] = {"wall_s": wall, "stderr": last,
+                           "launches": by_entry}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(cs.smi_line(), flush=True)
@@ -95,8 +116,8 @@ def main(argv=None) -> int:
                       "one_device_launches": one,
                       "resident_launches_by_rank": by_rank,
                       "resident_launches": launches,
-                      "cli_devices_0_wall_s": wall,
-                      "cli_devices_0_stderr": last,
+                      "sharded": sharded,
+                      "cli_devices_0": cli,
                       "seconds": time.time() - t_start}), flush=True)
     return 0
 

@@ -36,3 +36,25 @@ def fail_on_rank(rank, bad: int):
         raise ValueError(f"rank {bad} failed on purpose")
     dist.barrier()
     return np.int64(rank.rank)
+
+
+def sharded_filter(rank, codes, splits, k: int, num_hashes: int,
+                   threshold: int, log2_m: int, chunk: int):
+    """One hash-space-sharded filter built from every rank's rows
+    [splits[r], splits[r+1]) (a rank may have none), with exchanges of at
+    most `chunk` entries: the words this rank holds, the whole filter
+    gathered on rank 0, the collective word test of the rank's windows and
+    the walk of its rows against the filter."""
+    from kbbq_tpu_torch.ops.hash_cache import hash_keep
+    from kbbq_tpu_torch.parallel import sharded_bloom
+    sharded_bloom.EXCHANGE_CHUNK = chunk
+    s, e = splits[rank.rank], splits[rank.rank + 1]
+    c = torch.from_numpy(codes[s:e]).to(rank.device)
+    h1, word, keep = hash_keep(c, s, k, num_hashes, threshold)
+    filt = sharded_bloom.ShardedFilter(rank, log2_m)
+    filt.insert(h1, word, keep)
+    hits = filt.test(h1, word)
+    err = filt.walk(c, hits, k, num_hashes)
+    return {"words": int(filt.words.numel()), "whole": filt.to_host(),
+            "hits": hits.cpu().numpy(), "err": err.cpu().numpy(),
+            "exchange_bytes": rank.stats["exchange_bytes"]}

@@ -414,8 +414,8 @@ def test_cram_output_and_devices_are_refused(d, inputs, monkeypatch):
     """The whole-file route writes a .cram output as the JAX package does
     (its gzip blocks stamp the clock: both writes run under one pinned
     clock); the streamed route refuses .cram and .sam names, and on
-    several devices more devices than there are and the hash-space-sharded
-    layout (ROADMAP B10)."""
+    several devices more devices than there are; the hash-space-sharded
+    layout on two ranks writes one device's bytes."""
     import time
     monkeypatch.setattr(time, "time", lambda: 1.7e9)
     for name, kw in (("plain", dict(set_oq=True)),
@@ -429,10 +429,11 @@ def test_cram_output_and_devices_are_refused(d, inputs, monkeypatch):
     with pytest.raises(ValueError, match="writes BAM"):
         recalibrate_bam_streaming(inputs["plain"], str(d / "x.cram"),
                                   RecalConfig(**CFG), device="cpu")
-    with pytest.raises(ValueError, match="B10"):
-        recalibrate_bam_streaming(inputs["plain"], str(d / "x.bam"),
-                                  RecalConfig(**CFG), devices=2,
-                                  device="cpu", bloom_layout="sharded")
+    for name, kw in (("one", {}), ("sharded", dict(
+            devices=2, bloom_layout="sharded"))):
+        recalibrate_bam_streaming(inputs["plain"], str(d / f"{name}.bam"),
+                                  RecalConfig(**CFG), device="cpu", **kw)
+    assert (d / "sharded.bam").read_bytes() == (d / "one.bam").read_bytes()
     with pytest.raises(ValueError, match="requested but only"):
         recalibrate_bam_streaming(inputs["plain"], str(d / "x.bam"),
                                   RecalConfig(**CFG), devices=100000,

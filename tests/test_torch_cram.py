@@ -484,15 +484,21 @@ def test_bam_input_to_cram_output(tmp_path, pinned):
         (tmp_path / "j.cram").read_bytes()
 
 
-def test_several_devices_refused(tmp_path):
-    """Several devices run (tests/test_torch_parallel.py); refused are more
-    devices than there are and the hash-space-sharded layout (ROADMAP
-    B10), before anything is written."""
+def test_several_devices_refused(tmp_path, monkeypatch):
+    """Several devices run (tests/test_torch_parallel.py), the
+    hash-space-sharded layout too: on two ranks it writes one device's
+    bytes (both writes under one pinned clock: gzip blocks stamp it);
+    refused are more devices than there are, before anything is
+    written."""
+    import time
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)
     src, _ = _recal_input(tmp_path, "mixed")
-    with pytest.raises(ValueError, match="B10"):
-        recalibrate_cram(str(src), str(tmp_path / "x.cram"),
-                         RecalConfig(**CFG), devices=2, device="cpu",
-                         bloom_layout="sharded")
+    for name, kw in (("one", {}), ("sharded", dict(
+            devices=2, bloom_layout="sharded"))):
+        recalibrate_cram(str(src), str(tmp_path / f"{name}.cram"),
+                         RecalConfig(**CFG), device="cpu", **kw)
+    assert (tmp_path / "sharded.cram").read_bytes() == \
+        (tmp_path / "one.cram").read_bytes()
     with pytest.raises(ValueError, match="requested but only"):
         recalibrate_cram(str(src), str(tmp_path / "x.cram"),
                          RecalConfig(**CFG), devices=100000, device="cpu")

@@ -159,7 +159,11 @@ def test_fused_kernel_wrapper_takes_cuda_tensors_only():
                                torch.ones(4, dtype=torch.bool))
     with pytest.raises(ValueError):
         kernels.hash_only(codes, 16, 7)
+    with pytest.raises(ValueError):
+        kernels.hash_keep(codes, 0, 16, 7, THRESHOLD)
     assert set(kernels.ENTRY_LAUNCHES) == {
         "bloom_probe_hashed", "bloom_probe_words", "bloom_probe_trust",
-        "bloom_or_words", "hash_build", "hash_only", "walk_errors"}
+        "trust_rule", "bloom_or_words", "hash_build", "hash_keep",
+        "hash_only", "walk_errors", "walk_start", "walk_propose",
+        "walk_resolve"}
     assert not any(kernels.LAUNCHES.values())

@@ -244,9 +244,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.walk_errors(torch.zeros((2, 40), dtype=torch.int8),
                             torch.zeros((2, 25), dtype=torch.bool), packed,
                             16, 16, 7)
+    with pytest.raises(ValueError):
+        kernels.hash_keep(torch.zeros((2, 40), dtype=torch.int8), 0, 16, 7,
+                          0)
+    with pytest.raises(ValueError):
+        kernels.trust_rule(keep.reshape(2, 4), x.reshape(2, 4),
+                           torch.ones(17, dtype=torch.int32), 16, 16)
+    with pytest.raises(ValueError):
+        kernels.walk_start(torch.zeros((2, 40), dtype=torch.int8),
+                           torch.zeros((2, 25), dtype=torch.bool), 16)
+    st = kernels.WalkState(2, 40, 16, "cpu")
+    lanes = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.walk_propose(st, lanes, 7)
+    with pytest.raises(ValueError):
+        kernels.walk_resolve(st, lanes, torch.zeros((1, 3, 16),
+                                                    dtype=torch.bool), 16)
     assert kernels.LAUNCHES == before == {"bloom_probe": 0,
                                           "bloom_or_words": 0,
-                                          "walk_errors": 0}
+                                          "walk_errors": 0, "walk_round": 0}
 
 
 def test_kernel_source_holds_the_three_kernels_and_their_notes():
@@ -254,13 +270,19 @@ def test_kernel_source_holds_the_three_kernels_and_their_notes():
     src = open(kernels.SOURCE).read()
     for name in ("bloom_probe_hashed_kernel", "bloom_probe_words_kernel",
                  "bloom_probe_trust_kernel", "bloom_or_words_kernel",
-                 "hash_build_kernel", "walk_errors_kernel"):
+                 "hash_build_kernel", "walk_errors_kernel",
+                 "walk_start_kernel", "walk_propose_kernel",
+                 "walk_resolve_kernel"):
         assert f"__global__ void {name}(" in src
     for fn in ("kbbq_bloom_probe_hashed", "kbbq_bloom_probe_words",
-               "kbbq_bloom_probe_trust", "kbbq_bloom_or_words",
-               "kbbq_hash_build", "kbbq_hash_only", "kbbq_walk_errors"):
+               "kbbq_bloom_probe_trust", "kbbq_trust_rule",
+               "kbbq_bloom_or_words", "kbbq_hash_build", "kbbq_hash_keep",
+               "kbbq_hash_only", "kbbq_walk_errors", "kbbq_walk_start",
+               "kbbq_walk_propose", "kbbq_walk_resolve"):
         assert re.search(rf"\bint {fn}\(", src)
-    assert src.count("// Replaces:") == 3 and src.count("// Bound by:") == 3
+    # one note per kernel: bloom_probe, bloom_or_words, walk_errors and
+    # walk_round
+    assert src.count("// Replaces:") == 4 and src.count("// Bound by:") == 4
     assert "torch/extension.h" not in src
     # the probe states its cache policy: streamed loads and stores for the
     # inputs and the output, an evict-last L2 hint for the filter word

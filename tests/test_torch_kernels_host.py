@@ -7,7 +7,10 @@ __syncthreads and the warp functions).  The tests load that library with the
 port's own ctypes binding, hand it CPU tensors, and hold every entry point
 against its plain PyTorch version: tiles, ragged last tiles, base pointers
 that are not 16-byte aligned, k = 32 and k < 17, reads with N, the fused
-trust probe with T < k and tiles that had to be halved.  They say
+trust probe with T < k and tiles that had to be halved; the keep mode of
+the fused build, the rule-only mode of the trust probe, and the round-based
+walk (walk_round) driven in rounds as the hash-space-sharded layout drives
+it.  They say
 nothing about the card (chip_smoke.py does) and skip where there is no g++.
 Tolerance: exact equality.
 """
@@ -174,6 +177,35 @@ def test_hash_only_mode_matches_plain(lib, case):
         assert torch.equal(b1, h1) and torch.equal(bw, word)
 
 
+@pytest.mark.parametrize("case", HASH_CASES, ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}")
+def test_hash_keep_mode_matches_plain(lib, case):
+    """The keep mode of the fused entry point (pass 1 of the
+    hash-space-sharded layout): h1, word and keep of every window equal the
+    plain hash pass's (and ``ops.hash_cache.hash_keep``'s on the CPU), with
+    no filter to touch."""
+    from kbbq_tpu_torch.ops.hash_cache import hash_keep
+    N, L, k, first_id, rows, off, thr = case
+    rng = np.random.default_rng(N * L + k + 2)
+    _, codes = _reads(rng, N + off, L, n_rate=0.03)
+    c = torch.from_numpy(codes)[off:]
+    n = max(L - k + 1, 0)
+    want = hash_cache_chunk(
+        c, torch.arange(first_id, first_id + N, dtype=torch.int64), k, 7,
+        thr)
+    h1 = torch.full((N, n), 77, dtype=torch.int32)
+    word = h1.clone()
+    keep = torch.full((N, n), 7, dtype=torch.uint8)
+    assert len(lib.kbbq_hash_keep.argtypes) == 12      # no filter argument
+    rc = lib.kbbq_hash_keep(c.data_ptr(), h1.data_ptr(), word.data_ptr(),
+                            keep.data_ptr(), N, first_id, L, k, 7, thr, rows,
+                            None)
+    assert rc == 0
+    assert torch.equal(h1, want[0]) and torch.equal(word, want[1])
+    assert torch.equal(keep, want[2].to(torch.uint8))
+    got = hash_keep(c, first_id, k, 7, thr, chunk_rows=5)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("n", [1, 255, 3000, 10000])
 def test_bloom_or_words_logic_matches_plain(lib, n):
     rng = np.random.default_rng(2)
@@ -304,6 +336,80 @@ def test_bloom_probe_trust_logic_matches_plain(lib, case):
         assert 0 < int(want.sum()) < want.numel()
 
 
+@pytest.mark.parametrize(
+    "case", TRUST_CASES,
+    ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}T{c[3]}r{c[4]}t{c[5]}")
+def test_trust_rule_mode_matches_plain(lib, case):
+    """The rule-only mode of the fused trust entry point (pass 2 of the
+    hash-space-sharded layout): from a plane of hits made elsewhere, the
+    trusted bytes of ``trusted_mask_batch`` (and of
+    ``ops.trusted.trusted_from_hits`` on the CPU), which are the fused
+    probe's own on the filter those hits came from."""
+    from kbbq_tpu_torch.ops.trusted import (trusted_from_cache_plain,
+                                            trusted_from_hits,
+                                            trusted_mask_batch)
+    from kbbq_tpu_torch.oracle import coverage_thresholds
+    N, L, k, T, rows, threads, off, cover = case
+    rng = np.random.default_rng(N + L + k)      # the fused probe's data
+    clean, codes = _reads(rng, N + off, L, n_rate=0.02)
+    ids = torch.arange(N + off, dtype=torch.int64)
+    h1, word, _ = hash_cache_chunk(torch.from_numpy(clean), ids, k, 7, 0)
+    held = (word != 0) & torch.from_numpy(
+        rng.random(tuple(word.shape)) < cover)
+    filt = tbloom.bloom_build_words_plain(h1, word, held, 16)
+    h1, word, _ = hash_cache_chunk(torch.from_numpy(codes), ids, k, 7, 0)
+    n = max(L - k + 1, 0)
+    hits = tbloom.bloom_query_words_plain(filt, h1, word)[off:].contiguous()
+    word = word[off:]
+    t = torch.minimum(torch.from_numpy(coverage_thresholds(0.2, k)),
+                      torch.arange(k + 1).clamp(min=1)).to(torch.int32)
+    out = torch.full((N, n), 7, dtype=torch.uint8)
+    TT = k if T is None else T
+    rc = lib.kbbq_trust_rule(hits.data_ptr(), word.data_ptr(), t.data_ptr(),
+                             out.data_ptr(), N, n, k, TT, rows, threads, None)
+    assert rc == 0
+    if n == 0:
+        return
+    want = trusted_mask_batch(hits, word != 0, t, k, TT)
+    assert torch.equal(out, want.to(torch.uint8))
+    assert torch.equal(want, trusted_from_cache_plain(filt, h1[off:], word,
+                                                      t, k, T))
+    assert torch.equal(trusted_from_hits(hits, word, t, k, T, chunk_rows=7),
+                       want)
+    if N > 8:
+        assert 0 < int(want.sum()) < want.numel()
+
+
+def _walk_in_rounds(lib, codes, trusted0, filt, k, W):
+    """The walk_round entry points driven as infer_errors_sharded drives
+    them, with the plain word test of `filt` as the round's query ->
+    (error marks, rounds, the largest lane count of a round)."""
+    N, L = codes.shape
+    st = kernels.WalkState(N, L, k, "cpu")
+    assert lib.kbbq_walk_start(codes.data_ptr(), trusted0.data_ptr(),
+                               st.pk.data_ptr(), st.fl.data_ptr(),
+                               st.err.data_ptr(), st.cur.data_ptr(), N, L, k,
+                               None) == 0
+    rounds = widest = 0
+    while True:
+        lanes = st.active_lanes()
+        A = lanes.numel()
+        if A == 0:
+            return st.err, rounds, widest
+        rounds, widest = rounds + 1, max(widest, A)
+        h1 = torch.full((A, 3, k), 77, dtype=torch.int32)
+        word = h1.clone()
+        assert lib.kbbq_walk_propose(st.pk.data_ptr(), st.fl.data_ptr(),
+                                     st.cur.data_ptr(), lanes.data_ptr(), A,
+                                     h1.data_ptr(), word.data_ptr(), L, k, 7,
+                                     None) == 0
+        hits = tbloom.bloom_query_words_plain(filt, h1, word).contiguous()
+        assert lib.kbbq_walk_resolve(st.pk.data_ptr(), st.fl.data_ptr(),
+                                     st.err.data_ptr(), st.cur.data_ptr(),
+                                     lanes.data_ptr(), A, hits.data_ptr(), L,
+                                     k, W, None) == 0
+
+
 WALK_CASES = [
     # N, L, k, W, tile_rows, threads, row offset, error rate, share of the
     # error-free reads' windows that the filter holds
@@ -357,6 +463,43 @@ def test_walk_errors_logic_matches_plain(lib, case):
         assert want.any()
 
 
+@pytest.mark.parametrize("case", WALK_CASES[::2] + WALK_CASES[-1:],
+                         ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}W{c[3]}")
+def test_walk_round_in_rounds_matches_plain(lib, case):
+    """The round-based walk (walk_start, then walk_propose, the word test
+    and walk_resolve until no lane is active) against the plain walk and
+    the one-launch walk_errors, on every other walk case (W < k, k < 17,
+    L == k, a single read, filters that leave runs of failing breaks, an
+    all-set filter); the proposal asks only inside the read and never for
+    a window with an N."""
+    N, L, k, W, _, _, off, err, cover = case
+    N = min(N, 96)
+    rng = np.random.default_rng(N + L + k + W + 1)
+    clean, codes = _reads(rng, N + off, L, err=err)
+    ids = torch.arange(N + off, dtype=torch.int64)
+    h1, word, _ = hash_cache_chunk(torch.from_numpy(clean), ids, k, 7, 0)
+    held = (word != 0) & torch.from_numpy(rng.random((N + off, 1))
+                                          < abs(cover))
+    filt = tbloom.bloom_build_words_plain(h1, word, held, 18)
+    big = torch.from_numpy(codes)
+    h1, word, _ = hash_cache_chunk(big, ids, k, 7, 0)
+    trust = tbloom.bloom_query_words_plain(filt, h1, word).contiguous()
+    c, tr = big[off:], trust[off:]
+    if cover < 0:
+        filt = torch.full_like(filt, -1)
+    want = infer_errors_plain(filt, c, k, 7, W, trusted0=tr)
+    got, rounds, widest = _walk_in_rounds(lib, c, tr, filt, k, W)
+    bad = (got != want).any(dim=1)
+    assert not bad.any(), f"reads differ: {bad.nonzero()[:10, 0].tolist()}"
+    one = torch.ones((N, L), dtype=torch.bool)
+    assert lib.kbbq_walk_errors(c.data_ptr(), tr.data_ptr(), filt.data_ptr(),
+                                filt.numel() - 1, one.data_ptr(), N, L, k, W,
+                                7, 32, 128, None) == 0
+    assert torch.equal(one, got)
+    if N > 8 and L > k:
+        assert want.any() and rounds >= 2 and widest <= 2 * N
+
+
 BOTH_SIDES_CASES = [
     # N, L, k, W, tile_rows, threads, launches
     (256, 36, 8, 8, 32, 128, 4),
@@ -399,6 +542,29 @@ def test_walk_errors_commits_of_both_directions_share_a_word(lib, case):
         assert rc == 0
         bad = (got.view(torch.uint8) != want.view(torch.uint8)).any(dim=1)
         assert not bad.any(), f"reads differ: {bad.nonzero()[:10, 0].tolist()}"
+
+
+@pytest.mark.parametrize("case", BOTH_SIDES_CASES[:2],
+                         ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}W{c[3]}")
+def test_walk_round_serves_both_directions_in_one_round(lib, case):
+    """The two-sided reads: one resolve launch commits both directions of a
+    read into one 64-bit word of its packed copy (an atomic flip each), and
+    the marks are the plain walk's."""
+    N, L, k, W = case[:4]
+    clean, codes, left, right = make_two_sided_reads(N, L, k, seed=L * k + 1)
+    ids = torch.arange(N, dtype=torch.int64)
+    h1, word, _ = hash_cache_chunk(torch.from_numpy(clean), ids, k, 7, 0)
+    filt = tbloom.bloom_build_words_plain(h1, word, word != 0, 20)
+    c = torch.from_numpy(codes)
+    h1, word, _ = hash_cache_chunk(c, ids, k, 7, 0)
+    tr = tbloom.bloom_query_words_plain(filt, h1, word).contiguous()
+    want = infer_errors_plain(filt, c, k, 7, W, trusted0=tr)
+    both = (want[:, left[0]:left[1]].any(dim=1)
+            & want[:, right[0]:right[1]].any(dim=1))
+    assert int(both.sum()) > N // 2
+    got, _, widest = _walk_in_rounds(lib, c, tr, filt, k, W)
+    assert torch.equal(got, want)
+    assert widest > N                       # both lanes of reads in one round
 
 
 def test_tiles_that_do_not_fit_are_refused(lib):

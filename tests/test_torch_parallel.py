@@ -1,6 +1,6 @@
 """More than one device in the port (kbbq_tpu_torch/parallel/): the
-replicated-filter layout over torch.distributed, on the CPU over gloo at 1,
-2 and 4 ranks (real processes and real collectives; on cards the same code
+replicated-filter layout over torch.distributed (and, on the routed cases,
+the hash-space-sharded one), on the CPU over gloo at 1, 2 and 4 ranks (real processes and real collectives; on cards the same code
 runs over NCCL).  Every route that takes ``devices`` must write the bytes of
 one device and of the JAX package (its ``recalibrate_arrays`` and its
 ``run_pipeline(devices=8)`` on the 8-device CPU mesh of conftest.py).  Every
@@ -104,8 +104,9 @@ def test_merges_equal_numpy_at_four_ranks():
             assert (r["cov"][n] == a.sum(axis=0)).all()
         assert (r["table"] == recal).all()
     assert kernels.ENTRY_LAUNCHES == {e: D for e in kernels.ENTRY_KERNEL}
-    assert kernels.LAUNCHES == {"bloom_probe": 3 * D,
-                                "bloom_or_words": 3 * D, "walk_errors": D}
+    assert kernels.LAUNCHES == {"bloom_probe": 4 * D,
+                                "bloom_or_words": 4 * D, "walk_errors": D,
+                                "walk_round": 3 * D}
     assert t["world"] == D and t["backend"] == "gloo" and t["spawn"] > 0
     assert len(t["launches_by_rank"]) == D and t["merge_bytes"] > 0
     assert _no_group()
@@ -118,10 +119,11 @@ def test_a_failing_rank_fails_the_call():
     assert _no_group()
 
 
-def test_reference_refusals(arrays, monkeypatch):
-    """The JAX package's messages: more devices than there are, a batch the
-    devices do not divide, and the hash-space-sharded layout (named B10,
-    asked for or picked by auto), all before any rank starts."""
+def test_reference_refusals(arrays, want, monkeypatch):
+    """The JAX package's messages: more devices than there are and a batch
+    the devices do not divide, before any rank starts.  The hash-space-
+    sharded layout, asked for or picked by auto over the replicated
+    layout's budget, runs and writes one device's bytes."""
     cfg = RecalConfig(**CFG)
     with pytest.raises(ValueError, match=r"--devices 100000 requested but "
                                          r"only \d+ device\(s\) available"):
@@ -132,15 +134,17 @@ def test_reference_refusals(arrays, monkeypatch):
         recalibrate_arrays_resident_sharded(arrays, cfg, 3, device="cpu")
     with pytest.raises(ValueError, match="not divisible by 3 devices"):
         sharded_recalibrate_arrays(arrays, cfg, 3, device="cpu")
-    with pytest.raises(ValueError, match="B10"):
-        run_pipeline(arrays, cfg, device="cpu", devices=2,
-                     bloom_layout="sharded")
+    got = run_pipeline(arrays, cfg, device="cpu", devices=2,
+                       bloom_layout="sharded")
+    assert (got == want).all()
     with pytest.raises(ValueError, match="unknown bloom layout"):
         run_pipeline(arrays, cfg, device="cpu", devices=2,
                      bloom_layout="diagonal")
     monkeypatch.setattr(sharded, "REPLICATED_BLOOM_BUDGET", 1 << 10)
-    with pytest.raises(ValueError, match="B10"):
-        run_pipeline(arrays, cfg, device="cpu", devices=2)
+    t: dict = {}
+    got = run_pipeline(arrays, cfg, device="cpu", devices=2, timings=t)
+    assert (got == want).all()
+    assert t["shard_words_a"] > 0         # auto over the budget: sharded
     # one device reads no layout, as in the reference
     assert run_pipeline(arrays, cfg, device="cpu", devices=1,
                         bloom_layout="sharded").shape == arrays.codes.shape
@@ -240,15 +244,22 @@ def fq_files(tmp_path_factory):
     return d, [str(a), str(b)]
 
 
-def test_streamed_fastq_on_two_ranks(fq_files):
-    """devices=2 against devices=1 and the JAX package's devices=8, into a
-    writable sink (relayed through rank 0's file), with a checkpoint and a
-    report: the same bytes, the same report, the one-device checkpoint."""
+@pytest.mark.parametrize("layout", ["replicated", "sharded"])
+def test_streamed_fastq_on_two_ranks(fq_files, layout):
+    """devices=2 against devices=1 and the JAX package's devices=8 (with
+    the sharded layout: its devices=2 sharded run), into a writable sink
+    (relayed through rank 0's file), with a checkpoint and a report: the
+    same bytes, the same report, the one-device checkpoint (the sharded
+    filters gathered to rank 0), which resumes after pass 2 at one rank
+    with the same bytes."""
     d, paths = fq_files
+    d = d / layout
+    d.mkdir()
     cfg = dict(k=16, coverage=22.0, batch_size=64)
     j8 = d / "j8.fq"
     j_streaming(paths, str(j8), JRecalConfig(**cfg), chunk_reads=200,
-                devices=8)
+                devices=8 if layout == "replicated" else 2,
+                bloom_layout=layout)
     one = d / "one.fq"
     info1 = recalibrate_fastq_streaming(paths, str(one), RecalConfig(**cfg),
                                         chunk_reads=200, device="cpu",
@@ -259,7 +270,7 @@ def test_streamed_fastq_on_two_ranks(fq_files):
     info = recalibrate_fastq_streaming(
         paths, sink, RecalConfig(**cfg), chunk_reads=200, device="cpu",
         devices=2, checkpoint_dir=str(d / "ck2"),
-        report_out=str(d / "two.report"), timings=t)
+        report_out=str(d / "two.report"), timings=t, bloom_layout=layout)
     assert sink.getvalue() == one.read_bytes() == j8.read_bytes()
     assert (d / "two.report").read_bytes() == \
         (d / "one.report").read_bytes()
@@ -268,6 +279,17 @@ def test_streamed_fastq_on_two_ranks(fq_files):
         assert (np.load(d / "ck1" / f"{name}.npy") ==
                 np.load(d / "ck2" / f"{name}.npy")).all()
     assert t["world"] == 2 and t["scan"] >= 0 and t["pass4"] >= 0
+    assert (t["exchange_bytes"] > 0) == (layout == "sharded")
+    if layout == "sharded":
+        meta = json.loads((d / "ck2" / "meta.json").read_text())
+        meta["passes_done"] = ["rows_a", "rows_b"]
+        meta.pop("pass4", None)
+        (d / "ck2" / "meta.json").write_text(json.dumps(meta))
+        again = d / "again.fq"
+        recalibrate_fastq_streaming(paths, str(again), RecalConfig(**cfg),
+                                    chunk_reads=200, device="cpu",
+                                    checkpoint_dir=str(d / "ck2"))
+        assert again.read_bytes() == one.read_bytes()
     assert _no_group()
 
 
@@ -286,40 +308,60 @@ def aln(tmp_path_factory):
     return d
 
 
-def test_windowed_bam_on_two_ranks(aln):
+@pytest.fixture(scope="module")
+def bam_one(aln):
+    """The one-device outputs of the alignment routes: windowed and
+    whole-file BAM (set_oq) and CRAM (under a pinned clock)."""
+    import time
     cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
     recalibrate_bam_streaming(str(aln / "in.bam"), str(aln / "s1.bam"), cfg,
                               set_oq=True, chunk_records=100, device="cpu")
+    recalibrate_bam(str(aln / "in.bam"), str(aln / "w1.bam"), cfg,
+                    set_oq=True, device="cpu")
+    clock = time.time
+    time.time = lambda: 1.7e9
+    try:
+        recalibrate_cram(str(aln / "in.cram"), str(aln / "c1.cram"), cfg,
+                         device="cpu")
+    finally:
+        time.time = clock
+    return aln
+
+
+@pytest.mark.parametrize("layout", ["replicated", "sharded"])
+def test_windowed_bam_on_two_ranks(bam_one, layout):
+    aln = bam_one
+    cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
     info = recalibrate_bam_streaming(str(aln / "in.bam"),
                                      str(aln / "s2.bam"), cfg, set_oq=True,
                                      chunk_records=100, device="cpu",
-                                     devices=2)
+                                     devices=2, bloom_layout=layout)
     assert (aln / "s2.bam").read_bytes() == (aln / "s1.bam").read_bytes()
     assert info["windows"] >= 6
     assert _no_group()
 
 
-def test_whole_file_bam_on_two_ranks(aln):
+@pytest.mark.parametrize("layout", ["replicated", "sharded"])
+def test_whole_file_bam_on_two_ranks(bam_one, layout):
+    aln = bam_one
     cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
-    recalibrate_bam(str(aln / "in.bam"), str(aln / "w1.bam"), cfg,
-                    set_oq=True, device="cpu")
     recalibrate_bam(str(aln / "in.bam"), str(aln / "w2.bam"), cfg,
                     set_oq=True, device="cpu", devices=2,
-                    bloom_layout="replicated")
+                    bloom_layout=layout)
     assert (aln / "w2.bam").read_bytes() == (aln / "w1.bam").read_bytes()
     assert _no_group()
 
 
-def test_cram_on_two_ranks(aln, monkeypatch):
+@pytest.mark.parametrize("layout", ["auto", "sharded"])
+def test_cram_on_two_ranks(bam_one, monkeypatch, layout):
     """CRAM gzip blocks stamp the clock: both writes under one pinned
     clock."""
     import time
+    aln = bam_one
     monkeypatch.setattr(time, "time", lambda: 1.7e9)
     cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
-    recalibrate_cram(str(aln / "in.cram"), str(aln / "c1.cram"), cfg,
-                     device="cpu")
     recalibrate_cram(str(aln / "in.cram"), str(aln / "c2.cram"), cfg,
-                     device="cpu", devices=2)
+                     device="cpu", devices=2, bloom_layout=layout)
     assert (aln / "c2.cram").read_bytes() == (aln / "c1.cram").read_bytes()
     assert _no_group()
 

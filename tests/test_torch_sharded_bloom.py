@@ -1,0 +1,310 @@
+"""The hash-space-sharded Bloom layout of the port
+(kbbq_tpu_torch/parallel/sharded_bloom.py) on the CPU, at 2 and 4 ranks over
+gloo (real processes, real collectives; on cards the same code runs over
+NCCL), against the JAX package's ``run_pipeline(..., devices=D,
+bloom_layout="sharded")`` on the 8-device CPU mesh of conftest.py and
+against one device.  No rank holds more than m/32/D words of a filter; the
+D shards laid end to end are the one-device filter word for word; a device
+count that is not a power of two is refused before any rank starts, where
+the reference fails in JAX's placement.  The plain walk with its membership
+test passed in (the counterpart of JAX's ``query_fn``) equals
+``infer_errors_plain``.  Every launch starts its ranks anew, so the tests
+share fixtures and launches.  Tolerance: exact equality.
+"""
+
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from kbbq_tpu.io.batcher import ReadArrays as JReadArrays
+from kbbq_tpu.pipeline import RecalConfig as JRecalConfig
+from kbbq_tpu.pipeline.recalibrate import run_pipeline as j_run_pipeline
+from kbbq_tpu.utils.synth import make_dataset
+
+from kbbq_tpu_torch.io.batcher import ReadArrays
+from kbbq_tpu_torch.ops import bloom as tb
+from kbbq_tpu_torch.ops.hash_cache import hash_cache_build, hash_cache_chunk
+from kbbq_tpu_torch.ops.inference import (infer_errors_plain,
+                                          infer_errors_sharded, walk_plain)
+from kbbq_tpu_torch.ops.bloom import _query_rows_w
+from kbbq_tpu_torch.parallel import launch, sharded
+from kbbq_tpu_torch.parallel.resident_sharded import plan_for
+from kbbq_tpu_torch.parallel.sharded_bloom import sharded_params
+from kbbq_tpu_torch.pipeline import RecalConfig, run_pipeline
+
+import _rank_cases
+
+CFG = dict(k=16, coverage=20.0, batch_size=64)
+SAMPLE = 0x60000000         # inclusive keep threshold of the filter's sample
+
+
+def _jax(arrays):
+    return JReadArrays(arrays.codes, arrays.quals, arrays.mask, arrays.rgs,
+                       arrays.seconds)
+
+
+def _no_group():
+    import torch.distributed as dist
+    return not dist.is_initialized() and not torch.cuda.is_initialized()
+
+
+@pytest.fixture(scope="module")
+def arrays():
+    """tests/test_parallel.py's dataset: 2 read groups, pairs, Ns."""
+    ds = make_dataset(genome_len=800, read_len=50, coverage=20.0,
+                      error_rate=0.02, seed=31, num_rg=2, paired=True,
+                      n_rate=0.01)
+    return ReadArrays.from_lists(ds.codes, ds.quals, ds.rgs, ds.seconds)
+
+
+@pytest.fixture(scope="module")
+def one(arrays):
+    return run_pipeline(arrays, RecalConfig(**CFG), device="cpu")
+
+
+@pytest.mark.parametrize("devices", [2, 4])
+def test_sharded_layout_writes_the_references_bytes(arrays, one, devices):
+    """run_pipeline's multi-device route with bloom_layout="sharded" (the
+    resident path on each rank's rows): the JAX package's sharded bytes at
+    the same D and one device's; each rank held m/32/D words of each
+    filter and exchanged pairs with the others."""
+    t: dict = {}
+    got = run_pipeline(arrays, RecalConfig(**CFG), device="cpu",
+                       devices=devices, bloom_layout="sharded", timings=t)
+    ref = j_run_pipeline(_jax(arrays), JRecalConfig(**CFG), devices=devices,
+                         bloom_layout="sharded")
+    assert got.shape == one.shape
+    assert (got == ref).all() and (got == one).all()
+    plan = plan_for(arrays, RecalConfig(**CFG), "sharded", devices)
+    assert t["shard_words_a"] == (1 << (plan.log2_ma - 5)) // devices
+    assert t["shard_words_b"] == (1 << (plan.log2_mb - 5)) // devices
+    assert t["exchange_bytes"] > 0 and t["exchange"] >= 0
+    assert t["world"] == devices and t["backend"] == "gloo"
+    assert _no_group()
+
+
+def test_bump_on_a_tiny_input_follows_the_reference(arrays, monkeypatch):
+    """With the filters' floor lowered in both packages, a small input's
+    filters fall under 2^(5 + D.bit_length() + 5) bits and the layout
+    raises them (ShardedBloomRecalPipeline's bump): the output is the JAX
+    package's sharded output at the same D, which one device's need not
+    be."""
+    import kbbq_tpu.oracle.bloom as jbloom
+    import kbbq_tpu_torch.oracle.bloom as tbloom
+    monkeypatch.setattr(jbloom, "MIN_BLOOM_LOG2", 5)
+    monkeypatch.setattr(tbloom, "MIN_BLOOM_LOG2", 5)
+    cfg = RecalConfig(**CFG)
+    small = ReadArrays(*(a[:48] for a in (arrays.codes, arrays.quals,
+                                          arrays.mask, arrays.rgs,
+                                          arrays.seconds)))
+    one_plan = plan_for(small, cfg)
+    plan = plan_for(small, cfg, "sharded", 4)
+    assert plan.log2_ma == plan.log2_mb == 13
+    assert one_plan.log2_ma < 13 and one_plan.log2_mb < 13
+    got = run_pipeline(small, cfg, device="cpu", devices=4,
+                       bloom_layout="sharded")
+    ref = j_run_pipeline(_jax(small), JRecalConfig(**CFG), devices=4,
+                         bloom_layout="sharded")
+    assert (got == ref).all()
+    assert _no_group()
+
+
+@pytest.fixture(scope="module")
+def hashed(arrays):
+    """The one-device hash cache of every window and the filter built from
+    a sample of about 3/8 of the valid windows (many windows untrusted:
+    the walks have work)."""
+    codes = torch.from_numpy(arrays.codes)
+    h1, word, keep, filt = hash_cache_build(codes, 0, 16, 7, SAMPLE, 16)
+    return codes, h1, word, filt
+
+
+def test_shards_end_to_end_are_the_one_device_filter(arrays, hashed):
+    """Four ranks (one with no rows) build one sharded filter, exchanging in
+    chunks of 1,000 pairs: each holds m/32/4 words, the shards gathered on
+    rank 0 are the one-device filter word for word, the collective word
+    test answers as the whole filter does, and the walk through it marks
+    what infer_errors_plain marks against the whole filter."""
+    codes, h1, word, filt = hashed
+    N = codes.shape[0]
+    splits = [0, N // 3, N // 2, N // 2, N]
+    res = launch(_rank_cases.sharded_filter, 4, "cpu", arrays.codes, splits,
+                 16, 7, SAMPLE, 16, 1000)
+    assert [r["words"] for r in res] == [filt.numel() // 4] * 4
+    whole = res[0]["whole"].view(np.int32)
+    assert whole.shape == (filt.numel(),)
+    assert (whole == filt.numpy()).all()
+    assert all(r["whole"] is None for r in res[1:])
+    for r, s, e in zip(res, splits, splits[1:]):
+        want = tb.bloom_query_words_plain(filt, h1[s:e], word[s:e])
+        assert (r["hits"] == want.numpy()).all()
+        err = infer_errors_plain(filt, codes[s:e], 16, 7, trusted0=want)
+        assert (r["err"] == err.numpy()).all()
+        assert r["err"].any() or s == e
+    assert res[2]["hits"].shape == (0, h1.shape[1])
+    assert all(r["exchange_bytes"] > 0 for r in res)
+    assert _no_group()
+
+
+def test_a_device_count_not_a_power_of_two_is_refused(arrays, monkeypatch):
+    """D = 3: each filter's m/32 words cannot split evenly.  The port
+    refuses before any rank starts, asked for or picked by "auto"; the
+    reference fails too, in JAX's placement of the filter over the mesh."""
+    cfg = dict(CFG, batch_size=96)
+    t0 = time.time()
+    with pytest.raises(ValueError, match="power-of-two"):
+        run_pipeline(arrays, RecalConfig(**cfg), device="cpu", devices=3,
+                     bloom_layout="sharded")
+    monkeypatch.setattr(sharded, "REPLICATED_BLOOM_BUDGET", 1 << 10)
+    with pytest.raises(ValueError, match="power-of-two"):
+        run_pipeline(arrays, RecalConfig(**cfg), device="cpu", devices=3)
+    with pytest.raises(ValueError, match="power-of-two"):
+        sharded.run_arrays_sharded(arrays, RecalConfig(**cfg), 3, "cpu",
+                                   layout="sharded")
+    assert time.time() - t0 < 5 and _no_group()     # no rank was started
+    with pytest.raises(ValueError):
+        j_run_pipeline(_jax(arrays), JRecalConfig(**cfg), devices=3,
+                       bloom_layout="sharded")
+    # the same count runs with the replicated layout
+    assert sharded.resolve_layout("replicated", RecalConfig(**cfg), 1, 1,
+                                  3) == "replicated"
+
+
+def test_checkpoint_at_four_ranks_resumes_at_two(arrays, one, tmp_path):
+    """run_pipeline's route with a checkpoint (the windowed engine on the
+    ranks, windows of 64 reads): at 4 ranks it writes the reference's
+    rows_a_sharded / rows_b_sharded files (the JAX package's own run at 4
+    devices writes the same words) and one device's bytes; resumed after
+    pass 2 at 2 ranks, from those files, the same bytes again."""
+    cfg = RecalConfig(**CFG)
+    ck, ckj = tmp_path / "port", tmp_path / "jax"
+    got4 = run_pipeline(arrays, cfg, device="cpu", devices=4,
+                        bloom_layout="sharded", checkpoint_dir=str(ck))
+    assert (got4 == one).all()
+    j_run_pipeline(_jax(arrays), JRecalConfig(**CFG), devices=4,
+                   bloom_layout="sharded", checkpoint_dir=str(ckj))
+    meta = json.loads((ck / "meta.json").read_text())
+    assert meta["passes_done"] == ["rows_a_sharded", "rows_b_sharded",
+                                   "covariates"]
+    for name in ("rows_a_sharded", "rows_b_sharded", "cov_cyc_total",
+                 "cov_din_errors"):
+        assert (np.load(ck / f"{name}.npy") ==
+                np.load(ckj / f"{name}.npy")).all(), name
+    meta["passes_done"] = ["rows_a_sharded", "rows_b_sharded"]
+    (ck / "meta.json").write_text(json.dumps(meta))
+    got2 = run_pipeline(arrays, cfg, device="cpu", devices=2,
+                        bloom_layout="sharded", checkpoint_dir=str(ck))
+    assert (got2 == one).all()
+    assert json.loads((ck / "meta.json").read_text())["passes_done"] == [
+        "rows_a_sharded", "rows_b_sharded", "covariates"]
+    assert _no_group()
+
+
+def test_plain_walk_with_a_query_callable_equals_infer_errors_plain(hashed):
+    """walk_plain with the local query, and infer_errors_sharded with the
+    local word test (the CPU's plain walk behind the hashing of its
+    k-mers), give infer_errors_plain's marks, at the default extension and
+    at W < k; with no rows each still runs the rounds its round agreement
+    asks for, asking nothing."""
+    codes, h1, word, filt = hashed
+    tr0 = tb.bloom_query_words_plain(filt, h1, word)
+    for W in (16, 5):
+        want = infer_errors_plain(filt, codes, 16, 7, W, trusted0=tr0)
+        assert want.any()
+        got = walk_plain(lambda hi, lo: _query_rows_w(filt, hi, lo, 7),
+                         codes, 16, W, tr0)
+        assert torch.equal(got, want)
+        got = walk_plain(lambda hi, lo: _query_rows_w(filt, hi, lo, 7),
+                         codes, 16, W)
+        assert torch.equal(got, want)
+        asked = []
+
+        def test(a, b):
+            asked.append(a.numel())
+            return tb.bloom_query_words_plain(filt, a, b)
+        got = infer_errors_sharded(codes, tr0, test, 16, 7, W)
+        assert torch.equal(got, want) and len(asked) > 1
+    # no rows, three rounds agreed elsewhere: each round asks nothing
+    rounds = iter([True, True, False, True, False])
+    asked.clear()
+    empty = infer_errors_sharded(codes[:0], tr0[:0], test, 16, 7, None,
+                                 reduce_any=lambda active: next(rounds))
+    assert empty.shape == (0, codes.shape[1]) and asked == [0, 0, 0]
+
+
+def test_sharded_params_bump_and_the_keep_planes(hashed):
+    """The bump of ShardedBloomRecalPipeline from the one-device sizes (the
+    floor 2^(5 + D.bit_length() + 5) bits, over the filters' own floor of
+    2^16 from D = 64 on), refused for D not a power of two; and pass 1's
+    keep planes (``hash_keep``) are the hash pass's at the rows' global
+    ordinals, however the rows are split."""
+    cfg = RecalConfig(k=16, coverage=20.0)
+    for D in (1, 2, 4, 8, 16, 32, 64):
+        pa, pb = sharded_params(cfg, 10, 0.5, 20.0, D)
+        assert pa.log2_m == pb.log2_m == max(16, 10 + D.bit_length())
+    with pytest.raises(ValueError, match="power-of-two"):
+        sharded_params(cfg, 10, 0.5, 20.0, 6)
+    from kbbq_tpu_torch.ops.hash_cache import hash_keep
+    codes = hashed[0]
+    want = hash_cache_chunk(codes, torch.arange(codes.shape[0]), 16, 7,
+                            0x7FFFFFFF)
+    for s in (0, 7, 100):
+        got = hash_keep(codes[s:], s, 16, 7, 0x7FFFFFFF, chunk_rows=33)
+        assert all(torch.equal(a, b[s:]) for a, b in zip(got, want))
+
+
+def test_routes_at_four_ranks(arrays, tmp_path, monkeypatch):
+    """The streamed FASTQ route (windows of 64 reads, so the ranks own
+    different numbers of windows and step in lockstep), the windowed and
+    whole-file BAM routes and the CRAM route with bloom_layout="sharded" at
+    4 ranks: one device's bytes, and on the streamed FASTQ route the JAX
+    package's sharded bytes at 4 devices."""
+    from kbbq_tpu.pipeline.streaming import (
+        recalibrate_fastq_streaming as j_streaming)
+    from kbbq_tpu_torch.pipeline import (recalibrate_bam,
+                                         recalibrate_bam_streaming,
+                                         recalibrate_cram,
+                                         recalibrate_fastq_streaming)
+    from kbbq_tpu_torch.utils.synth import (arrays_to_bam_bytes,
+                                            arrays_to_cram_bytes,
+                                            arrays_to_fastq_bytes,
+                                            make_arrays_fast, read_starts)
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)   # CRAM's gzip stamps
+    fq = tmp_path / "in.fq"
+    fq.write_bytes(arrays_to_fastq_bytes(arrays))
+    cfg = RecalConfig(**CFG)
+    outs = {}
+    for name, kw in (("one", {}), ("four", dict(devices=4,
+                                                 bloom_layout="sharded"))):
+        outs[name] = tmp_path / f"{name}.fq"
+        recalibrate_fastq_streaming(str(fq), str(outs[name]), cfg,
+                                    chunk_reads=64, device="cpu", **kw)
+    j4 = tmp_path / "j4.fq"
+    j_streaming([str(fq)], str(j4), JRecalConfig(**CFG), chunk_reads=64,
+                devices=4, bloom_layout="sharded")
+    assert outs["four"].read_bytes() == outs["one"].read_bytes() == \
+        j4.read_bytes()
+    a, _ = make_arrays_fast(genome_len=4000, read_len=41, num_reads=600,
+                            seed=1)
+    starts = read_starts(4000, 41, 600, 1)
+    (tmp_path / "in.bam").write_bytes(arrays_to_bam_bytes(
+        a, starts, extra_share=0.1)[0])
+    (tmp_path / "in.cram").write_bytes(arrays_to_cram_bytes(
+        a, starts, extra_share=0.1, records_per_container=128)[0])
+    bcfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
+    for route, src, ext, extra in (
+            (recalibrate_bam_streaming, "in.bam", "bam",
+             dict(set_oq=True, chunk_records=100)),
+            (recalibrate_bam, "in.bam", "bam", dict(set_oq=True)),
+            (recalibrate_cram, "in.cram", "cram", {})):
+        got = []
+        for kw in ({}, dict(devices=4, bloom_layout="sharded")):
+            out = tmp_path / f"{route.__name__}{len(got)}.{ext}"
+            route(str(tmp_path / src), str(out), bcfg, device="cpu",
+                  **extra, **kw)
+            got.append(out.read_bytes())
+        assert got[0] == got[1], route.__name__
+    assert _no_group()
