@@ -57,15 +57,17 @@ and bytes.  Then the hash-space-sharded filters (``[sharded_kernels]``,
 shards on the card (each fed the windows it owns) equal the one-device
 filters word for word and every owner's word test answers as the whole
 filter; the keep mode of the fused build, the rule-only trust and the
-round-based walk (``walk_round``: walk_start, walk_propose, walk_resolve,
-one chunk of 65,536 reads with the local word test) equal their
-counterparts and plain versions, each timed (the walk's rounds from CUDA
-graphs); then config 2 through run_pipeline's multi-device route with
+round-based walk (``walk_round``: walk_start, then per lane group
+walk_propose, the word test and walk_resolve; with the local exchange, on
+one chunk of 65,536 reads and on the whole data as one walk block) equal
+their counterparts and plain versions, each timed (the entry points and
+round 1's first group from CUDA graphs; rounds, groups and lanes by round
+printed); then config 2 through run_pipeline's multi-device route with
 bloom_layout="sharded" at D = the card count, the streamed route on the
 ranks with a checkpoint and that run resumed after pass 2, each the main
 path's bytes, launches by rank held to the run's shape, each rank holding
-1/D of each filter, exchange seconds and bytes and peak device bytes
-printed.  Last, BASELINE.json config
+1/D of each filter, exchange seconds and bytes, the walk's rounds, lane
+groups and collectives, pass 3 and peak device bytes printed.  Last, BASELINE.json config
 4 on the one card: 13,000,000 reads x 150 at 30x (``make_arrays_chunked``,
 a FASTQ over 2 GiB), the command line (its streamed engine) and the
 resident route in process write the same bytes, and against the run's
@@ -90,8 +92,9 @@ filters: the resident run, the streamed run) and
 ``launches_scale_devices_by_rank`` (config 4's) beside it in every entry;
 the entries of the sharded layout's entry points (``path`` "sharded":
 ``launches`` is the sharded resident run's count, ``plain_ms`` of the walk's
-three the plain walk of the chunk, whole, beside ``walk_ms``, ``rounds``
-and ``round1_graph_ms``); the probe's and
+three the plain walk of the chunk, whole, beside ``walk_ms``, ``rounds``,
+``groups``, ``round1_group_graph_ms`` and the whole data's ``block_*``
+figures); the probe's and
 the walk's entries also their time, plain time and bound against config
 4's filter B, ``scale_*``), mismatches against the plain
 version, times in ms, the roofline bound; the probe's entries also
@@ -1091,7 +1094,9 @@ def devices_line(route: str, t: dict, wall: float, by_entry: dict) -> dict:
               and k not in ("spawn", "merge", "exchange", *caller)}
     peaks = {k[:-len("_peak_bytes")]: v for k, v in t.items()
              if k.endswith("_peak_bytes")}
-    shards = {k: t[k] for k in ("shard_words_a", "shard_words_b") if k in t}
+    shards = {k: t[k] for k in ("shard_words_a", "shard_words_b",
+                                "walk_rounds", "walk_groups",
+                                "walk_collectives") if t.get(k)}
     rec = {"route": route, "world": t["world"], "backend": t["backend"],
            "wall_s": wall, "caller_s": caller, "spawn_s": t["spawn"],
            "merge_s": t["merge"],
@@ -1109,6 +1114,11 @@ def devices_line(route: str, t: dict, wall: float, by_entry: dict) -> dict:
         f"seconds by stage {json.dumps(stages)}; peak device bytes by stage "
         f"{json.dumps(peaks)}; launches summed over ranks "
         f"{json.dumps(by_entry)}")
+    if t.get("walk_groups"):
+        log(f"{tag} {route}: the walk took {t['walk_rounds']} rounds (the "
+            f"busiest rank's), {t['walk_groups']} lane groups and "
+            f"{t['walk_collectives']} walk collectives; pass 3 "
+            f"{stages.get('pass3')} s")
     return rec
 
 
@@ -1268,9 +1278,10 @@ def phase_sharded_kernels(arrays, cfg):
     from kbbq_tpu_torch.ops import bloom as tb
     from kbbq_tpu_torch.ops.hash_cache import (hash_cache_build,
                                                hash_cache_chunk)
-    from kbbq_tpu_torch.ops.inference import (infer_errors,
+    from kbbq_tpu_torch.ops.inference import (LocalExchange, infer_errors,
                                               infer_errors_plain,
                                               infer_errors_sharded)
+    from kbbq_tpu_torch.parallel.sharded_bloom import EXCHANGE_CHUNK
     from kbbq_tpu_torch.ops.trusted import (trusted_from_cache,
                                             trusted_mask_batch)
     from kbbq_tpu_torch.oracle import (alpha_threshold, bloom_params_for,
@@ -1408,116 +1419,167 @@ def phase_sharded_kernels(arrays, cfg):
         f"it owns: mismatches against the one-device filters and their word "
         f"tests {mm_split}")
 
-    # ---- walk_round on one chunk with the local word test
-    wr = min(WALK_READS, N)
-    c = codes[:wr]
-    tr0 = tb.bloom_query_words(filt_b, h1[:wr], word[:wr])
+    # ---- walk_round with the local exchange (the owner's word test of
+    # the whole filter): on one chunk, then on the whole data as one block
+    G = max(1, EXCHANGE_CHUNK // (3 * k))
+    tr0_all = tb.bloom_query_words(filt_b, h1, word)
     del h1, word
-    lanes_by_round = []
+    wr = min(WALK_READS, N)
+    c, tr0 = codes[:wr], tr0_all[:wr]
+    nw = (L + 31) // 32 + 1
 
-    def test(a, b):
-        lanes_by_round.append(a.shape[0])
-        return kernels.bloom_probe_words(filt_b, a, b)
+    def round_walk(cc, tt, stats=None):
+        ex = LocalExchange(filt_b)
+        return infer_errors_sharded(cc, tt, ex, k, h, cfg.ext_cap, G,
+                                    stats), ex
 
-    got = infer_errors_sharded(c, tr0, test, k, h, cfg.ext_cap)
-    rounds = len(lanes_by_round)
-    lanes = list(lanes_by_round)
-    mm_walk = mismatches(got, infer_errors(filt_b, c, k, h, cfg.ext_cap,
-                                           trusted0=tr0))
-    torch.cuda.synchronize()
-    t0 = time.time()
-    plain = infer_errors_plain(filt_b, c, k, h, cfg.ext_cap, trusted0=tr0)
-    torch.cuda.synchronize()
-    walk_plain_ms = (time.time() - t0) * 1e3
-    mm_walk += mismatches(got, plain)
-    marks = int(got.sum())
-    del plain
-    walk_ms = cuda_ms(lambda: infer_errors_sharded(
-        c, tr0, lambda a, b: kernels.bloom_probe_words(filt_b, a, b), k, h,
-        cfg.ext_cap))
-    # each entry point from CUDA graphs: start; round 1's proposal; round
-    # 1's resolve and the whole round, each with the state put back first
-    # (the restore's own time is taken off)
-    st = kernels.walk_start(c, tr0, k)
-    start_graph_ms = cuda_graph_ms(lambda: kernels.walk_start(c, tr0, k))
-    lanes1 = st.active_lanes()
-    A1 = int(lanes1.numel())
-    saved = [x.clone() for x in (st.pk, st.fl, st.err, st.cur)]
+    def walk_check(cc, tt):
+        """The round walk of cc against walk_errors and the plain walk
+        (each per chunk of WALK_READS rows) -> its figures."""
+        stats = {"walk_rounds": 0, "lanes_by_round": []}
+        got, ex = round_walk(cc, tt, stats)
+        mm, plain_s = 0, 0.0
+        for s in range(0, cc.shape[0], WALK_READS):
+            e = min(cc.shape[0], s + WALK_READS)
+            mm += mismatches(got[s:e], infer_errors(
+                filt_b, cc[s:e], k, h, cfg.ext_cap, trusted0=tt[s:e]))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            plain = infer_errors_plain(filt_b, cc[s:e], k, h, cfg.ext_cap,
+                                       trusted0=tt[s:e])
+            torch.cuda.synchronize()
+            plain_s += time.time() - t0
+            mm += mismatches(got[s:e], plain)
+        del plain
+        return dict(mismatches=mm, rounds=stats["walk_rounds"],
+                    groups=ex.groups, pairs=ex.pairs,
+                    lanes_by_round=stats["lanes_by_round"],
+                    marks=int(got.sum()), plain_ms=plain_s * 1e3,
+                    ms=cuda_ms(lambda: round_walk(cc, tt)))
+
+    # bounds: walk_start reads the codes and trust and writes the state and
+    # the lane list; a group's proposal reads each lane's id, cursor, three
+    # packed words and k flags, and writes its asked pairs (8 B) and a slot
+    # (4 B) per window and candidate, ~90 integer operations each (patch,
+    # reverse complement, canonical form, two fmix32 pairs, the probe word);
+    # the owner's test reads a pair and its filter word and writes an
+    # answer; a resolve reads the lane's id, cursor, word, slots, answers and
+    # flags, and writes flags, mark, word, cursor and list entry
+    def start_bytes(rows):
+        return rows * (L + n) + rows * (nw * 8 + n + L + 8 + 8)
+
+    def propose_bytes(a, pairs):
+        return a * (8 + 24 + k + 3 * k * 4) + pairs * 8
+
+    def resolve_bytes(a, pairs):
+        return a * (8 + 12 * k + 2 * k + 8 + 17) + pairs
+
+    def walk_bound(rows, w):
+        lanes = sum(w["lanes_by_round"])
+        return bound(start_bytes(rows) + propose_bytes(lanes, w["pairs"])
+                     + w["pairs"] * 13 + resolve_bytes(lanes, w["pairs"]),
+                     rows * L * 12 + lanes * 3 * k * 90 + w["pairs"] * 4)
+
+    chunk = walk_check(c, tr0)
+    chunk_bound = walk_bound(wr, chunk)
+    whole = walk_check(codes, tr0_all)
+    whole_bound = walk_bound(N, whole)
+    mm_walk = chunk["mismatches"] + whole["mismatches"]
+    for name, w, rows, bnd in (("chunk", chunk, wr, chunk_bound),
+                               ("block", whole, N, whole_bound)):
+        lanes = w["lanes_by_round"]
+        log(f"[sharded_kernels] walk_round on {rows} reads ({name}) with the "
+            f"local exchange, lane groups of {G}: {w['mismatches']} "
+            f"mismatches against walk_errors and the plain walk, "
+            f"{w['marks']} bases marked, {w['rounds']} rounds, "
+            f"{w['groups']} groups (the last agreement included), "
+            f"{w['pairs']} pairs; lanes by round {lanes[:6]}...{lanes[-3:]}; "
+            f"the walk {w['ms']:.4f} ms by events (plain "
+            f"{w['plain_ms']:.1f} ms, bound {bnd[0]:.4f} ms, {bnd[1]})")
+
+    # each entry point from CUDA graphs, on the chunk: start; round 1's
+    # first group's proposal, the owner's word test of its pairs, its
+    # resolve, and the whole group, each after the state is put back (the
+    # restore's own time is taken off)
+    start_graph_ms = cuda_graph_ms(lambda: kernels.walk_start(c, tr0, k, G))
+    st = kernels.walk_start(c, tr0, k, G)
+    A1 = int(st.ctl[3])                      # round 1's lanes
+    saved = [x.clone() for x in (st.pk, st.fl, st.err, st.cur, st.lists,
+                                 st.ctl)]
 
     def restore():
-        for x, y in zip((st.pk, st.fl, st.err, st.cur), saved):
+        for x, y in zip((st.pk, st.fl, st.err, st.cur, st.lists, st.ctl),
+                        saved):
             x.copy_(y)
 
-    propose_graph_ms = cuda_graph_ms(
-        lambda: kernels.walk_propose(st, lanes1, h))
-    p1, pw = kernels.walk_propose(st, lanes1, h)
-    hits1 = kernels.bloom_probe_words(filt_b, p1, pw)
-
-    def resolve():
+    def propose():
         restore()
-        kernels.walk_resolve(st, lanes1, hits1, W)
+        return kernels.walk_propose(st, h, 0, st.group)
 
-    def one_round():
-        restore()
-        a, b = kernels.walk_propose(st, lanes1, h)
-        kernels.walk_resolve(st, lanes1, kernels.bloom_probe_words(
-            filt_b, a, b), W)
+    row1 = propose()[0].tolist()
+    P1, g1 = row1[0], min(st.group, row1[1])
+
+    def propose_test():
+        pairs = propose()[1]
+        return kernels.bloom_probe_words(filt_b, pairs[:P1, 0].contiguous(),
+                                         pairs[:P1, 1].contiguous())
+
+    def group1():
+        kernels.walk_resolve(st, propose_test().view(torch.uint8), W, g1)
 
     restore_graph_ms = cuda_graph_ms(restore)
-    resolve_graph_ms = cuda_graph_ms(resolve) - restore_graph_ms
-    round_graph_ms = cuda_graph_ms(one_round) - restore_graph_ms
+    propose_graph_ms = cuda_graph_ms(propose) - restore_graph_ms
+    test_graph_ms = (cuda_graph_ms(propose_test) - restore_graph_ms
+                     - propose_graph_ms)
+    group_graph_ms = cuda_graph_ms(group1) - restore_graph_ms
+    resolve_graph_ms = group_graph_ms - propose_graph_ms - test_graph_ms
     restore()
-    del st, saved, p1, pw, hits1
-    nw = (L + 31) // 32 + 1
-    # bounds: walk_start reads the codes and trust and writes the state; a
-    # proposal reads each lane's cursor, packed read and k flags and writes
-    # 3k pairs, ~90 integer operations each (patch, reverse complement,
-    # canonical form, two fmix32 pairs, the probe word); a resolve reads the
-    # 3k answers and k flags and writes the flags, the mark and the cursor
-    start_bytes = wr * (L + n) + wr * (nw * 8 + n + L + 8)
-    start_bound = bound(start_bytes, wr * L * 12)
-
-    def propose_bytes(a):
-        return a * (8 + nw * 8 + k + 3 * k * 8)
-
-    def resolve_bytes(a):
-        return a * (8 + 3 * k + 2 * k + 8 + 1)
-    propose_bound = bound(propose_bytes(A1), A1 * 3 * k * 90)
-    resolve_bound = bound(resolve_bytes(A1), A1 * (3 * k + n))
-    # the whole walk: every round's proposal, word test (9 B a pair and
-    # its filter word) and resolve at that round's lane count
-    walk_bound = bound(start_bytes + sum(
-        propose_bytes(a) + a * 3 * k * 9 + resolve_bytes(a) for a in lanes),
-        wr * L * 12 + sum(a * 3 * k * 94 for a in lanes))
-    log(f"[sharded_kernels] walk_round on {wr} reads with the local word "
-        f"test: {mm_walk} mismatches against walk_errors and the plain walk, "
-        f"{marks} bases marked, {rounds} rounds (lanes by round "
-        f"{lanes[:6]}...{lanes[-3:]}); the walk {walk_ms:.4f} ms (plain "
-        f"{walk_plain_ms:.1f} ms, bound {walk_bound[0]:.4f} ms), from graphs: "
-        f"walk_start {start_graph_ms:.4f} ms, round 1 ({A1} lanes) "
-        f"{round_graph_ms:.4f} ms of which walk_propose "
-        f"{propose_graph_ms:.4f} and walk_resolve {resolve_graph_ms:.4f} "
-        f"(the state's restore, {restore_graph_ms:.4f} ms, taken off)")
-    walk_info = dict(rounds=rounds, lanes_by_round=lanes, walk_ms=walk_ms,
-                     walk_plain_ms=walk_plain_ms, walk_bound_ms=walk_bound[0],
-                     walk_bound_by=walk_bound[1], marks=marks, n=wr,
-                     round1_lanes=A1, round1_graph_ms=round_graph_ms,
-                     restore_graph_ms=restore_graph_ms,
-                     plain_note="plain_ms: the plain walk of the chunk, "
-                                "whole (walk_plain with the local test)")
+    del st, saved
+    A = min(A1, G)                            # the first group's lanes
+    start_bound = bound(start_bytes(wr), wr * L * 12)
+    propose_bound = bound(propose_bytes(A, P1), A * 3 * k * 90)
+    resolve_bound = bound(resolve_bytes(A, P1), A * (3 * k + n))
+    group_bound = bound(propose_bytes(A, P1) + P1 * 13
+                        + resolve_bytes(A, P1), A * 3 * k * 90 + P1 * 4)
+    log(f"[sharded_kernels] walk_round entry points on the chunk, from "
+        f"graphs: walk_start {start_graph_ms:.4f} ms (bound "
+        f"{start_bound[0]:.5f}); round 1 ({A1} lanes) group 1 ({A} lanes, "
+        f"{P1} pairs) {group_graph_ms:.4f} ms (bound {group_bound[0]:.5f}) "
+        f"of which walk_propose {propose_graph_ms:.4f} (bound "
+        f"{propose_bound[0]:.5f}), the word test {test_graph_ms:.4f} and "
+        f"walk_resolve {resolve_graph_ms:.4f} (bound "
+        f"{resolve_bound[0]:.5f}); the state's restore, "
+        f"{restore_graph_ms:.4f} ms, taken off")
+    walk_info = dict(
+        rounds=chunk["rounds"], groups=chunk["groups"],
+        lanes_by_round=chunk["lanes_by_round"], walk_ms=chunk["ms"],
+        walk_plain_ms=chunk["plain_ms"], walk_bound_ms=chunk_bound[0],
+        walk_bound_by=chunk_bound[1], marks=chunk["marks"], n=wr,
+        group_lanes=G, round1_lanes=A1, round1_group_lanes=A,
+        round1_group_graph_ms=group_graph_ms,
+        round1_group_bound_ms=group_bound[0],
+        word_test_graph_ms=test_graph_ms, restore_graph_ms=restore_graph_ms,
+        block_reads=N, block_rounds=whole["rounds"],
+        block_groups=whole["groups"],
+        block_lanes_by_round=whole["lanes_by_round"],
+        block_walk_ms=whole["ms"], block_plain_ms=whole["plain_ms"],
+        block_bound_ms=whole_bound[0], block_mismatches=whole["mismatches"],
+        plain_note="plain_ms: the plain walk of the chunk, whole "
+                   "(infer_errors_plain)")
     replaces = "kbbq_tpu/ops/pallas_walk.py:242"
     note = ("_round_kernel where filter B is hash-space sharded "
             "(kbbq_tpu/parallel/sharded_bloom.py:283)")
     record("walk_round.start", "walk_start", replaces, mm_walk,
-           cuda_ms(lambda: kernels.walk_start(c, tr0, k)), walk_plain_ms,
-           start_bound, graph_ms=start_graph_ms, replaces_note=note,
-           **walk_info)
+           cuda_ms(lambda: kernels.walk_start(c, tr0, k, G)),
+           chunk["plain_ms"], start_bound, graph_ms=start_graph_ms,
+           replaces_note=note, **walk_info)
     record("walk_round.propose", "walk_propose", replaces, mm_walk,
-           propose_graph_ms, walk_plain_ms, propose_bound,
+           propose_graph_ms, chunk["plain_ms"], propose_bound,
            graph_ms=propose_graph_ms, replaces_note=note, **walk_info)
     record("walk_round.resolve", "walk_resolve", replaces, mm_walk,
-           resolve_graph_ms, walk_plain_ms, resolve_bound,
+           resolve_graph_ms, chunk["plain_ms"], resolve_bound,
            graph_ms=resolve_graph_ms, replaces_note=note, **walk_info)
+    del tr0_all
     del codes, filt_b, c, tr0
     bad = [r["name"] for r in records if r["mismatches"]]
     if bad or any(mm_split.values()):
@@ -1534,7 +1596,8 @@ def sharded_want(windows_by_rank, n: int, passes, resident: bool):
     read.  Every step exchanges in as many chunks as its busiest rank
     needs; an owner launches its test or build in a chunk only when it
     received pairs."""
-    from kbbq_tpu_torch.parallel.sharded_bloom import EXCHANGE_CHUNK
+    from kbbq_tpu_torch.parallel.sharded_bloom import (EXCHANGE_CHUNK,
+                                                       WALK_BLOCK_ROWS)
     steps = max(len(w) for w in windows_by_rank)
     chunks = [max(-(-w[i] * n // EXCHANGE_CHUNK) if i < len(w) else 0
                   for w in windows_by_rank) for i in range(steps)]
@@ -1547,8 +1610,8 @@ def sharded_want(windows_by_rank, n: int, passes, resident: bool):
                      "hash_only": 0 if resident else
                      ((2 in passes) + (3 in passes)) * busy,
                      "trust_rule": busy if 2 in passes else 0,
-                     "walk_start": sum(-(-w // DEVICES_CHUNK) for w in wins)
-                     if 3 in passes else 0,
+                     "walk_start": sum(-(-w // WALK_BLOCK_ROWS)
+                                       for w in wins) if 3 in passes else 0,
                      "bloom_probe_trust": 0, "bloom_probe_hashed": 0,
                      "hash_build": 0, "walk_errors": 0}, tests, inserts))
     return out
@@ -1556,28 +1619,34 @@ def sharded_want(windows_by_rank, n: int, passes, resident: bool):
 
 def check_sharded_launches(route: str, by_rank: list, want: list) -> None:
     """A sharded run's launches, rank by rank: the shape-fixed entry points
-    exactly; a resolve for every proposal; the owner's word tests (one per
-    chunk of the passes' tests that brought it pairs, and one per walk
-    round that did: a round has a proposal on some rank) and builds within
-    their counts, exactly so on one rank, where every chunk and round
-    brings pairs; a walk round somewhere."""
-    rounds = sum(g["walk_propose"] for g in by_rank)
+    exactly; a walk proposal on every rank for every lane group (the
+    groups are collective), a resolve for every group of this rank that
+    had lanes; the owner's word tests (one per chunk of the passes' tests
+    that brought it pairs, and one per lane group that did) and builds
+    within their counts, exactly so on one rank, where every chunk and
+    every group but a block's last agreement brings pairs; a lane group
+    somewhere."""
+    groups = by_rank[0]["walk_propose"]
     for r, (got, (fixed, tests, inserts)) in enumerate(zip(by_rank, want)):
         bad = {e: (got[e], v) for e, v in fixed.items() if got[e] != v}
-        if got["walk_propose"] != got["walk_resolve"]:
-            bad["walk_resolve"] = (got["walk_resolve"], got["walk_propose"])
+        if got["walk_propose"] != groups:
+            bad["walk_propose"] = (got["walk_propose"], groups)
+        if got["walk_resolve"] > groups - got["walk_start"]:
+            bad["walk_resolve"] = (got["walk_resolve"], groups)
         probes, builds = got["bloom_probe_words"], got["bloom_or_words"]
         if len(by_rank) == 1:
-            if probes != tests + rounds or builds != inserts:
-                bad["owner"] = (probes, builds, tests, inserts)
-        elif probes > tests + rounds or builds > inserts or (
+            walked = groups - got["walk_start"]
+            if (probes != tests + walked or builds != inserts
+                    or got["walk_resolve"] != walked):
+                bad["owner"] = (probes, builds, tests, inserts, walked)
+        elif probes > tests + groups or builds > inserts or (
                 inserts and not builds):
             bad["owner"] = (probes, builds, tests, inserts)
         if bad:
             raise AssertionError(f"{route}, rank {r}: launches {got}; "
                                  f"(got, expected): {bad}")
-    if not any(g["walk_propose"] for g in by_rank):
-        raise AssertionError(f"{route}: no walk round was launched")
+    if not groups:
+        raise AssertionError(f"{route}: no walk lane group was launched")
 
 
 def phase_sharded(tmp, cfg, reads, world=None):

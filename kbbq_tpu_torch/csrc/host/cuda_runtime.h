@@ -6,13 +6,15 @@
 // `LAUNCH(kernel, grid, threads, args)` first).
 //
 // One OS thread plays one CUDA thread, one block at a time: __syncthreads is
-// a barrier of the block's threads, __ballot_sync and __syncwarp barriers of
-// a warp's 32, atomics the compiler's builtins.  Nothing here says anything
+// a barrier of the block's threads, __syncwarp and the warp functions
+// (__ballot_sync, __shfl_sync, __match_any_sync, __reduce_max_sync) barriers
+// of a warp's 32 around a slot each, atomics the compiler's builtins.  Nothing here says anything
 // about speed, and nothing here is used on the card.
 #pragma once
 #include <pthread.h>
 
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -53,7 +55,49 @@ inline uint32_t __ballot_sync(uint32_t, bool pred) {
   pthread_barrier_wait(&warp_barrier[w]);
   return m;
 }
+// each thread of a warp puts a value in its slot; all read after a barrier
+inline uint64_t warp_slot[32][32];
+template <class T>
+inline void warp_put(T v) {
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  warp_slot[threadIdx.x / 32][threadIdx.x % 32] = bits;
+  pthread_barrier_wait(&warp_barrier[threadIdx.x / 32]);
+}
+inline void warp_done() { pthread_barrier_wait(&warp_barrier[threadIdx.x / 32]); }
+template <class T>
+inline T __shfl_sync(uint32_t, T v, int src) {
+  warp_put(v);
+  T r;
+  std::memcpy(&r, &warp_slot[threadIdx.x / 32][src & 31], sizeof(T));
+  warp_done();
+  return r;
+}
+inline uint32_t __match_any_sync(uint32_t, int v) {
+  warp_put((uint64_t)(uint32_t)v);
+  uint32_t m = 0;
+  for (int t = 0; t < 32; ++t)
+    if (warp_slot[threadIdx.x / 32][t] == (uint64_t)(uint32_t)v) m |= 1u << t;
+  warp_done();
+  return m;
+}
+inline unsigned __reduce_max_sync(uint32_t, unsigned v) {
+  warp_put((uint64_t)v);
+  unsigned m = 0;
+  for (int t = 0; t < 32; ++t) {
+    const unsigned x = (unsigned)warp_slot[threadIdx.x / 32][t];
+    m = x > m ? x : m;
+  }
+  warp_done();
+  return m;
+}
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline uint32_t __brev(uint32_t x) {
+  uint32_t r = 0;
+  for (int i = 0; i < 32; ++i) { r = (r << 1) | (x & 1); x >>= 1; }
+  return r;
+}
 inline uint64_t __brevll(uint64_t x) {
   uint64_t r = 0;
   for (int i = 0; i < 64; ++i) { r = (r << 1) | (x & 1); x >>= 1; }
@@ -74,6 +118,10 @@ inline unsigned long long atomicXor(unsigned long long* p,
   return __atomic_fetch_xor(p, v, __ATOMIC_RELAXED);
 }
 inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
 

@@ -988,126 +988,399 @@ __global__ void walk_errors_kernel(const int8_t* __restrict__ codes,
 //   kbbq_tpu/ops/inference.py::infer_errors_core): the correction walk
 //   against a filter B that no rank holds whole.  What it computes is
 //   kbbq_tpu/oracle/lighter.py::infer_read_errors, as walk_errors does.
-// Bound by: the exchange, not the card.  Every candidate query has to leave
-//   the rank, so one round of the walk is three launches around one
-//   collective word test, and the round count is the largest number of
-//   breaks any lane of any rank meets.
-// Design: walk_errors keeps a lane in a warp from its first break to the
-//   read's end, reading the filter directly; here the walk is cut into
-//   ROUNDS, each settling one break per active (read, direction) lane, with
-//   the lane's state in device memory between rounds:
-//     pk   [N, packed_words(L)]  packed working copy of each read (2 bits a
-//                                base, first base in the highest bits)
-//     fl   [N, n]   effective trust of each window: 1 trusted, 2 break
-//                   (valid, not trusted), 0 a window with an N
-//     err  [N, L]   error marks
-//     cur  [N, 2]   each lane's break, counted on the walk's own strand
-//                   (right: j; left: n-1-j), -1 when the lane is done
-//   walk_start (a thread a read) copies the codes and the initial trust in and
-//   runs walk_scan_read (the same anchor, flags and first breaks as
-//   walk_errors).  A round is then:
-//   1. walk_propose, a thread per (active lane, window offset t < k): the
-//      3 candidate codes of the base entering the lane's break window, in
-//      ascending order of the ORIGINAL code, patched into window j+t of the
-//      working copy, hashed to the cached (h1, word) pair; word 0 where the
-//      window lies past the read's end or holds an N (never a hit).  All k
-//      windows of all 3 candidates at once: the extension needs the first W
-//      (W = k at the repo's k = 32), and the commit needs the chosen one's k
-//      windows, so one exchange a round serves both, where the plain walk
-//      queried twice for W < k.  Membership answers are deterministic, so a
-//      superset of queries changes no bit.
-//   2. the caller's word test of those pairs (the collective test of the
-//      sharded filter, or a local one).
-//   3. walk_resolve, a thread per active lane: each candidate's extension is
-//      its leading hits among the first min(W, n-j) windows; the largest
-//      wins, ties to the smallest code (the oracle's strict '>'); the base is
-//      marked; a winner is committed with an atomic XOR of its two bits (the
-//      other direction of the read may commit into the same 64-bit word in
-//      the same launch, k+1 bases away) and its k windows' effective trust
-//      is set from its answers; the cursor moves past the extension (one
-//      window for a break with no candidate) to the next break.
-//   The right and left walks touch disjoint windows and bases (see K2), so
-//   one round serves both directions of a read.  The caller loops while an
-//   all-reduce over the ranks says some lane is active: a rank with no
-//   active lane still takes part in every round's exchange.
+// Bound by: the exchange first.  Every candidate query leaves the rank, so
+//   the walk is cut into ROUNDS, each settling one break per active (read,
+//   direction) lane, and a round into lane GROUPS of at most
+//   EXCHANGE_CHUNK / (3k) lanes (parallel/sharded_bloom.py).  A group costs
+//   one agreement on a count matrix (the host's one read), the pairs'
+//   all_to_all and the answers'; the caller walks a rank's rows in blocks of
+//   up to 2^21 reads, so the round count is that of the block's slowest
+//   lane.  On the card, bytes: each lane's 3k pairs of 8 B out and their
+//   answers back, its packed read, flags and cursor.
+// Design: the walk's state lives in device memory between rounds (WalkState
+//   in kernels/__init__.py):
+//     pk    [N, packed_words(L)]  packed working copy of each read (2 bits a
+//                                 base, first base in the highest bits)
+//     fl    [N, n]   effective trust of each window: 1 trusted, 2 break
+//                    (valid, not trusted), 0 a window with an N
+//     err   [N, L]   error marks
+//     cur   [N, 2]   each lane's break, counted on the walk's own strand
+//                    (right: j; left: n-1-j), -1 when the lane is done;
+//                    bit kFailing set while the lane is failing (below)
+//     lists [2, 2N]  lane ids (2 * read + direction) of the current round
+//                    and of the next, and ctl (kCtl* below): which list is
+//                    current, the next group's start, the two counts, the
+//                    group, the rounds begun and the lanes of each round
+//   The lane lists are the kernels' own: nothing on the host or in torch
+//   looks for the active lanes.
+//   walk_start, a warp per read: the codes and the initial trust are read
+//     32 at a time, coalesced, four such loads in flight; a word of the
+//     packed copy is two ballots (the codes' two bits) spread into place;
+//     a window's validity is its distance from the last N, found by a
+//     ballot; the anchor (the longest initially trusted run, ties leftmost)
+//     is a running maximum over 32 windows at a time, the run ending at
+//     each window from a ballot of the untrusted ones; each direction's
+//     first break is the first set bit of a ballot over 32 flags.  A lane
+//     with a break joins the next list.
+//   walk_propose, one entry point of three launches:
+//     take (one thread): when the current list is used up the next one
+//       becomes current (a round begins; its lane count is kept); the group
+//       is the next `group` lanes of the current list; the last column of
+//       the count row gets every lane the rank still walks.
+//     propose, a warp per lane of the group, thread t < k on window j+t: the
+//       three 64-bit words of the packed read that the lane's windows touch
+//       are read once, by three threads, and passed round by shuffles; each
+//       thread patches its window with the 3 candidate codes of the base
+//       entering the break window (ascending ORIGINAL code) and hashes each
+//       to the cached (h1, word) pair; word 0 where the window lies past the
+//       read's end or holds an N (never a hit).  All k windows of all 3
+//       candidates at once: the extension needs the first W and the commit
+//       the chosen one's k, so one exchange serves both.  A FAILING lane
+//       (its last break found no candidate; a bit of its cursor) asks
+//       instead each break among its next k windows with that window's
+//       own entering base replaced: such breaks come in runs (a stretch of
+//       correct but untrusted windows, as walk_errors' note says) and
+//       change nothing but their mark, so a run is settled k windows a
+//       round, not one: the long tail of rounds was such lanes.  The pairs
+//       are counted per owner, (h1 >> shift) & (owners-1), in shared
+//       memory (a warp's equal owners added once, by __match_any_sync), and
+//       each block adds its counts to the row.
+//     route, a thread per pair: the pairs are written grouped by owner (the
+//       row gives each owner's offset, a cursor per owner each block's
+//       range in it), and each pair's place in that buffer goes to `slot`
+//       (-1: not asked).
+//   Between the launches the caller agrees on the D rows, sends the pairs
+//   to their owners, has them tested and takes the answers back, in the
+//   pairs' order.
+//   walk_resolve, a warp per lane of the group: each candidate's answers
+//     (found through `slot`) over the first min(W, n-j) windows are one
+//     ballot (k <= 32), its extension the run of leading ones; the largest
+//     wins, ties to the smallest code (the oracle's strict '>'); the base is
+//     marked; a winner is committed with an atomic XOR of its two bits (the
+//     other direction of the read may commit into the same 64-bit word in
+//     the same launch, k+1 bases away) and k threads set its windows'
+//     effective trust from its answers; the cursor moves past the extension
+//     (one window for a break with no candidate, which makes the lane
+//     failing) to the next break, the first set bit of a ballot over 32
+//     flags at a time.  A failing lane's breaks before the first that has a
+//     candidate (one ballot) are marked; that break is its next, no longer
+//     failing, or the search goes on past the k windows.  A lane that still
+//     walks joins the next list.
+//   The lists grow by one atomicAdd per block (its warps' lanes counted in
+//   shared memory first), so the lane order of a round, and with it which
+//   lanes share a group, changes from run to run.  The answers come back by
+//   position and every commit flips the lane's own bits, so no mark can.
+//   The right and left walks touch disjoint windows and bases (see K2): one
+//   round serves both directions of a read, in one group or in two.
 // ---------------------------------------------------------------------------
+
+constexpr int kRoundThreads = 128;  // threads of a walk_round block
+constexpr int kRoundWarps = kRoundThreads / 32;
+constexpr int kStartBatch = 4;      // 32-base chunks walk_start loads at once
+// fields of ctl; the lane count of round i is at kCtlLanes + i
+constexpr int kCtlWhich = 0, kCtlPos = 1, kCtlCount = 2, kCtlGroupStart = 4,
+              kCtlGroupSize = 5, kCtlRounds = 6, kCtlLanes = 8;
+
+// bit i of v to bit 2i
+__device__ __forceinline__ uint64_t spread_bits(uint32_t v) {
+  uint64_t x = v;
+  x = (x | (x << 16)) & 0x0000FFFF0000FFFFull;
+  x = (x | (x << 8)) & 0x00FF00FF00FF00FFull;
+  x = (x | (x << 4)) & 0x0F0F0F0F0F0F0F0Full;
+  x = (x | (x << 2)) & 0x3333333333333333ull;
+  return (x | (x << 1)) & 0x5555555555555555ull;
+}
+
+// index of the highest set bit of x != 0
+__device__ __forceinline__ int top_bit(uint32_t x) {
+  return 31 - __clz((int)x);
+}
+
+// in cur: the lane's last break found no candidate
+constexpr int32_t kFailing = 1 << 30;
+
+// one lane of a round's group: its read, direction, break window and state
+struct RoundLane {
+  int64_t r;
+  int dir, j, jo, po;
+  bool failing;
+  __device__ __forceinline__ RoundLane(int id, const int32_t* cur, int n,
+                                       int k) {
+    r = id >> 1;
+    dir = id & 1;
+    failing = (cur[id] & kFailing) != 0;
+    j = cur[id] & (kFailing - 1);
+    jo = ow(j, n);
+    po = entering(jo, k);  // the base entering the break window
+  }
+  __device__ __forceinline__ int ow(int x, int n) const {
+    return dir == 0 ? x : n - 1 - x;
+  }
+  // the base newly entering window xo of the original strand
+  __device__ __forceinline__ int entering(int xo, int k) const {
+    return dir == 0 ? xo + k - 1 : xo;
+  }
+};
+
+// The lanes a block's warps put in ids (count of them) join list `to`:
+// one atomicAdd on its count per block.  Every thread of the block calls it.
+__device__ __forceinline__ void join_list(int32_t* lists, int32_t* ctl,
+                                          int64_t num_reads, int to,
+                                          const int* ids, const int* count,
+                                          int* base) {
+  __syncthreads();
+  if (threadIdx.x == 0 && *count)
+    *base = atomicAdd(&ctl[kCtlCount + to], *count);
+  __syncthreads();
+  if ((int)threadIdx.x < *count)
+    lists[to * 2 * num_reads + *base + threadIdx.x] = ids[threadIdx.x];
+}
 
 __global__ void walk_start_kernel(const int8_t* __restrict__ codes,
                                   const uint8_t* __restrict__ trusted0,
                                   uint64_t* __restrict__ pk,
                                   uint8_t* __restrict__ fl,
                                   uint8_t* __restrict__ err,
-                                  int32_t* __restrict__ cur, int64_t num_reads,
+                                  int32_t* __restrict__ cur,
+                                  int32_t* __restrict__ lists,
+                                  int32_t* __restrict__ ctl, int64_t num_reads,
                                   int L, int k) {
+  extern __shared__ uint4 smem4[];
+  int* s_count = reinterpret_cast<int*>(smem4);
+  int* s_base = s_count + 1;
+  int* s_ids = s_count + 2;
+  if (threadIdx.x == 0) *s_count = 0;
+  __syncthreads();
   const int n = L - k + 1, nw = packed_words(L);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       r < num_reads; r += stride) {
+  const int t = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * kRoundWarps + (threadIdx.x >> 5);
+  if (r < num_reads) {
+    const int8_t* c = codes + r * L;
+    const uint8_t* tr = trusted0 + r * n;
     uint8_t* e = err + r * L;
     uint8_t* f = fl + r * n;
-    for (int i = 0; i < L; ++i) e[i] = (uint8_t)codes[r * L + i];
-    for (int j = 0; j < n; ++j) f[j] = trusted0[r * n + j];
-    int right, left;
-    walk_scan_read(reinterpret_cast<int8_t*>(e), pk + r * nw, f, L, n, k,
-                   right, left);
-    cur[2 * r] = right;
-    cur[2 * r + 1] = left;
+    uint64_t* p = pk + r * nw;
+    const uint32_t upto = kFullWarp >> (31 - t);  // lanes 0..t
+    int last_n = -1;   // the last base with an N before this chunk
+    int run_in = 0;    // trusted windows that end the chunk before
+    int best_len = 0, best_end = -1;
+    for (int c00 = 0; c00 < nw * 32; c00 += 32 * kStartBatch) {
+      // the batch's loads first, all in flight at once
+      int codes_in[kStartBatch];
+      bool trust_in[kStartBatch];
+#pragma unroll
+      for (int u = 0; u < kStartBatch; ++u) {
+        const int i = c00 + 32 * u + t, j = i - k + 1;
+        codes_in[u] = i < L ? c[i] : 4;
+        trust_in[u] = j >= 0 && j < n && tr[j] != 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kStartBatch; ++u) {
+        const int c0 = c00 + 32 * u;
+        if (c0 >= nw * 32) break;
+        const int i = c0 + t;
+        const int code = codes_in[u];
+        if (i < L) e[i] = 0;
+        const bool is_n = code >= 4;
+        const uint32_t b0 = __ballot_sync(kFullWarp, !is_n && (code & 1));
+        const uint32_t b1 = __ballot_sync(kFullWarp, !is_n && (code & 2));
+        const uint32_t nb = __ballot_sync(kFullWarp, is_n);
+        if (t == 0)
+          p[c0 >> 5] =
+              (spread_bits(__brev(b1)) << 1) | spread_bits(__brev(b0));
+        const int last_n_i = nb & upto ? c0 + top_bit(nb & upto) : last_n;
+        if (nb) last_n = c0 + top_bit(nb);
+        // the window that ends at base i: valid with no N in its k bases
+        const int j = i - k + 1;
+        const bool tru = trust_in[u];
+        if (j >= 0 && j < n)
+          f[j] = i - last_n_i >= k ? (tru ? kFlagTrusted : kFlagBreak) : 0;
+        const uint32_t untrusted = ~__ballot_sync(kFullWarp, tru) & upto;
+        const int run = !tru ? 0
+                        : untrusted ? t - top_bit(untrusted)
+                                    : run_in + t + 1;
+        const int top = (int)__reduce_max_sync(kFullWarp, (unsigned)run);
+        if (top > best_len) {  // strict: the leftmost of the longest runs
+          best_len = top;
+          best_end =
+              c0 + __ffs((int)__ballot_sync(kFullWarp, run == top)) - k;
+        }
+        run_in = __shfl_sync(kFullWarp, run, 31);
+      }
+    }
+    __syncwarp();  // the flags are read back by other threads of the warp
+    int first[2] = {-1, -1};
+    if (best_len > 0) {  // a read with no trusted window has no anchor
+      const int a = best_end - best_len + 1, b = best_end;
+      for (int x0 = b + 1; x0 < n; x0 += 32) {
+        const int x = x0 + t;
+        const uint32_t m =
+            __ballot_sync(kFullWarp, x < n && f[x] == kFlagBreak);
+        if (m) { first[0] = x0 + __ffs((int)m) - 1; break; }
+      }
+      for (int x0 = a - 1; x0 >= 0; x0 -= 32) {
+        const int x = x0 - t;
+        const uint32_t m =
+            __ballot_sync(kFullWarp, x >= 0 && f[x] == kFlagBreak);
+        if (m) { first[1] = n - 1 - (x0 - __ffs((int)m) + 1); break; }
+      }
+    }
+    if (t < 2) {
+      cur[2 * r + t] = first[t];
+      if (first[t] >= 0) s_ids[atomicAdd(s_count, 1)] = (int)(2 * r + t);
+    }
   }
+  join_list(lists, ctl, num_reads, ctl[kCtlWhich] ^ 1, s_ids, s_count,
+            s_base);
 }
 
-// one active lane of a round: its read, direction and break window
-struct RoundLane {
-  int64_t r;
-  int dir, j, jo, po;
-  __device__ __forceinline__ RoundLane(const int32_t* lanes,
-                                       const int32_t* cur, int64_t a, int n,
-                                       int k) {
-    const int id = lanes[a];
-    r = id >> 1;
-    dir = id & 1;
-    j = cur[id];
-    jo = ow(j, n);
-    po = dir == 0 ? jo + k - 1 : jo;  // the base entering the break window
+__global__ void walk_take_kernel(int32_t* __restrict__ ctl,
+                                 int64_t* __restrict__ row,
+                                 int32_t* __restrict__ route, int owners,
+                                 int group, int round_cap) {
+  for (int d = threadIdx.x; d < owners; d += blockDim.x) {
+    row[d] = 0;
+    route[d] = 0;
   }
-  __device__ __forceinline__ int ow(int x, int n) const {
-    return dir == 0 ? x : n - 1 - x;
+  if (threadIdx.x != 0) return;
+  int which = ctl[kCtlWhich], pos = ctl[kCtlPos];
+  if (pos >= ctl[kCtlCount + which]) {  // this round is done: the next begins
+    which ^= 1;
+    pos = 0;
+    ctl[kCtlWhich] = which;
+    ctl[kCtlCount + (which ^ 1)] = 0;
+    const int lanes = ctl[kCtlCount + which];
+    if (lanes > 0) {
+      const int round = ctl[kCtlRounds]++;
+      if (round < round_cap) ctl[kCtlLanes + round] = lanes;
+    }
   }
-};
+  const int count = ctl[kCtlCount + which];
+  const int size = count - pos < group ? count - pos : group;
+  ctl[kCtlGroupStart] = pos;
+  ctl[kCtlGroupSize] = size;
+  ctl[kCtlPos] = pos + size;
+  row[owners] = count - pos + ctl[kCtlCount + (which ^ 1)];
+}
 
 __global__ void walk_propose_kernel(const uint64_t* __restrict__ pk,
                                     const uint8_t* __restrict__ fl,
                                     const int32_t* __restrict__ cur,
-                                    const int32_t* __restrict__ lanes,
-                                    int64_t num_lanes,
+                                    const int32_t* __restrict__ lists,
+                                    const int32_t* __restrict__ ctl,
+                                    int64_t num_reads,
+                                    unsigned long long* __restrict__ row,
                                     uint32_t* __restrict__ out_h1,
-                                    uint32_t* __restrict__ out_word, int L,
-                                    int k, int num_hashes) {
+                                    uint32_t* __restrict__ out_word,
+                                    int owners, int shift, int L, int k,
+                                    int num_hashes) {
+  extern __shared__ uint4 smem4[];
+  int* s_count = reinterpret_cast<int*>(smem4);  // pairs per owner
+  for (int d = threadIdx.x; d < owners; d += blockDim.x) s_count[d] = 0;
+  __syncthreads();
   const int n = L - k + 1, nw = packed_words(L);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < num_lanes * k; i += stride) {
-    const int64_t a = i / k;
-    const int t = (int)(i - a * k);
-    const RoundLane ln(lanes, cur, a, n, k);
-    WalkCtx cx;
-    cx.pk = const_cast<uint64_t*>(pk + ln.r * nw);
-    cx.k = k;
-    cx.num_hashes = num_hashes;
-    cx.block_mask = 0xFFFFFFFFu;  // the whole h1: the caller routes by it
+  const int t = threadIdx.x & 31;
+  const int a = blockIdx.x * kRoundWarps + (threadIdx.x >> 5);
+  if (a < ctl[kCtlGroupSize]) {
+    const RoundLane ln(
+        lists[ctl[kCtlWhich] * 2 * num_reads + ctl[kCtlGroupStart] + a], cur,
+        n, k);
+    // the lane's windows and its base po lie in bases [lo, lo + 2k - 1):
+    // words q0, q0+1, q0+2 of the packed read, read once
+    const int lo = ln.dir == 0 ? ln.jo : (ln.jo >= k - 1 ? ln.jo - k + 1 : 0);
+    const int q0 = lo >> 5;
+    const uint64_t* p = pk + ln.r * nw;
+    const unsigned long long mine = t < 3 && q0 + t < nw ? p[q0 + t] : 0ull;
     const int x = ln.j + t;
-    const int xo = ln.ow(x, n);
-    const bool live = x < n && fl[ln.r * n + xo] != 0;
-    const int orig = cx.base(ln.po);
-    const uint64_t f = live ? window_kmer(cx.pk, xo, k) : 0ull;
+    const bool inside = t < k && x < n;
+    const int xo = inside ? ln.ow(x, n) : ln.jo;
+    const uint8_t flag = inside ? fl[ln.r * n + xo] : 0;
+    // a lane asks every valid window of the next k with base po replaced;
+    // a failing lane asks each break of the next k with its own entering
+    // base replaced (the window alone: has that break a candidate?)
+    const bool live = ln.failing ? flag == kFlagBreak : flag != 0;
+    const int pb = ln.failing ? ln.entering(xo, k) : ln.po;
+    const int q = (xo >> 5) - q0, s = xo & 31;
+    const uint64_t w0 = __shfl_sync(kFullWarp, mine, q);
+    const uint64_t w1 = __shfl_sync(kFullWarp, mine, q + 1);
+    const uint64_t fwd =
+        (s ? (w0 << (2 * s)) | (w1 >> (64 - 2 * s)) : w0) >> (64 - 2 * k);
+    const uint64_t wp = __shfl_sync(kFullWarp, mine, (pb >> 5) - q0);
+    const int orig = (int)((wp >> (2 * (31 - (pb & 31)))) & 3ull);
+    const int at = 2 * (k - 1 - (pb - xo));  // pb's bits in the k-mer
 #pragma unroll
     for (int u = 0; u < 3; ++u) {
       uint32_t h1 = 0u, word = 0u;
-      if (live) cx.hash(cx.patch(f, ln.po - xo, u + (u >= orig ? 1 : 0)), h1,
-                        word);
-      const int64_t o = (a * 3 + u) * k + t;
-      out_h1[o] = h1;
-      out_word[o] = word;
+      if (live) {
+        const uint64_t code = (uint64_t)(u + (u >= orig ? 1 : 0));
+        const uint64_t f = (fwd & ~(3ull << at)) | (code << at);
+        const uint64_t rc = revcomp_kmer(f, k);
+        const uint64_t cn = f <= rc ? f : rc;
+        kmer_hash((uint32_t)(cn >> 32), (uint32_t)cn, num_hashes, h1, word);
+      }
+      if (t < k) {
+        const int64_t o = ((int64_t)a * 3 + u) * k + t;
+        out_h1[o] = h1;
+        out_word[o] = word;
+      }
+      const int owner = word ? (int)((h1 >> shift) & (uint32_t)(owners - 1))
+                             : owners;
+      const uint32_t peers = __match_any_sync(kFullWarp, owner);
+      if (owner < owners && t == __ffs((int)peers) - 1)
+        atomicAdd(&s_count[owner], __popc(peers));
     }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < owners; d += blockDim.x)
+    if (s_count[d]) atomicAdd(&row[d], (unsigned long long)s_count[d]);
+}
+
+__global__ void walk_route_kernel(const uint32_t* __restrict__ h1,
+                                  const uint32_t* __restrict__ word,
+                                  const int32_t* __restrict__ ctl,
+                                  const int64_t* __restrict__ row,
+                                  int32_t* __restrict__ route,
+                                  uint32_t* __restrict__ pairs,
+                                  int32_t* __restrict__ slot, int owners,
+                                  int shift, int k) {
+  extern __shared__ uint4 smem4[];
+  int* s_count = reinterpret_cast<int*>(smem4);  // the block's pairs per owner
+  int* s_at = s_count + owners;  // where they go
+  if (threadIdx.x == 0) {  // an owner's part follows the parts of those before
+    int at = 0;
+    for (int d = 0; d < owners; ++d) {
+      s_at[d] = at;
+      at += (int)row[d];
+      s_count[d] = 0;
+    }
+  }
+  __syncthreads();
+  const int t = threadIdx.x & 31;
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool mine = e < (int64_t)ctl[kCtlGroupSize] * 3 * k;
+  uint32_t hh = 0u, ww = mine ? word[e] : 0u;
+  int owner = owners;
+  if (ww) {
+    hh = h1[e];
+    owner = (int)((hh >> shift) & (uint32_t)(owners - 1));
+  }
+  const uint32_t peers = __match_any_sync(kFullWarp, owner);
+  const int leader = __ffs((int)peers) - 1;
+  int rank = 0;
+  if (owner < owners && t == leader)
+    rank = atomicAdd(&s_count[owner], __popc(peers));
+  rank = __shfl_sync(kFullWarp, rank, leader) +
+         __popc(peers & ((1u << t) - 1u));
+  __syncthreads();
+  for (int d = threadIdx.x; d < owners; d += blockDim.x)
+    if (s_count[d]) s_at[d] += atomicAdd(&route[d], s_count[d]);
+  __syncthreads();
+  if (!mine) return;
+  const int at = owner < owners ? s_at[owner] + rank : -1;
+  slot[e] = at;
+  if (at >= 0) {
+    pairs[2 * (int64_t)at] = hh;
+    pairs[2 * (int64_t)at + 1] = ww;
   }
 }
 
@@ -1115,46 +1388,92 @@ __global__ void walk_resolve_kernel(uint64_t* __restrict__ pk,
                                     uint8_t* __restrict__ fl,
                                     uint8_t* __restrict__ err,
                                     int32_t* __restrict__ cur,
-                                    const int32_t* __restrict__ lanes,
-                                    int64_t num_lanes,
-                                    const uint8_t* __restrict__ hits, int L,
+                                    int32_t* __restrict__ lists,
+                                    int32_t* __restrict__ ctl,
+                                    int64_t num_reads,
+                                    const int32_t* __restrict__ slot,
+                                    const uint8_t* __restrict__ answers, int L,
                                     int k, int W) {
+  extern __shared__ uint4 smem4[];
+  int* s_count = reinterpret_cast<int*>(smem4);
+  int* s_base = s_count + 1;
+  int* s_ids = s_count + 2;
+  if (threadIdx.x == 0) *s_count = 0;
+  __syncthreads();
   const int n = L - k + 1, nw = packed_words(L);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t a = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       a < num_lanes; a += stride) {
-    const RoundLane ln(lanes, cur, a, n, k);
+  const int t = threadIdx.x & 31;
+  const int a = blockIdx.x * kRoundWarps + (threadIdx.x >> 5);
+  const int which = ctl[kCtlWhich];
+  if (a < ctl[kCtlGroupSize]) {
+    const int id = lists[which * 2 * num_reads + ctl[kCtlGroupStart] + a];
+    const RoundLane ln(id, cur, n, k);
     uint64_t* p = pk + ln.r * nw;
     uint8_t* f = fl + ln.r * n;
-    const int sh = 2 * (31 - (ln.po & 31));
-    // the other direction flips only its own bits of this word
-    const int orig = (int)((p[ln.po >> 5] >> sh) & 3ull);
-    const int lim = W < n - ln.j ? W : n - ln.j;
-    int best_u = -1, best_c = -1, best_ext = 0;
-    for (int u = 0; u < 3; ++u) {  // ascending ORIGINAL code
-      const uint8_t* hu = hits + (a * 3 + u) * k;
-      int ext = 0;
-      while (ext < lim && hu[ext]) ++ext;
-      if (ext > best_ext) {  // strict: ties keep the first
-        best_ext = ext;
-        best_u = u;
-        best_c = u + (u >= orig ? 1 : 0);
-      }
+    bool hit[3];
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const int s = t < k ? slot[((int64_t)a * 3 + u) * k + t] : -1;
+      hit[u] = s >= 0 && answers[s] != 0;
     }
-    err[ln.r * L + ln.po] = 1;
-    if (best_ext >= 1) {
-      atomicXor(reinterpret_cast<unsigned long long*>(p + (ln.po >> 5)),
-                (unsigned long long)(orig ^ best_c) << sh);
-      const uint8_t* hb = hits + (a * 3 + best_u) * k;
-      for (int t = 0; t < k && ln.j + t < n; ++t) {
+    int from;              // where the search for the next break starts
+    bool failing;
+    if (ln.failing) {
+      // the lane's breaks among windows j..j+k-1 before the first that has
+      // a candidate fail like the last (a mark, nothing else); that one is
+      // the next round's break, or the search goes on past the k windows
+      const int x = ln.j + t;
+      const int xo = t < k && x < n ? ln.ow(x, n) : 0;
+      const bool brk = t < k && x < n && f[xo] == kFlagBreak;
+      const uint32_t fixable =
+          __ballot_sync(kFullWarp, brk && (hit[0] || hit[1] || hit[2]));
+      const int first = fixable ? __ffs((int)fixable) - 1 : 32;
+      if (brk && t < first) err[ln.r * L + ln.entering(xo, k)] = 1;
+      failing = fixable == 0u;
+      from = ln.j + (failing ? k : first);
+    } else {
+      const int sh = 2 * (31 - (ln.po & 31));
+      // the other direction flips only its own bits of this word
+      const int orig = (int)((p[ln.po >> 5] >> sh) & 3ull);
+      const int lim = W < n - ln.j ? W : n - ln.j;
+      int best_u = -1, best_ext = 0;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {  // ascending ORIGINAL code
+        const uint32_t ok = __ballot_sync(kFullWarp, t < lim && hit[u]);
+        const int ext = ok == kFullWarp ? 32 : __ffs((int)~ok) - 1;
+        if (ext > best_ext) {  // strict: ties keep the first
+          best_ext = ext;
+          best_u = u;
+        }
+      }
+      if (t == 0) {
+        err[ln.r * L + ln.po] = 1;
+        if (best_ext >= 1)
+          atomicXor(reinterpret_cast<unsigned long long*>(p + (ln.po >> 5)),
+                    (unsigned long long)(orig ^ (best_u + (best_u >= orig)))
+                        << sh);
+      }
+      if (best_ext >= 1 && t < k && ln.j + t < n) {
         const int xo = ln.ow(ln.j + t, n);
-        if (f[xo] != 0) f[xo] = hb[t] ? kFlagTrusted : kFlagBreak;
+        const bool h = best_u == 0 ? hit[0] : best_u == 1 ? hit[1] : hit[2];
+        if (f[xo] != 0) f[xo] = h ? kFlagTrusted : kFlagBreak;
       }
+      failing = best_ext < 1;
+      from = ln.j + (failing ? 1 : best_ext);
     }
-    int x = ln.j + (best_ext >= 1 ? best_ext : 1);
-    while (x < n && f[ln.ow(x, n)] != kFlagBreak) ++x;
-    cur[2 * ln.r + ln.dir] = x < n ? x : -1;
+    __syncwarp();  // the flags are read below by other threads
+    int next = -1;
+    for (int x0 = from; x0 < n; x0 += 32) {
+      const int x = x0 + t;
+      const uint32_t m =
+          __ballot_sync(kFullWarp, x < n && f[ln.ow(x, n)] == kFlagBreak);
+      if (m) { next = x0 + __ffs((int)m) - 1; break; }
+    }
+    if (t == 0) {
+      cur[id] = next < 0 ? -1 : next | (failing ? kFailing : 0);
+      if (next >= 0) s_ids[atomicAdd(s_count, 1)] = id;
+    }
   }
+  join_list(lists, ctl, num_reads, which ^ 1, s_ids, s_count, s_base);
 }
 
 __global__ void empty_kernel() {}
@@ -1345,42 +1664,74 @@ int kbbq_walk_errors(const void* codes, const void* trusted0,
 
 // The walk_round entry points.  State (see K4): pk int64 [num_reads,
 // packed_words(L)], fl and err bool-sized [num_reads, L-k+1] and
-// [num_reads, L], cur int32 [num_reads, 2]; walk_start writes all of it
-// from codes int8 [num_reads, L] and trusted0 bool [num_reads, L-k+1].
-// lanes int32 [num_lanes]: the active lanes (2 * read + direction, cur >= 0).
-// walk_propose writes h1, word int32 [num_lanes, 3, k]; walk_resolve reads
-// hits bool [num_lanes, 3, k], the word test of those pairs.
+// [num_reads, L], cur int32 [num_reads, 2], lists int32 [2, 2 * num_reads],
+// ctl int32 [kCtlLanes + L-k+2], zeroed before walk_start, which writes the
+// rest from codes int8 [num_reads, L] and trusted0 bool [num_reads, L-k+1].
 int kbbq_walk_start(const void* codes, const void* trusted0, void* pk,
-                    void* fl, void* err, void* cur, int64_t num_reads, int L,
-                    int k, void* stream) {
+                    void* fl, void* err, void* cur, void* lists, void* ctl,
+                    int64_t num_reads, int L, int k, void* stream) {
   if (num_reads <= 0 || L - k + 1 <= 0) return (int)cudaGetLastError();
-  walk_start_kernel<<<grid_for(num_reads, kThreads), kThreads, 0,
-                      (cudaStream_t)stream>>>(
+  const int64_t blocks = (num_reads + kRoundWarps - 1) / kRoundWarps;
+  walk_start_kernel<<<(unsigned)blocks, kRoundThreads,
+                      (2 + 2 * kRoundWarps) * 4, (cudaStream_t)stream>>>(
       (const int8_t*)codes, (const uint8_t*)trusted0, (uint64_t*)pk,
-      (uint8_t*)fl, (uint8_t*)err, (int32_t*)cur, num_reads, L, k);
+      (uint8_t*)fl, (uint8_t*)err, (int32_t*)cur, (int32_t*)lists,
+      (int32_t*)ctl, num_reads, L, k);
   return (int)cudaGetLastError();
 }
 
+// The next group of at most `group` lanes: row int64 [owners + 1] (its
+// pairs per owner, then every lane the rank still walks), h1 and word int32
+// [group, 3, k] in lane order (word 0: not asked), pairs int32 [group*3*k,
+// 2] grouped by owner, slot int32 [group*3*k] (each pair's place in pairs,
+// -1 where not asked), route int32 [owners] (scratch).  bound: a bound on
+// the group's size (at most `group`, 0 when the rank walks no lane).
 int kbbq_walk_propose(const void* pk, const void* fl, const void* cur,
-                      const void* lanes, int64_t num_lanes, void* h1,
-                      void* word, int L, int k, int num_hashes, void* stream) {
-  if (num_lanes <= 0) return (int)cudaGetLastError();
-  walk_propose_kernel<<<grid_for(num_lanes * k, kThreads), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      (const uint64_t*)pk, (const uint8_t*)fl, (const int32_t*)cur,
-      (const int32_t*)lanes, num_lanes, (uint32_t*)h1, (uint32_t*)word, L, k,
-      num_hashes);
+                      const void* lists, void* ctl, int64_t num_reads,
+                      void* row, void* route, void* h1, void* word,
+                      void* pairs, void* slot, int bound, int group,
+                      int owners, int shift, int L, int k, int num_hashes,
+                      void* stream) {
+  if (owners < 1 || owners > 4096 || (owners & (owners - 1)) || group < 1 ||
+      bound < 0 || bound > group || shift < 0 || shift > 31 || k < 1 ||
+      k > 32 || L - k + 1 <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  walk_take_kernel<<<1, 32, 0, s>>>((int32_t*)ctl, (int64_t*)row,
+                                    (int32_t*)route, owners, group,
+                                    L - k + 2);
+  if (bound > 0) {
+    walk_propose_kernel<<<(bound + kRoundWarps - 1) / kRoundWarps,
+                          kRoundThreads, owners * 4, s>>>(
+        (const uint64_t*)pk, (const uint8_t*)fl, (const int32_t*)cur,
+        (const int32_t*)lists, (const int32_t*)ctl, num_reads,
+        (unsigned long long*)row, (uint32_t*)h1, (uint32_t*)word, owners,
+        shift, L, k, num_hashes);
+    const int64_t entries = (int64_t)bound * 3 * k;
+    walk_route_kernel<<<(unsigned)((entries + kRoundThreads - 1) /
+                                   kRoundThreads),
+                        kRoundThreads, owners * 8, s>>>(
+        (const uint32_t*)h1, (const uint32_t*)word, (const int32_t*)ctl,
+        (const int64_t*)row, (int32_t*)route, (uint32_t*)pairs,
+        (int32_t*)slot, owners, shift, k);
+  }
   return (int)cudaGetLastError();
 }
 
-int kbbq_walk_resolve(void* pk, void* fl, void* err, void* cur,
-                      const void* lanes, int64_t num_lanes, const void* hits,
-                      int L, int k, int W, void* stream) {
-  if (num_lanes <= 0) return (int)cudaGetLastError();
-  walk_resolve_kernel<<<grid_for(num_lanes, kThreads), kThreads, 0,
+// The rest of the group's round from answers uint8 [pairs sent], the word
+// tests of walk_propose's pairs in their order; bound as there.
+int kbbq_walk_resolve(void* pk, void* fl, void* err, void* cur, void* lists,
+                      void* ctl, int64_t num_reads, const void* slot,
+                      const void* answers, int bound, int L, int k, int W,
+                      void* stream) {
+  if (bound <= 0) return (int)cudaGetLastError();
+  if (W < 1 || W > k || k > 32) return (int)cudaErrorInvalidValue;
+  walk_resolve_kernel<<<(bound + kRoundWarps - 1) / kRoundWarps,
+                        kRoundThreads, (2 + kRoundWarps) * 4,
                         (cudaStream_t)stream>>>(
       (uint64_t*)pk, (uint8_t*)fl, (uint8_t*)err, (int32_t*)cur,
-      (const int32_t*)lanes, num_lanes, (const uint8_t*)hits, L, k, W);
+      (int32_t*)lists, (int32_t*)ctl, num_reads, (const int32_t*)slot,
+      (const uint8_t*)answers, L, k, W);
   return (int)cudaGetLastError();
 }
 

@@ -144,9 +144,11 @@ def _bind(lib) -> None:
     lib.kbbq_trust_rule.argtypes = [p, p, p, p, i64, i, i, i, i, i, p]
     lib.kbbq_walk_errors.argtypes = [p, p, p, u32, p, i64, i, i, i, i, i, i,
                                      p]
-    lib.kbbq_walk_start.argtypes = [p, p, p, p, p, p, i64, i, i, p]
-    lib.kbbq_walk_propose.argtypes = [p, p, p, p, i64, p, p, i, i, i, p]
-    lib.kbbq_walk_resolve.argtypes = [p, p, p, p, p, i64, p, i, i, i, p]
+    lib.kbbq_walk_start.argtypes = [p, p, p, p, p, p, p, p, i64, i, i, p]
+    lib.kbbq_walk_propose.argtypes = [p, p, p, p, p, i64, p, p, p, p, p, p,
+                                      i, i, i, i, i, i, i, p]
+    lib.kbbq_walk_resolve.argtypes = [p, p, p, p, p, p, i64, p, p, i, i, i,
+                                      i, p]
     lib.kbbq_walk_tile_bytes.argtypes = [i, i, i]
     lib.kbbq_hash_tile_bytes.argtypes = [i, i, i]
     lib.kbbq_trust_tile_bytes.argtypes = [i, i, i, i]
@@ -518,33 +520,66 @@ def walk_errors(codes: torch.Tensor, trusted0: torch.Tensor,
     return err
 
 
-class WalkState:
-    """The state of a round-based walk (kernel walk_round) between rounds,
-    on the card: pk int64 [N, packed_words(L)] (packed working copies),
-    fl uint8 [N, n] (effective trust: 1 trusted, 2 break, 0 invalid), err
-    bool [N, L] (the marks), cur int32 [N, 2] (each (read, direction)
-    lane's break on its own strand, -1 when done)."""
+# ctl's fields (csrc/kbbq_kernels.cu, K4): rounds begun, then the lane count
+# of each round
+CTL_ROUNDS, CTL_LANES = 6, 8
 
-    def __init__(self, N: int, L: int, k: int, dev):
+
+class WalkState:
+    """The state of a round-based walk (kernel walk_round) between its
+    launches, on one device: pk int64 [N, packed_words(L)] (packed working
+    copies), fl uint8 [N, n] (effective trust: 1 trusted, 2 break, 0
+    invalid), err bool [N, L] (the marks; walk_start writes every byte),
+    cur int32 [N, 2] (each (read,
+    direction) lane's break on its own strand, -1 when done, bit 30 while
+    its last break found no candidate), lists int32
+    [2, 2N] and ctl int32 (the lane lists of this round and the next, the
+    group; the kernels' own), and one lane group's buffers for at most
+    `group` lanes: row int64 [owners + 1], h1 / word / slot int32 and pairs
+    int32 [., 2], of group x 3k entries.  ``propose`` and ``resolve`` are
+    the entry points ``walk_propose`` and ``walk_resolve``."""
+
+    def __init__(self, N: int, L: int, k: int, dev, group: int,
+                 owners: int = 1):
         n = L - k + 1
-        self.L, self.k = L, k
+        self.N, self.L, self.k, self.owners = N, L, k, owners
+        self.group = max(1, min(int(group), 2 * N))
+        e = self.group * 3 * k
+        i32 = dict(dtype=torch.int32, device=dev)
         self.pk = torch.empty((N, (L + 31) // 32 + 1), dtype=torch.int64,
                               device=dev)
         self.fl = torch.empty((N, n), dtype=torch.uint8, device=dev)
-        self.err = torch.zeros((N, L), dtype=torch.bool, device=dev)
-        self.cur = torch.full((N, 2), -1, dtype=torch.int32, device=dev)
+        self.err = torch.empty((N, L), dtype=torch.bool, device=dev)
+        self.cur = torch.empty((N, 2), **i32)
+        self.lists = torch.empty((2, 2 * N), **i32)
+        self.ctl = torch.zeros(CTL_LANES + n + 1, **i32)
+        self.row = torch.empty(owners + 1, dtype=torch.int64, device=dev)
+        self.route = torch.empty(owners, **i32)
+        self.h1, self.word, self.slot = (torch.empty(e, **i32)
+                                         for _ in range(3))
+        self.pairs = torch.empty((e, 2), **i32)
 
-    def active_lanes(self) -> torch.Tensor:
-        """int32 [A]: the lanes (2 * read + direction) still walking."""
-        return torch.nonzero(self.cur.view(-1) >= 0).view(-1).to(torch.int32)
+    def propose(self, num_hashes: int, shift: int, bound: int):
+        return walk_propose(self, num_hashes, shift, bound)
+
+    def resolve(self, answers: torch.Tensor, W: int, bound: int) -> None:
+        walk_resolve(self, answers, W, bound)
+
+    def lanes_by_round(self) -> list:
+        """The lane count of every round begun so far (one read of ctl)."""
+        ctl = self.ctl.tolist()
+        return ctl[CTL_LANES:CTL_LANES + min(ctl[CTL_ROUNDS],
+                                             len(ctl) - CTL_LANES)]
 
 
-def walk_start(codes: torch.Tensor, trusted0: torch.Tensor,
-               k: int) -> WalkState:
-    """Kernel walk_round, entry point walk_start: a thread per read packs
-    its working copy, finds the anchor (longest initially trusted run, ties
-    leftmost) and each direction's first break.  codes int8 [N, L];
-    trusted0 bool [N, L-k+1].  N == 0 launches nothing (no lane active)."""
+def walk_start(codes: torch.Tensor, trusted0: torch.Tensor, k: int,
+               group: int, owners: int = 1) -> WalkState:
+    """Kernel walk_round, entry point walk_start: a warp per read packs its
+    working copy, finds the anchor (longest initially trusted run, ties
+    leftmost) and each direction's first break, and lists the lanes that
+    have one.  codes int8 [N, L]; trusted0 bool [N, L-k+1]; the state's
+    groups hold at most `group` lanes, their pairs counted for `owners`
+    owners (a power of two).  N == 0 launches nothing (no lane walks)."""
     dev = codes.device
     _check(codes, "codes", torch.int8, dev)
     _check(trusted0, "trusted0", torch.bool, dev)
@@ -555,68 +590,68 @@ def walk_start(codes: torch.Tensor, trusted0: torch.Tensor,
         raise ValueError("need 1 <= k <= 32 and L >= k")
     if tuple(trusted0.shape) != (N, L - k + 1):
         raise ValueError("trusted0 must be [N, L-k+1]")
-    st = WalkState(N, L, k, dev)
+    if group < 1 or owners < 1 or owners & (owners - 1):
+        raise ValueError("need group >= 1 and a power-of-two owner count")
+    st = WalkState(N, L, k, dev, group, owners)
     if N == 0:
         return st
     with torch.cuda.device(dev):
         rc = library().kbbq_walk_start(
             codes.data_ptr(), trusted0.data_ptr(), st.pk.data_ptr(),
-            st.fl.data_ptr(), st.err.data_ptr(), st.cur.data_ptr(), N, L,
-            int(k), _stream())
+            st.fl.data_ptr(), st.err.data_ptr(), st.cur.data_ptr(),
+            st.lists.data_ptr(), st.ctl.data_ptr(), N, L, int(k), _stream())
     _raise_on(rc, "walk_round (walk_start)")
     _count("walk_round", "walk_start")
     return st
 
 
-def _check_lanes(st: WalkState, lanes: torch.Tensor) -> None:
-    _check(lanes, "lanes", torch.int32, st.pk.device)
-    if lanes.dim() != 1:
-        raise ValueError("lanes must be 1-D")
-
-
-def walk_propose(st: WalkState, lanes: torch.Tensor, num_hashes: int):
-    """Kernel walk_round, entry point walk_propose: for each active lane
-    (int32 [A], ``WalkState.active_lanes``) the cached (h1, word) pair of
-    every window t < k of its 3 candidates, int32 patterns [A, 3, k] each
-    (word 0: past the read's end or a window with an N).  A == 0 launches
-    nothing."""
-    _check_lanes(st, lanes)
-    A, k = int(lanes.numel()), st.k
+def walk_propose(st: WalkState, num_hashes: int, shift: int, bound: int):
+    """Kernel walk_round, entry point walk_propose: the next lane group of
+    the walk (the next round's first when this one is used up) -> (row
+    int64 [owners + 1]: its pairs per owner, (h1 >> shift) & (owners-1), and
+    every lane the rank still walks; the pairs int32 [., 2], the cached
+    (h1, word) of every window t < k of each lane's 3 candidates that is
+    inside the read and holds no N, grouped by owner: the first sum(row[:-1])
+    rows).  `bound`: at most the group's lane count (0: the rank walks no
+    lane; ``st.group`` at most).  Both outputs are the state's buffers, valid
+    until the next call.  Always launches (the row is written)."""
     dev = st.pk.device
-    h1 = torch.empty((A, 3, k), dtype=torch.int32, device=dev)
-    word = torch.empty((A, 3, k), dtype=torch.int32, device=dev)
-    if A == 0:
-        return h1, word
+    _check(st.pk, "the walk state", torch.int64, dev)
+    if not 0 <= bound <= st.group:
+        raise ValueError(f"need 0 <= bound <= {st.group}")
     with torch.cuda.device(dev):
         rc = library().kbbq_walk_propose(
             st.pk.data_ptr(), st.fl.data_ptr(), st.cur.data_ptr(),
-            lanes.data_ptr(), A, h1.data_ptr(), word.data_ptr(), st.L, k,
-            int(num_hashes), _stream())
+            st.lists.data_ptr(), st.ctl.data_ptr(), st.N, st.row.data_ptr(),
+            st.route.data_ptr(), st.h1.data_ptr(), st.word.data_ptr(),
+            st.pairs.data_ptr(), st.slot.data_ptr(), int(bound), st.group,
+            st.owners, int(shift), st.L, st.k, int(num_hashes), _stream())
     _raise_on(rc, "walk_round (walk_propose)")
     _count("walk_round", "walk_propose")
-    return h1, word
+    return st.row, st.pairs
 
 
-def walk_resolve(st: WalkState, lanes: torch.Tensor, hits: torch.Tensor,
-                 W: int) -> None:
-    """Kernel walk_round, entry point walk_resolve: the rest of the round
-    from the answers `hits` bool [A, 3, k] to ``walk_propose``'s pairs
-    (extension rule, mark, commit, effective trust, next break), IN PLACE
-    on `st`.  A == 0 launches nothing."""
-    _check_lanes(st, lanes)
-    _check(hits, "hits", torch.bool, st.pk.device)
-    A, k = int(lanes.numel()), st.k
-    if tuple(hits.shape) != (A, 3, k):
-        raise ValueError("hits must be [A, 3, k]")
-    if not 1 <= W <= k:
+def walk_resolve(st: WalkState, answers: torch.Tensor, W: int,
+                 bound: int) -> None:
+    """Kernel walk_round, entry point walk_resolve: the rest of the group's
+    round from `answers` uint8 [pairs sent], the word tests of
+    ``walk_propose``'s pairs in their order (extension rule, mark, commit,
+    effective trust, next break, the next round's list), IN PLACE on `st`.
+    `bound` as there; 0 launches nothing."""
+    _check(st.pk, "the walk state", torch.int64, st.pk.device)
+    _check(answers, "answers", torch.uint8, st.pk.device)
+    if not 1 <= W <= st.k:
         raise ValueError("need 1 <= W <= k")
-    if A == 0:
+    if not 0 <= bound <= st.group:
+        raise ValueError(f"need 0 <= bound <= {st.group}")
+    if bound == 0:
         return
     with torch.cuda.device(st.pk.device):
         rc = library().kbbq_walk_resolve(
             st.pk.data_ptr(), st.fl.data_ptr(), st.err.data_ptr(),
-            st.cur.data_ptr(), lanes.data_ptr(), A, hits.data_ptr(), st.L,
-            k, int(W), _stream())
+            st.cur.data_ptr(), st.lists.data_ptr(), st.ctl.data_ptr(), st.N,
+            st.slot.data_ptr(), answers.data_ptr(), int(bound), st.L, st.k,
+            int(W), _stream())
     _raise_on(rc, "walk_round (walk_resolve)")
     _count("walk_round", "walk_resolve")
 

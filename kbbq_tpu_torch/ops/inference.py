@@ -31,12 +31,12 @@ subsumes the oracle's explicit N-window skips.
 
 The sweep takes its membership test as a callable (``walk_plain``; the JAX
 package's ``query_fn``): ``infer_errors_plain`` passes the local test of a
-packed filter, and ``infer_errors_sharded`` the collective word test of a
-hash-space-sharded filter (``parallel/sharded_bloom.py``), with an
-all-reduce that keeps every rank in every round.  On the card that second
-walk is the round-based ``walk_round`` kernel: ``walk_propose`` writes each
-active lane's candidate windows as cached (h1, word) pairs, the caller's
-test answers them, ``walk_resolve`` finishes the round.
+packed filter.  A hash-space-sharded filter (``parallel/sharded_bloom.py``)
+is reached only by an exchange between ranks, so ``infer_errors_sharded``
+walks in rounds and lane groups: the ``walk_round`` kernel on the card
+(``walk_start``, then per group ``walk_propose``, the exchange and
+``walk_resolve``), ``RoundWalkPlain`` (its plain version, the same lists,
+groups and pairs) on the CPU.
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ from __future__ import annotations
 import torch
 
 from ..constants import DEFAULT_EXT_CAP
-from .bloom import _probe_word_w, _query_rows_w, bloom_query_rows
+from .bloom import (_probe_word_w, _query_rows_w, bloom_query_rows,
+                    bloom_query_words)
 from .kmers import (M32, _canonical_w, _kmer_hashes_w, _kmer_lanes_w,
                     canonical_kmers_batch, wide_to_u32)
 
@@ -97,19 +98,13 @@ def _patch_lanes(hi, lo, bitpos, val):
     return torch.where(in_hi, nhi, hi), torch.where(in_hi, lo, nlo)
 
 
-def _local_any(active: bool) -> bool:
-    return active
-
-
-def _walk_rounds(query, work, lanes, valid, teff, err, j, k, W, step,
-                 reduce_any=_local_any):
+def _walk_rounds(query, work, lanes, valid, teff, err, j, k, W, step):
     """All rounds of one directional walk, updating work / lanes / teff /
     err IN PLACE.  step = +1 walks right (the base entering window j is
     j+k-1), step = -1 walks left (entering base j).  j: [B] cursor at each
     read's first break; n (right) or -1 (left) means done.  query(hi, lo):
-    membership of canonical k-mers (wide lanes) -> bool of their shape; it
-    is called once a round, also with no rows, until ``reduce_any`` of
-    "a row is active" is False.
+    membership of canonical k-mers (wide lanes) -> bool of their shape,
+    called once a round.
     """
     dev = work.device
     n = teff.shape[1]
@@ -118,7 +113,7 @@ def _walk_rounds(query, work, lanes, valid, teff, err, j, k, W, step,
     c3i = torch.arange(3, dtype=torch.int64, device=dev)
     while True:
         rows = torch.nonzero(j != done)[:, 0]
-        if not reduce_any(rows.numel() > 0):
+        if rows.numel() == 0:
             return
         ja = j[rows]
         win = ja[:, None] + step * t[None, :]               # [A, k]
@@ -171,14 +166,11 @@ def _walk_rounds(query, work, lanes, valid, teff, err, j, k, W, step,
 
 
 def walk_plain(query, codes: torch.Tensor, k: int, W: int,
-               trusted0: torch.Tensor | None = None,
-               reduce_any=_local_any) -> torch.Tensor:
+               trusted0: torch.Tensor | None = None) -> torch.Tensor:
     """The round-based plain walk (module docstring) with its membership
     test `query(hi, lo)` (canonical k-mers as wide lanes -> bool of their
-    shape) and its round agreement `reduce_any` (``_walk_rounds``):
-    the error mask bool [B, L].  trusted0: the initial trust of every
-    window, ``query & valid`` bool [B, n]; None asks `query`.  B == 0 still
-    takes part in every round (a rank with no rows)."""
+    shape): the error mask bool [B, L].  trusted0: the initial trust of
+    every window, ``query & valid`` bool [B, n]; None asks `query`."""
     B, L = codes.shape
     n = L - k + 1
     err = torch.zeros((B, L), dtype=torch.bool, device=codes.device)
@@ -198,12 +190,10 @@ def walk_plain(query, codes: torch.Tensor, k: int, W: int,
     teff = trusted0.clone()
     n_t = torch.full_like(a, n)
     j0 = _next_break(teff, valid, torch.where(active, b + 1, n_t), n)
-    _walk_rounds(query, work, lanes, valid, teff, err, j0, k, W, +1,
-                 reduce_any)
+    _walk_rounds(query, work, lanes, valid, teff, err, j0, k, W, +1)
     j0 = _prev_break(teff, valid,
                      torch.where(active, a - 1, torch.full_like(a, -1)))
-    _walk_rounds(query, work, lanes, valid, teff, err, j0, k, W, -1,
-                 reduce_any)
+    _walk_rounds(query, work, lanes, valid, teff, err, j0, k, W, -1)
     return err
 
 
@@ -226,42 +216,231 @@ def infer_errors_plain(packed: torch.Tensor, codes: torch.Tensor, k: int,
                       codes, k, _ext_width(ext_cap, k), trusted0)
 
 
-def infer_errors_sharded(codes: torch.Tensor, trusted0: torch.Tensor,
-                         test, k: int, num_hashes: int,
-                         ext_cap: int | None = None,
-                         reduce_any=_local_any) -> torch.Tensor:
-    """Error mask per base, bool [B, L], against a filter reached only
-    through `test(h1, word)`: the word test of cached (h1, word) pairs
-    (int32 patterns of any shape -> bool of that shape, False where word
-    == 0), which on a hash-space-sharded filter is a collective.
-    `reduce_any(active)` agrees over the ranks whether any lane of any rank
-    is still walking; every rank calls `test` once per round, also with
-    nothing to ask (B == 0 included).  trusted0: bool [B, L-k+1], the
-    initial trust of every window.
+class RoundWalkPlain:
+    """The plain version of kernel ``walk_round`` (``kernels.WalkState``
+    and its entry points): the round walk of ``walk_plain`` with both
+    directions of a read walking in the same round, lane lists of (read,
+    direction) ids, and each round taken in groups of at most `group`
+    lanes, whose pairs go out grouped by `owners` owners and whose answers
+    come back by position.  A lane whose last break found no candidate is
+    FAILING: its next round asks each break among its next k windows with
+    that window's own entering base replaced; the breaks before the first
+    that has a candidate fail like the last (a mark each), and that one is
+    the next round's break.  The marks are ``walk_plain``'s."""
 
-    CUDA tensors go through the ``walk_round`` kernel (``walk_start``,
-    then per round ``walk_propose``, `test`, ``walk_resolve``); CPU tensors
-    through ``walk_plain`` with `test` behind the hashing of its k-mers.
-    Both give ``infer_errors``' marks.
+    def __init__(self, codes: torch.Tensor, trusted0: torch.Tensor, k: int,
+                 group: int, owners: int = 1):
+        B, L = codes.shape
+        n = L - k + 1
+        self.k, self.n, self.owners = k, n, owners
+        self.group = max(1, min(int(group), 2 * B))
+        self.err = torch.zeros((B, L), dtype=torch.bool, device=codes.device)
+        fhi, flo, rhi, rlo, self.valid = _kmer_lanes_w(codes, k)
+        self.lanes = [fhi, flo, rhi, rlo]
+        self.work, self.teff = codes.clone(), trusted0.clone()
+        a, b, has = _longest_run_anchors(trusted0)
+        right = _next_break(self.teff, self.valid, torch.where(has, b + 1, n),
+                            n)
+        left = _prev_break(self.teff, self.valid, torch.where(has, a - 1, -1))
+        # each lane's break on the original strand, n (right) or -1 (left)
+        # when done, and whether its last break failed
+        self.cur = torch.stack([right, left], 1)
+        self.failing = torch.zeros_like(self.cur, dtype=torch.bool)
+        ids = torch.arange(2 * B, device=codes.device).view(B, 2)
+        self.next = [ids[torch.stack([right < n, left >= 0], 1)]]
+        self.current = ids.new_empty(0)
+        self.pos = 0
+        self.rounds = []
+        self.asked = None
+
+    def lanes_by_round(self) -> list:
+        return list(self.rounds)
+
+    def propose(self, num_hashes: int, shift: int, bound: int):
+        """``kernels.walk_propose``: (row int64 [owners + 1], pairs int32
+        [P, 2] grouped by owner) of the next group."""
+        if self.pos >= self.current.numel():     # the next round begins
+            self.current = (torch.cat(self.next) if self.next
+                            else self.current[:0])
+            self.next, self.pos = [], 0
+            if self.current.numel():
+                self.rounds.append(int(self.current.numel()))
+        g = self.current[self.pos:self.pos + self.group]
+        active = (self.current.numel() - self.pos
+                  + sum(int(x.numel()) for x in self.next))
+        self.pos += g.numel()
+        k, n, D = self.k, self.n, self.owners
+        L = self.work.shape[1]
+        dev = g.device
+        rows, dirs = g // 2, g % 2
+        fail = self.failing[rows, dirs]
+        step = (1 - 2 * dirs)[:, None]
+        ja = self.cur[rows, dirs]
+        t = torch.arange(k, dtype=torch.int64, device=dev)
+        c3i = torch.arange(3, dtype=torch.int64, device=dev)
+        win = ja[:, None] + step * t[None, :]               # [A, k]
+        inb = (win >= 0) & (win < n)
+        winc = win.clamp(0, n - 1)
+        r2 = rows[:, None]
+        wf_hi, wf_lo = self.lanes[0][r2, winc], self.lanes[1][r2, winc]
+        wr_hi, wr_lo = self.lanes[2][r2, winc], self.lanes[3][r2, winc]
+        wvalid = self.valid[r2, winc] & inb
+        brk = wvalid & ~self.teff[r2, winc]
+        p = ja + (k - 1) * (dirs == 0)
+        # the base each window's candidates replace: p, or for a failing
+        # lane the window's own entering base; the 3 candidate codes in
+        # ascending order
+        ent = win + (k - 1) * (dirs == 0)[:, None]
+        pb = torch.where(fail[:, None], ent, p[:, None])     # [A, k]
+        orig = self.work[r2, pb.clamp(0, L - 1)].to(torch.int64)
+        c3 = c3i[None, :, None] + (c3i[None, :, None]
+                                   >= orig[:, None, :]).to(torch.int64)
+        d = (pb - win)[:, None, :]                 # offset of pb, [A, 1, k]
+        pf_hi, pf_lo = _patch_lanes(wf_hi[:, None], wf_lo[:, None],
+                                    2 * (k - 1 - d), c3)
+        pr_hi, pr_lo = _patch_lanes(wr_hi[:, None], wr_lo[:, None],
+                                    2 * d, 3 - c3)
+        live = torch.where(fail[:, None], brk, wvalid)
+        h1, h2 = _kmer_hashes_w(*_canonical_w(pf_hi, pf_lo, pr_hi, pr_lo))
+        word = _probe_word_w(h2, num_hashes) * live[:, None, :]
+        h1, word = h1.reshape(-1), word.reshape(-1)
+        idx = torch.nonzero(word != 0).view(-1)
+        owner = (h1[idx] >> shift) & (D - 1)
+        owner, order = torch.sort(owner, stable=True)
+        idx = idx[order]
+        slot = torch.full_like(h1, -1)
+        slot[idx] = torch.arange(idx.numel(), device=dev)
+        self.asked = (g, rows, dirs, fail, ja, winc, inb, live, brk, p, ent,
+                      c3[:, :, 0], (pf_hi, pf_lo, pr_hi, pr_lo), slot)
+        row = torch.cat([torch.bincount(owner, minlength=D),
+                         torch.tensor([active], device=dev)])
+        pairs = torch.stack([wide_to_u32(h1[idx]), wide_to_u32(word[idx])],
+                            1)
+        return row, pairs
+
+    def resolve(self, answers: torch.Tensor, W: int, bound: int) -> None:
+        """``kernels.walk_resolve``: the group's round from `answers` uint8,
+        the word tests of the proposed pairs in their order."""
+        (g, rows, dirs, fail, ja, winc, inb, live, brk, p, ent, c3, cands,
+         slot) = self.asked
+        A, k, n = g.numel(), self.k, self.n
+        if A == 0:
+            return
+        dev = g.device
+        c3i = torch.arange(3, dtype=torch.int64, device=dev)
+        t = torch.arange(k, dtype=torch.int64, device=dev)
+        got = answers[slot.clamp(min=0)].bool() & (slot >= 0)
+        q = got.view(A, 3, k) & live[:, None, :]
+        # a lane: extension = leading trusted windows, at most W and inside
+        # the read; strict '>' in the oracle: ties go to the smallest code
+        ext = q[:, :, :W].to(torch.int64).cumprod(dim=-1).sum(dim=-1)
+        bi = (ext * 4 + (2 - c3i)[None, :]).argmax(dim=1)
+        best_ext = torch.where(fail, 0, ext.gather(1, bi[:, None])[:, 0])
+        best_c = c3.gather(1, bi[:, None])[:, 0]
+        nf = ~fail
+        self.err[rows[nf], p[nf]] = True
+        cr = torch.nonzero(best_ext >= 1)[:, 0]
+        if cr.numel():
+            bic = bi[cr]
+            sel = inb[cr]
+            rr = rows[cr][:, None].expand(-1, k)[sel]
+            ww = winc[cr][sel]
+            for lane, new in zip(self.lanes, cands):
+                lane[rr, ww] = new[cr, bic][sel]
+            self.teff[rr, ww] = q[cr, bic][sel]
+            self.work[rows[cr], p[cr]] = best_c[cr].to(self.work.dtype)
+        # a failing lane: its breaks before the first with a candidate fail
+        fixable = q.any(dim=1) & brk
+        has = fixable.any(dim=1)
+        first = torch.where(has, fixable.to(torch.int64).argmax(dim=1), k)
+        marked = brk & (t[None, :] < first[:, None]) & fail[:, None]
+        self.err[rows[:, None].expand(-1, k)[marked], ent[marked]] = True
+        still = torch.where(fail, ~has, best_ext < 1)
+        skip = torch.where(fail, torch.where(has, first, k),
+                           best_ext.clamp(min=1))
+        x = ja + (1 - 2 * dirs) * skip
+        nxt = ja.clone()
+        for d, find in ((0, lambda r, y: _next_break(self.teff[r],
+                                                     self.valid[r], y, n)),
+                        (1, lambda r, y: _prev_break(self.teff[r],
+                                                     self.valid[r], y))):
+            m = dirs == d
+            if m.any():
+                nxt[m] = find(rows[m], x[m])
+        self.cur[rows, dirs] = nxt
+        self.failing[rows, dirs] = still
+        self.next.append(g[torch.where(dirs == 0, nxt < n, nxt >= 0)])
+
+
+class LocalExchange:
+    """The exchange of a round walk against a whole packed filter held
+    here: one owner, nothing leaves the process (the form of
+    ``parallel.sharded_bloom.ShardedFilter.exchange`` that tests and
+    chip_smoke.py hold the walk with).  `groups` counts its calls, `pairs`
+    the pairs it tested."""
+
+    owners, shift = 1, 0
+
+    def __init__(self, packed: torch.Tensor):
+        self.packed = packed
+        self.groups = self.pairs = 0
+
+    def exchange(self, row: torch.Tensor, pairs: torch.Tensor):
+        self.groups += 1
+        P, active = row.tolist()
+        self.pairs += P
+        if P == 0 and active == 0:
+            return None
+        return (bloom_query_words(self.packed, pairs[:P, 0].contiguous(),
+                                  pairs[:P, 1].contiguous())
+                .view(torch.uint8), active)
+
+
+def infer_errors_sharded(codes: torch.Tensor, trusted0: torch.Tensor,
+                         filt, k: int, num_hashes: int, ext_cap: int | None,
+                         group: int, stats: dict | None = None
+                         ) -> torch.Tensor:
+    """Error mask per base, bool [B, L], against a filter reached only
+    through an exchange (``filt``: ``owners``, ``shift`` and
+    ``exchange(row, pairs)``, as ``ShardedFilter`` has them): the round walk
+    in lane groups of at most `group` lanes.  Per group the rank proposes
+    its pairs grouped by owner (``row``: the pairs per owner, then every
+    lane it still walks), ``exchange`` agrees on the ranks' rows, has the
+    pairs tested by their owners and returns (the answers in the pairs'
+    order, this rank's lanes) or None once no rank walks a lane, and the
+    rank resolves the group.  Every rank calls it once per walk block, also
+    with B == 0.  trusted0: bool [B, L-k+1], the initial trust of every
+    window.  `stats` gets ``walk_rounds`` added (the rounds of this block)
+    and, where it has the key, each round's lane count appended to
+    ``lanes_by_round``.
+
+    CUDA tensors go through the ``walk_round`` kernel, CPU tensors through
+    ``RoundWalkPlain``; both give ``infer_errors``' marks.
     """
     B, L = codes.shape
     W = _ext_width(ext_cap, k)
     if L - k + 1 <= 0:
         return torch.zeros((B, L), dtype=torch.bool, device=codes.device)
-    if not codes.is_cuda:
-        def query(hi, lo):
-            h1, h2 = _kmer_hashes_w(hi, lo)
-            return test(wide_to_u32(h1),
-                        wide_to_u32(_probe_word_w(h2, num_hashes)))
-        return walk_plain(query, codes, k, W, trusted0, reduce_any)
-    from .. import kernels
-    st = kernels.walk_start(codes, trusted0, k)
+    if codes.is_cuda:
+        from .. import kernels
+        st = kernels.walk_start(codes, trusted0, k, group, filt.owners)
+    else:
+        st = RoundWalkPlain(codes, trusted0, k, group, filt.owners)
+    bound = st.group if B else 0
     while True:
-        lanes = st.active_lanes()
-        if not reduce_any(lanes.numel() > 0):
-            return st.err
-        h1, word = kernels.walk_propose(st, lanes, num_hashes)
-        kernels.walk_resolve(st, lanes, test(h1, word), W)
+        row, pairs = st.propose(num_hashes, filt.shift, bound)
+        got = filt.exchange(row, pairs)
+        if got is None:
+            break
+        answers, active = got
+        bound = min(st.group, active)
+        st.resolve(answers, W, bound)
+    if stats is not None:
+        lanes = st.lanes_by_round()
+        stats["walk_rounds"] += len(lanes)
+        if "lanes_by_round" in stats:
+            stats["lanes_by_round"] += lanes
+    return st.err
 
 
 def infer_errors(packed: torch.Tensor, codes: torch.Tensor, k: int,

@@ -68,7 +68,9 @@ class Rank:
     backend: str
     stats: dict = dataclasses.field(
         default_factory=lambda: {"merge": 0.0, "merge_bytes": 0,
-                                 "exchange": 0.0, "exchange_bytes": 0})
+                                 "exchange": 0.0, "exchange_bytes": 0,
+                                 "walk_rounds": 0, "walk_groups": 0,
+                                 "walk_collectives": 0})
 
 
 def _free_port() -> int:
@@ -129,8 +131,10 @@ def launch(fn, devices: int, device_type: str, *args,
     The ranks' kernel launches are added to this process's counters
     (``kernels.add_launches``); ``timings``, when given, gets ``spawn`` (s
     from the call to the last rank in the group), ``world``, ``backend``,
-    ``launches_by_rank`` and the slowest rank's ``merge`` and ``exchange``
-    seconds and ``merge_bytes`` and ``exchange_bytes``.  An exception in any rank re-raises here (the first
+    ``launches_by_rank``, the slowest rank's ``merge`` and ``exchange``
+    seconds and ``merge_bytes`` and ``exchange_bytes``, and the largest
+    ``walk_rounds``, ``walk_groups`` and ``walk_collectives`` of a rank (the
+    hash-space-sharded walk's).  An exception in any rank re-raises here (the first
     failing rank's own exception, where it pickles); the other ranks are
     stopped.
     """
@@ -179,6 +183,8 @@ def launch(fn, devices: int, device_type: str, *args,
             timings[name] = round(max(o["stats"][name] for o in outs), 3)
             timings[name + "_bytes"] = max(o["stats"][name + "_bytes"]
                                            for o in outs)
+        for name in ("walk_rounds", "walk_groups", "walk_collectives"):
+            timings[name] = max(o["stats"][name] for o in outs)
     return [o["result"] for o in outs]
 
 

@@ -212,10 +212,9 @@ def _sharded_passes_1_to_3(rank, plan: Plan, config, codes, quals, mask,
     from ..ops.covariate import accumulate_covariates, new_covariate_state
     from ..ops.hash_cache import hash_keep
     from ..ops.trusted import trusted_from_hits
-    from .sharded_bloom import ShardedFilter, agreed_max
+    from .sharded_bloom import ShardedFilter
 
     k, h = config.k, config.num_hashes
-    n_rows = codes.shape[0]
     # ---- pass 1: hash cache and keep plane, kept windows to A's owners
     h1, word, flag = hash_keep(codes, s, k, h, threshold, chunk_rows=rows)
     filt_a = ShardedFilter(rank, plan.log2_ma)
@@ -235,18 +234,17 @@ def _sharded_passes_1_to_3(rank, plan: Plan, config, codes, quals, mask,
     timings["shard_words_b"] = int(filt_b.words.numel())
     mark("pass2")
 
-    # ---- pass 3: collective initial trust, the round walk per row chunk
+    # ---- pass 3: collective initial trust, the round walk per walk block,
+    # the histogram per row chunk
     cov = new_covariate_state(plan.num_rg, plan.max_len, codes.device)
     tr0 = filt_b.test(h1, word)
     del h1, word, flag
-    for c in range(agreed_max(rank, -(-n_rows // rows))):
-        cs = min(n_rows, c * rows)
-        ce = min(n_rows, cs + rows)
-        err = filt_b.walk(codes[cs:ce], tr0[cs:ce], k, h, config.ext_cap)
-        if ce > cs:
+    for bs, be, err in filt_b.walk_blocks(codes, tr0, k, h, config.ext_cap):
+        for cs in range(bs, be, rows):
+            ce = min(be, cs + rows)
             accumulate_covariates(cov, codes[cs:ce], quals[cs:ce],
                                   mask[cs:ce], rgs[cs:ce], seconds[cs:ce],
-                                  err)
+                                  err[cs - bs:ce - bs])
     return cov
 
 

@@ -28,10 +28,16 @@ rank allocates m/(32 D) words of either filter and nothing more:
   of ``EXCHANGE_CHUNK`` entries, every rank taking part in the same number
   of chunks (an all-reduce of the largest count), so no exchange buffer
   grows with the input.
-- WALK: pass 3's walk asks its candidate windows through the same test,
-  one exchange a round (``ops/inference.py::infer_errors_sharded``; on the
-  card the ``walk_round`` kernel), until an all-reduce says no lane of any
-  rank is walking.
+- WALK: pass 3's walk (``ops/inference.py::infer_errors_sharded``; on the
+  card the ``walk_round`` kernel) takes a rank's rows in blocks of
+  ``WALK_BLOCK_ROWS`` reads, every rank as many blocks as the busiest, and
+  each block's rounds in lane groups of at most EXCHANGE_CHUNK / (3k) lanes
+  (3k pairs a lane).  A group is ``exchange``: ONE agreement on the count
+  matrix (each rank's row: its pairs per owner, then the lanes it still
+  walks; one all-gather, one host read, which gives the splits both ways
+  and says when every rank is done), the pairs' ``all_to_all_single`` and
+  the answers' back.  The ranks need not be in the same round: an owner
+  answers whatever it is asked.
 - CHECKPOINTS: rank 0 gathers the shards to its host one at a time
   (``to_host``), so no card holds a whole filter; a rank resuming takes its
   own slice of the saved words (``from_host``), at any power-of-two D.
@@ -57,6 +63,17 @@ from ..constants import MAX_BLOOM_LOG2
 # and their sort, the pairs sent and received, the answers)
 EXCHANGE_CHUNK = 1 << 22
 EXCHANGE_BYTES_PER_ENTRY = 96
+# reads a walk takes at once: config 2's 1,533,333 reads are one block on
+# one device
+WALK_BLOCK_ROWS = 1 << 21
+
+
+def walk_block_bytes(rows: int, max_len: int, k: int) -> int:
+    """Device bytes of the walk state of `rows` reads (``kernels.
+    WalkState``: the packed copy, flags, marks, cursors and lane lists)."""
+    L = int(max_len)
+    return int(rows) * (8 * ((L + 31) // 32 + 1) + max(L - k + 1, 0) + L
+                        + 8 + 16)
 
 
 def check_power_of_two(devices: int) -> None:
@@ -204,18 +221,67 @@ class ShardedFilter:
             self._account(t0, 8 * (sum(sc) - sc[me]) + sum(rc) - rc[me])
         return out.view(shape)
 
-    def any(self, active: bool) -> bool:
-        """Whether `active` holds on any rank (the walk's round agreement)."""
-        return agreed_max(self.rank, int(bool(active))) > 0
+    # ---------------------------------------------------------------- walk
+    @property
+    def owners(self) -> int:
+        return self.rank.world
+
+    def exchange(self, row: torch.Tensor, pairs: torch.Tensor):
+        """One lane group of the walk: the ranks' rows (int64 [D + 1]: the
+        pairs for each owner, then the lanes the rank still walks) gathered
+        into the count matrix and read once; the first sum(row[:D]) pairs
+        (int32 [., 2], grouped by owner) to their owners, their word tests,
+        the answers back.  -> (the answers uint8, in the pairs' order; this
+        rank's lanes), or None when the matrix is 0 (no rank walks a lane).
+        Three collectives; the walk's last group, which ends it, only the
+        agreement."""
+        D, me = self.rank.world, self.rank.rank
+        stats = self.rank.stats
+        t0 = time.time()
+        flat = torch.empty(D * (D + 1), dtype=torch.int64, device=row.device)
+        dist.all_gather_into_tensor(flat, row)
+        M = flat.view(D, D + 1).tolist()
+        stats["walk_groups"] += 1
+        stats["walk_collectives"] += 1
+        if not any(map(any, M)):
+            stats["exchange"] += time.time() - t0
+            return None
+        from ..ops.bloom import bloom_query_words
+        sc, rc = M[me][:D], [r[me] for r in M]
+        got = pairs.new_empty((sum(rc), 2))
+        dist.all_to_all_single(got, pairs[:sum(sc)], rc, sc)
+        ans = bloom_query_words(self.words, got[:, 0].contiguous(),
+                                got[:, 1].contiguous())
+        back = torch.empty(sum(sc), dtype=torch.uint8, device=row.device)
+        dist.all_to_all_single(back, ans.view(torch.uint8), sc, rc)
+        stats["walk_collectives"] += 2
+        # pairs out, 8 B each, and the answers back, a byte each; the
+        # seconds are the host's (no wait is added to take them)
+        stats["exchange_bytes"] += 8 * (sum(sc) - sc[me]) + sum(rc) - rc[me]
+        stats["exchange"] += time.time() - t0
+        return back, M[me][D]
 
     def walk(self, codes: torch.Tensor, trusted0: torch.Tensor, k: int,
              num_hashes: int, ext_cap: int | None = None) -> torch.Tensor:
-        """Pass 3's walk of `codes` (int8 [B, L], B may be 0) against this
-        filter -> the error mask bool [B, L]; every rank calls it for the
-        same number of row chunks."""
+        """Pass 3's walk of one block of rows, `codes` int8 [B, L] (B may be
+        0), against this filter -> the error mask bool [B, L]; every rank
+        calls it for the same number of blocks."""
         from ..ops.inference import infer_errors_sharded
-        return infer_errors_sharded(codes, trusted0, self.test, k,
-                                    num_hashes, ext_cap, self.any)
+        return infer_errors_sharded(
+            codes, trusted0, self, k, num_hashes, ext_cap,
+            group=max(1, EXCHANGE_CHUNK // (3 * k)), stats=self.rank.stats)
+
+    def walk_blocks(self, codes: torch.Tensor, trusted0: torch.Tensor,
+                    k: int, num_hashes: int, ext_cap: int | None = None):
+        """(start, end, error mask) of each walk block of the rank's rows,
+        ``WALK_BLOCK_ROWS`` at a time; every rank walks as many blocks as
+        the busiest (an all-reduce), a rank past its rows empty ones."""
+        N = codes.shape[0]
+        for b in range(agreed_max(self.rank, -(-N // WALK_BLOCK_ROWS))):
+            s = min(N, b * WALK_BLOCK_ROWS)
+            e = min(N, s + WALK_BLOCK_ROWS)
+            yield s, e, self.walk(codes[s:e], trusted0[s:e], k, num_hashes,
+                                  ext_cap)
 
     # --------------------------------------------------------- host copies
     def to_host(self) -> np.ndarray | None:
@@ -251,5 +317,6 @@ class ShardedFilter:
                    .to(rank.device))
 
 
-__all__ = ["EXCHANGE_BYTES_PER_ENTRY", "EXCHANGE_CHUNK", "ShardedFilter", "agreed_max",
-           "check_power_of_two", "sharded_params"]
+__all__ = ["EXCHANGE_BYTES_PER_ENTRY", "EXCHANGE_CHUNK", "ShardedFilter",
+           "WALK_BLOCK_ROWS", "agreed_max", "check_power_of_two",
+           "sharded_params", "walk_block_bytes"]

@@ -85,17 +85,21 @@ def resident_need_bytes(num_reads: int, max_len: int, total_bases: int,
     (CHUNK_BYTES_PER_CELL per chunk row and padded base).  With `shards`
     (the hash-space-sharded layout on that many ranks) each filter counts
     at its shard, 1/shards of its bumped size, and one chunk of the
-    filters' exchange is added."""
+    filters' exchange and the walk state of one walk block
+    (``walk_block_bytes`` of min(N, WALK_BLOCK_ROWS) rows) are added."""
     from ..oracle.pipeline import bloom_params_for
     from .resident import DEFAULT_CHUNK_ROWS
     N, L = int(num_reads), int(max_len)
     alpha, coverage = config.resolve_alpha(int(total_bases))
     if shards:
         from ..parallel.sharded_bloom import (EXCHANGE_BYTES_PER_ENTRY,
-                                              EXCHANGE_CHUNK, sharded_params)
+                                              EXCHANGE_CHUNK, WALK_BLOCK_ROWS,
+                                              sharded_params,
+                                              walk_block_bytes)
         pa, pb = sharded_params(config, int(total_kmers), alpha, coverage,
                                 shards)
-        extra = EXCHANGE_CHUNK * EXCHANGE_BYTES_PER_ENTRY
+        extra = (EXCHANGE_CHUNK * EXCHANGE_BYTES_PER_ENTRY
+                 + walk_block_bytes(min(N, WALK_BLOCK_ROWS), L, config.k))
     else:
         pa, pb = bloom_params_for(config, int(total_kmers), alpha, coverage)
         shards, extra = 1, 0

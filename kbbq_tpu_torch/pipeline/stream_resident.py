@@ -419,24 +419,21 @@ class StreamResidentEngine:
         self.filt_b = self._or_merge(filt)
 
     def _pass3_sharded(self, cov: dict) -> None:
-        from ..parallel.sharded_bloom import agreed_max
         k, h = self.config.k, self.config.num_hashes
         for got in self._steps():
             codes, quals, mask, rgs, seconds = self._step_tensors(got)
             h1, word = hash_windows(codes, k, h)
             tr0 = self.filt_b.test(h1, word)
             del h1, word
-            N = codes.shape[0]
-            # as many chunks on every rank: each walk round is collective
-            for c in range(agreed_max(self.rank, -(-N // self.rows))):
-                s = min(N, c * self.rows)
-                e = min(N, s + self.rows)
-                err = self.filt_b.walk(codes[s:e], tr0[s:e], k, h,
-                                       self.config.ext_cap)
-                if e > s:
+            # a walk per window (more than one for a window over
+            # WALK_BLOCK_ROWS), as many on every rank: each is collective
+            for bs, be, err in self.filt_b.walk_blocks(codes, tr0, k, h,
+                                                       self.config.ext_cap):
+                for s in range(bs, be, self.rows):
+                    e = min(be, s + self.rows)
                     accumulate_covariates(cov, codes[s:e], quals[s:e],
                                           mask[s:e], rgs[s:e], seconds[s:e],
-                                          err)
+                                          err[s - bs:e - bs])
 
     def run_pass3(self) -> None:
         k, h = self.config.k, self.config.num_hashes

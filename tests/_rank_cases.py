@@ -39,22 +39,39 @@ def fail_on_rank(rank, bad: int):
 
 
 def sharded_filter(rank, codes, splits, k: int, num_hashes: int,
-                   threshold: int, log2_m: int, chunk: int):
+                   threshold: int, log2_m: int, chunk: int,
+                   walk_rows: int = 1 << 21):
     """One hash-space-sharded filter built from every rank's rows
     [splits[r], splits[r+1]) (a rank may have none), with exchanges of at
-    most `chunk` entries: the words this rank holds, the whole filter
-    gathered on rank 0, the collective word test of the rank's windows and
-    the walk of its rows against the filter."""
+    most `chunk` entries (walk lane groups of chunk // (3k) lanes): the
+    words this rank holds, the whole filter gathered on rank 0, the
+    collective word test of the rank's windows, the walk of its rows
+    against the filter in blocks of `walk_rows` reads, and the rank's
+    stats."""
     from kbbq_tpu_torch.ops.hash_cache import hash_keep
     from kbbq_tpu_torch.parallel import sharded_bloom
     sharded_bloom.EXCHANGE_CHUNK = chunk
+    sharded_bloom.WALK_BLOCK_ROWS = walk_rows
     s, e = splits[rank.rank], splits[rank.rank + 1]
     c = torch.from_numpy(codes[s:e]).to(rank.device)
     h1, word, keep = hash_keep(c, s, k, num_hashes, threshold)
     filt = sharded_bloom.ShardedFilter(rank, log2_m)
     filt.insert(h1, word, keep)
     hits = filt.test(h1, word)
-    err = filt.walk(c, hits, k, num_hashes)
+    err = torch.zeros(c.shape, dtype=torch.bool)
+    for bs, be, block in filt.walk_blocks(c, hits, k, num_hashes):
+        err[bs:be] = block
     return {"words": int(filt.words.numel()), "whole": filt.to_host(),
-            "hits": hits.cpu().numpy(), "err": err.cpu().numpy(),
-            "exchange_bytes": rank.stats["exchange_bytes"]}
+            "hits": hits.cpu().numpy(), "err": err.numpy(),
+            "exchange_bytes": rank.stats["exchange_bytes"],
+            "stats": dict(rank.stats)}
+
+
+def with_walk(rank, shared, walk_rows: int, chunk: int, body, *args):
+    """``body(rank, shared, *args)``, a rank function of the port's
+    ``parallel`` package, with walk blocks of `walk_rows` reads and
+    exchanges of `chunk` entries (walk lane groups of chunk // (3k))."""
+    from kbbq_tpu_torch.parallel import sharded_bloom
+    sharded_bloom.WALK_BLOCK_ROWS = walk_rows
+    sharded_bloom.EXCHANGE_CHUNK = chunk
+    return body(rank, shared, *args)

@@ -308,7 +308,9 @@ def test_resident_need_from_the_shapes(k, monkeypatch):
     """The over-budget rule: the need grows with the windows per read as k
     falls, covers the resident peak measured at k = 32 (3,327,267,328 B for
     1,533,333 x 150 bases, chip_smoke.py on an H100) within 2 %, and
-    run_pipeline's choice follows the card's free memory."""
+    run_pipeline's choice follows the card's free memory.  The
+    hash-space-sharded layout's need holds the walk state of one walk
+    block, min(N, WALK_BLOCK_ROWS) rows of it."""
     from kbbq_tpu_torch.pipeline import recalibrate as rec
     import torch
     N, L = 1_533_333, 150
@@ -323,6 +325,17 @@ def test_resident_need_from_the_shapes(k, monkeypatch):
         assert need > rec.resident_need_bytes(N, L, N * L, N * 119,
                                               RecalConfig(k=32,
                                                           coverage=50.0))
+    from kbbq_tpu_torch.parallel import sharded_bloom as sb
+    # packed copy (6 words), flags, marks, cursors, lane lists: ~0.33 KB
+    assert sb.walk_block_bytes(1, 150, 32) == 8 * 6 + 119 + 150 + 8 + 16
+    assert N <= sb.WALK_BLOCK_ROWS        # config 2 walks as one block
+    walk = sb.walk_block_bytes(N, L, k)
+    sharded = rec.resident_need_bytes(N, L, N * L, windows, cfg, shards=2)
+    for rows in (1, 4097):
+        monkeypatch.setattr(sb, "WALK_BLOCK_ROWS", rows)
+        assert sharded - rec.resident_need_bytes(
+            N, L, N * L, windows, cfg, shards=2) == \
+            walk - sb.walk_block_bytes(rows, L, k)
     a = ReadArrays(np.zeros((4, 40), np.int8), np.zeros((4, 40), np.int8),
                    np.ones((4, 40), bool), np.zeros(4, np.int32),
                    np.zeros(4, bool))

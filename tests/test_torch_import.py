@@ -252,14 +252,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                            torch.ones(17, dtype=torch.int32), 16, 16)
     with pytest.raises(ValueError):
         kernels.walk_start(torch.zeros((2, 40), dtype=torch.int8),
-                           torch.zeros((2, 25), dtype=torch.bool), 16)
-    st = kernels.WalkState(2, 40, 16, "cpu")
-    lanes = torch.zeros(1, dtype=torch.int32)
+                           torch.zeros((2, 25), dtype=torch.bool), 16, 8)
+    st = kernels.WalkState(2, 40, 16, "cpu", 8)
     with pytest.raises(ValueError):
-        kernels.walk_propose(st, lanes, 7)
+        kernels.walk_propose(st, 7, 0, 4)
     with pytest.raises(ValueError):
-        kernels.walk_resolve(st, lanes, torch.zeros((1, 3, 16),
-                                                    dtype=torch.bool), 16)
+        kernels.walk_resolve(st, torch.zeros(48, dtype=torch.uint8), 16, 4)
     assert kernels.LAUNCHES == before == {"bloom_probe": 0,
                                           "bloom_or_words": 0,
                                           "walk_errors": 0, "walk_round": 0}

@@ -28,7 +28,8 @@ import torch
 from kbbq_tpu_torch import kernels
 from kbbq_tpu_torch.ops import bloom as tbloom
 from kbbq_tpu_torch.ops.hash_cache import hash_cache_chunk, hash_windows_plain
-from kbbq_tpu_torch.ops.inference import infer_errors_plain
+from kbbq_tpu_torch.ops.inference import (LocalExchange, infer_errors_plain,
+                                          infer_errors_sharded)
 from kbbq_tpu_torch.utils.synth import make_two_sided_reads
 
 torch.set_num_threads(2)
@@ -380,34 +381,53 @@ def test_trust_rule_mode_matches_plain(lib, case):
         assert 0 < int(want.sum()) < want.numel()
 
 
-def _walk_in_rounds(lib, codes, trusted0, filt, k, W):
+def _walk_in_rounds(lib, codes, trusted0, filt, k, W, group=1 << 16,
+                    owners=1):
     """The walk_round entry points driven as infer_errors_sharded drives
-    them, with the plain word test of `filt` as the round's query ->
-    (error marks, rounds, the largest lane count of a round)."""
+    them: walk_start, then per lane group walk_propose, the word test of its
+    pairs by the plain test of `filt` (split among `owners` virtual owners,
+    answered in the pairs' order) and walk_resolve, until the row says no
+    lane walks -> (error marks, lanes by round, groups).  Checks the lane
+    list walk_start writes, and that each group's pairs come grouped by
+    owner, as many as its row counts."""
     N, L = codes.shape
-    st = kernels.WalkState(N, L, k, "cpu")
+    st = kernels.WalkState(N, L, k, "cpu", group, owners)
+    shift = (filt.numel() // owners).bit_length() - 1
     assert lib.kbbq_walk_start(codes.data_ptr(), trusted0.data_ptr(),
                                st.pk.data_ptr(), st.fl.data_ptr(),
-                               st.err.data_ptr(), st.cur.data_ptr(), N, L, k,
-                               None) == 0
-    rounds = widest = 0
+                               st.err.data_ptr(), st.cur.data_ptr(),
+                               st.lists.data_ptr(), st.ctl.data_ptr(), N, L,
+                               k, None) == 0
+    walking = torch.nonzero(st.cur.view(-1) >= 0).view(-1)
+    listed = st.lists[1, :int(st.ctl[3])]
+    assert torch.equal(listed.sort().values.long(), walking)
+    bound, groups = (st.group if N else 0), 0
     while True:
-        lanes = st.active_lanes()
-        A = lanes.numel()
-        if A == 0:
-            return st.err, rounds, widest
-        rounds, widest = rounds + 1, max(widest, A)
-        h1 = torch.full((A, 3, k), 77, dtype=torch.int32)
-        word = h1.clone()
-        assert lib.kbbq_walk_propose(st.pk.data_ptr(), st.fl.data_ptr(),
-                                     st.cur.data_ptr(), lanes.data_ptr(), A,
-                                     h1.data_ptr(), word.data_ptr(), L, k, 7,
-                                     None) == 0
-        hits = tbloom.bloom_query_words_plain(filt, h1, word).contiguous()
-        assert lib.kbbq_walk_resolve(st.pk.data_ptr(), st.fl.data_ptr(),
-                                     st.err.data_ptr(), st.cur.data_ptr(),
-                                     lanes.data_ptr(), A, hits.data_ptr(), L,
-                                     k, W, None) == 0
+        assert lib.kbbq_walk_propose(
+            st.pk.data_ptr(), st.fl.data_ptr(), st.cur.data_ptr(),
+            st.lists.data_ptr(), st.ctl.data_ptr(), N, st.row.data_ptr(),
+            st.route.data_ptr(), st.h1.data_ptr(), st.word.data_ptr(),
+            st.pairs.data_ptr(), st.slot.data_ptr(), bound, st.group, owners,
+            shift, L, k, 7, None) == 0
+        groups += 1
+        row = st.row.tolist()
+        P, active = sum(row[:-1]), row[-1]
+        if P == 0 and active == 0:
+            return st.err, st.lanes_by_round(), groups
+        assert 0 < P <= 3 * k * bound and active >= 1
+        pairs = st.pairs[:P]
+        own = ((pairs[:, 0].long() & 0xFFFFFFFF) >> shift) & (owners - 1)
+        assert (own[1:] >= own[:-1]).all()
+        assert torch.bincount(own, minlength=owners).tolist() == row[:-1]
+        answers = tbloom.bloom_query_words_plain(
+            filt, pairs[:, 0].contiguous(), pairs[:, 1].contiguous())
+        answers = answers.to(torch.uint8)
+        bound = min(st.group, active)
+        assert lib.kbbq_walk_resolve(
+            st.pk.data_ptr(), st.fl.data_ptr(), st.err.data_ptr(),
+            st.cur.data_ptr(), st.lists.data_ptr(), st.ctl.data_ptr(), N,
+            st.slot.data_ptr(), answers.data_ptr(), bound, L, k, W,
+            None) == 0
 
 
 WALK_CASES = [
@@ -463,16 +483,29 @@ def test_walk_errors_logic_matches_plain(lib, case):
         assert want.any()
 
 
-@pytest.mark.parametrize("case", WALK_CASES[::2] + WALK_CASES[-1:],
+ROUND_CASES = WALK_CASES[::2] + WALK_CASES[-1:] + [
+    # reads shorter than k beside longer ones (row 3 holds L/2 bases)
+    (96, 40, 24, 24, 0, 0, 0, 0.03, 1.0),
+]
+# lane groups and virtual owners: one group a round, several, one lane each
+ROUND_DRIVES = [(1 << 16, 1), (7, 2), (5, 4)]
+
+
+@pytest.mark.parametrize("drive", ROUND_DRIVES,
+                         ids=lambda d: f"group{d[0]}owners{d[1]}")
+@pytest.mark.parametrize("case", ROUND_CASES,
                          ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}W{c[3]}")
-def test_walk_round_in_rounds_matches_plain(lib, case):
+def test_walk_round_in_rounds_matches_plain(lib, case, drive):
     """The round-based walk (walk_start, then walk_propose, the word test
-    and walk_resolve until no lane is active) against the plain walk and
-    the one-launch walk_errors, on every other walk case (W < k, k < 17,
-    L == k, a single read, filters that leave runs of failing breaks, an
-    all-set filter); the proposal asks only inside the read and never for
-    a window with an N."""
+    and walk_resolve per lane group until no lane walks) against the plain
+    walk, its plain version RoundWalkPlain and the one-launch walk_errors,
+    on every other walk case (W < k, k < 17, L == k, a single read, reads
+    with N, reads shorter than k, filters that leave runs of failing
+    breaks, an all-set filter), with one group a round or several and the
+    pairs grouped for 1, 2 or 4 owners; the rounds and their lane counts are
+    the plain version's."""
     N, L, k, W, _, _, off, err, cover = case
+    group, owners = drive
     N = min(N, 96)
     rng = np.random.default_rng(N + L + k + W + 1)
     clean, codes = _reads(rng, N + off, L, err=err)
@@ -488,16 +521,25 @@ def test_walk_round_in_rounds_matches_plain(lib, case):
     if cover < 0:
         filt = torch.full_like(filt, -1)
     want = infer_errors_plain(filt, c, k, 7, W, trusted0=tr)
-    got, rounds, widest = _walk_in_rounds(lib, c, tr, filt, k, W)
+    got, rounds, groups = _walk_in_rounds(lib, c, tr, filt, k, W, group,
+                                          owners)
     bad = (got != want).any(dim=1)
     assert not bad.any(), f"reads differ: {bad.nonzero()[:10, 0].tolist()}"
+    ex = LocalExchange(filt)
+    stats = {"walk_rounds": 0, "lanes_by_round": []}
+    assert torch.equal(infer_errors_sharded(c, tr, ex, k, 7, W, group,
+                                            stats), want)
+    assert stats["lanes_by_round"] == rounds and ex.groups == groups
     one = torch.ones((N, L), dtype=torch.bool)
     assert lib.kbbq_walk_errors(c.data_ptr(), tr.data_ptr(), filt.data_ptr(),
                                 filt.numel() - 1, one.data_ptr(), N, L, k, W,
                                 7, 32, 128, None) == 0
     assert torch.equal(one, got)
     if N > 8 and L > k:
-        assert want.any() and rounds >= 2 and widest <= 2 * N
+        assert want.any() and len(rounds) >= 2 and max(rounds) <= 2 * N
+        assert groups >= len(rounds) + 1
+        if group < 2 * N:
+            assert groups > len(rounds) + 1     # a round took several
 
 
 BOTH_SIDES_CASES = [
@@ -544,12 +586,16 @@ def test_walk_errors_commits_of_both_directions_share_a_word(lib, case):
         assert not bad.any(), f"reads differ: {bad.nonzero()[:10, 0].tolist()}"
 
 
-@pytest.mark.parametrize("case", BOTH_SIDES_CASES[:2],
-                         ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}W{c[3]}")
-def test_walk_round_serves_both_directions_in_one_round(lib, case):
+@pytest.mark.parametrize("case, group", [(c, 1 << 16)
+                                         for c in BOTH_SIDES_CASES[:2]]
+                         + [(BOTH_SIDES_CASES[0], 9)],
+                         ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}W{c[3]}"
+                         if isinstance(c, tuple) else f"group{c}")
+def test_walk_round_serves_both_directions_in_one_round(lib, case, group):
     """The two-sided reads: one resolve launch commits both directions of a
-    read into one 64-bit word of its packed copy (an atomic flip each), and
-    the marks are the plain walk's."""
+    read into one 64-bit word of its packed copy (an atomic flip each), or
+    two launches do when the lanes fall in different groups, and the marks
+    are the plain walk's."""
     N, L, k, W = case[:4]
     clean, codes, left, right = make_two_sided_reads(N, L, k, seed=L * k + 1)
     ids = torch.arange(N, dtype=torch.int64)
@@ -562,9 +608,9 @@ def test_walk_round_serves_both_directions_in_one_round(lib, case):
     both = (want[:, left[0]:left[1]].any(dim=1)
             & want[:, right[0]:right[1]].any(dim=1))
     assert int(both.sum()) > N // 2
-    got, _, widest = _walk_in_rounds(lib, c, tr, filt, k, W)
+    got, rounds, _ = _walk_in_rounds(lib, c, tr, filt, k, W, group)
     assert torch.equal(got, want)
-    assert widest > N                       # both lanes of reads in one round
+    assert rounds[0] > N                    # both lanes of reads in a round
 
 
 def test_tiles_that_do_not_fit_are_refused(lib):

@@ -251,7 +251,8 @@ def test_streamed_fastq_on_two_ranks(fq_files, layout):
     (relayed through rank 0's file), with a checkpoint and a report: the
     same bytes, the same report, the one-device checkpoint (the sharded
     filters gathered to rank 0), which resumes after pass 2 at one rank
-    with the same bytes."""
+    with the same bytes; the sharded walk's lane groups took at most three
+    collectives each."""
     d, paths = fq_files
     d = d / layout
     d.mkdir()
@@ -280,6 +281,11 @@ def test_streamed_fastq_on_two_ranks(fq_files, layout):
                 np.load(d / "ck2" / f"{name}.npy")).all()
     assert t["world"] == 2 and t["scan"] >= 0 and t["pass4"] >= 0
     assert (t["exchange_bytes"] > 0) == (layout == "sharded")
+    # the sharded walk: a walk a window step, lane groups of three
+    # collectives at most (the agreement, the pairs, the answers)
+    assert (t["walk_groups"] > 0) == (layout == "sharded")
+    assert t["walk_rounds"] <= t["walk_groups"] <= t["walk_collectives"] \
+        <= 3 * t["walk_groups"]
     if layout == "sharded":
         meta = json.loads((d / "ck2" / "meta.json").read_text())
         meta["passes_done"] = ["rows_a", "rows_b"]

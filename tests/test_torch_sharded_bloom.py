@@ -27,7 +27,7 @@ from kbbq_tpu.utils.synth import make_dataset
 from kbbq_tpu_torch.io.batcher import ReadArrays
 from kbbq_tpu_torch.ops import bloom as tb
 from kbbq_tpu_torch.ops.hash_cache import hash_cache_build, hash_cache_chunk
-from kbbq_tpu_torch.ops.inference import (infer_errors_plain,
+from kbbq_tpu_torch.ops.inference import (LocalExchange, infer_errors_plain,
                                           infer_errors_sharded, walk_plain)
 from kbbq_tpu_torch.ops.bloom import _query_rows_w
 from kbbq_tpu_torch.parallel import launch, sharded
@@ -122,17 +122,23 @@ def hashed(arrays):
     return codes, h1, word, filt
 
 
-def test_shards_end_to_end_are_the_one_device_filter(arrays, hashed):
-    """Four ranks (one with no rows) build one sharded filter, exchanging in
-    chunks of 1,000 pairs: each holds m/32/4 words, the shards gathered on
-    rank 0 are the one-device filter word for word, the collective word
-    test answers as the whole filter does, and the walk through it marks
-    what infer_errors_plain marks against the whole filter."""
+@pytest.mark.parametrize("walk_rows, chunk", [(1 << 21, 1000), (5, 60)],
+                         ids=["one_block", "blocks_of_5"])
+def test_shards_end_to_end_are_the_one_device_filter(arrays, hashed,
+                                                     walk_rows, chunk):
+    """Four ranks with unequal rows, one with none, build one sharded
+    filter, exchanging in chunks of `chunk` pairs: each holds m/32/4 words,
+    the shards gathered on rank 0 are the one-device filter word for word,
+    the collective word test answers as the whole filter does, and the walk
+    through it (blocks of `walk_rows` reads, lane groups of chunk // 48
+    lanes) marks what infer_errors_plain marks against the whole filter.
+    Every rank takes part in every lane group: three collectives a group,
+    one for the last agreement of a block."""
     codes, h1, word, filt = hashed
     N = codes.shape[0]
     splits = [0, N // 3, N // 2, N // 2, N]
     res = launch(_rank_cases.sharded_filter, 4, "cpu", arrays.codes, splits,
-                 16, 7, SAMPLE, 16, 1000)
+                 16, 7, SAMPLE, 16, chunk, walk_rows)
     assert [r["words"] for r in res] == [filt.numel() // 4] * 4
     whole = res[0]["whole"].view(np.int32)
     assert whole.shape == (filt.numel(),)
@@ -146,6 +152,76 @@ def test_shards_end_to_end_are_the_one_device_filter(arrays, hashed):
         assert r["err"].any() or s == e
     assert res[2]["hits"].shape == (0, h1.shape[1])
     assert all(r["exchange_bytes"] > 0 for r in res)
+    blocks = -(-(N - N // 2) // walk_rows)        # the busiest rank's
+    stats = [r["stats"] for r in res]
+    groups = stats[0]["walk_groups"]
+    assert all(st["walk_groups"] == groups for st in stats)
+    assert all(st["walk_collectives"] == 3 * groups - 2 * blocks
+               for st in stats)
+    assert stats[2]["walk_rounds"] == 0 < min(stats[r]["walk_rounds"]
+                                              for r in (0, 1, 3))
+    if chunk < 100:                  # lane groups of one lane
+        assert groups > sum(st["walk_rounds"] for st in stats)
+    assert _no_group()
+
+
+@pytest.fixture(scope="module")
+def odd(arrays):
+    """The first 317 reads: they split unevenly over 2 and 4 ranks."""
+    return ReadArrays(*(getattr(arrays, f)[:317] for f in
+                        ("codes", "quals", "mask", "rgs", "seconds")))
+
+
+@pytest.fixture(scope="module")
+def jax_sharded(odd):
+    """The JAX package's sharded bytes of `odd` at D devices, computed
+    once each."""
+    cache = {}
+
+    def get(D):
+        if D not in cache:
+            cache[D] = j_run_pipeline(_jax(odd), JRecalConfig(**CFG),
+                                      devices=D, bloom_layout="sharded")
+        return cache[D]
+    return get
+
+
+WALK_DRIVES = [
+    # ranks, engine, walk block rows, exchange chunk (chunk // 48 lanes a
+    # group at k = 16)
+    (2, "resident", 1, 1 << 22),     # a block a row
+    (4, "resident", 37, 200),        # odd blocks, groups of 4 lanes
+    (2, "windowed", 1 << 21, 100),   # a block over the data, 2-lane groups
+    (4, "windowed", 23, 48),         # windows of 64 reads in blocks of 23
+]
+
+
+@pytest.mark.parametrize("drive", WALK_DRIVES,
+                         ids=lambda d: f"{d[0]}ranks_{d[1]}_{d[2]}_{d[3]}")
+def test_walk_blocks_and_lane_groups_keep_the_references_bytes(
+        odd, jax_sharded, drive):
+    """The resident path and the windowed engine (windows of 64 reads) on
+    the ranks with walk blocks of one row, of odd sizes and larger than
+    the data, and lane groups of one to four lanes: the JAX package's
+    sharded bytes at the same D.  The ranks' rows differ in number (the
+    reads do not split evenly).  The stats show at most three collectives
+    per lane group."""
+    from kbbq_tpu_torch.parallel.resident_sharded import (resident_rank,
+                                                          run_ranks)
+    from kbbq_tpu_torch.parallel.sharded import windowed_rank
+    D, engine, walk_rows, chunk = drive
+    cfg = RecalConfig(**CFG)
+    assert odd.num_reads % D
+    if engine == "resident":
+        args = (resident_rank, plan_for(odd, cfg, "sharded", D), cfg, None)
+    else:
+        args = (windowed_rank, cfg, 0, None, None, 64, "sharded")
+    t: dict = {}
+    got = run_ranks(_rank_cases.with_walk, odd, D, "cpu", t, walk_rows,
+                    chunk, *args)
+    assert (got == jax_sharded(D)).all()
+    assert 0 < t["walk_rounds"] < t["walk_groups"]
+    assert t["walk_collectives"] <= 3 * t["walk_groups"]
     assert _no_group()
 
 
@@ -205,10 +281,11 @@ def test_checkpoint_at_four_ranks_resumes_at_two(arrays, one, tmp_path):
 
 def test_plain_walk_with_a_query_callable_equals_infer_errors_plain(hashed):
     """walk_plain with the local query, and infer_errors_sharded with the
-    local word test (the CPU's plain walk behind the hashing of its
-    k-mers), give infer_errors_plain's marks, at the default extension and
-    at W < k; with no rows each still runs the rounds its round agreement
-    asks for, asking nothing."""
+    local exchange (RoundWalkPlain, the walk_round kernel's plain version:
+    lane groups of one lane, of a few, of every lane), give
+    infer_errors_plain's marks, at the default extension and at W < k; with
+    no rows it still takes part in every group the agreement asks for,
+    asking nothing."""
     codes, h1, word, filt = hashed
     tr0 = tb.bloom_query_words_plain(filt, h1, word)
     for W in (16, 5):
@@ -220,19 +297,35 @@ def test_plain_walk_with_a_query_callable_equals_infer_errors_plain(hashed):
         got = walk_plain(lambda hi, lo: _query_rows_w(filt, hi, lo, 7),
                          codes, 16, W)
         assert torch.equal(got, want)
-        asked = []
+        for group in (1, 7, 1 << 16):
+            ex = LocalExchange(filt)
+            stats = {"walk_rounds": 0, "lanes_by_round": []}
+            got = infer_errors_sharded(codes, tr0, ex, 16, 7, W, group,
+                                       stats)
+            rounds = stats["walk_rounds"]
+            assert torch.equal(got, want) and rounds > 1
+            # a group a round and the last agreement, or more
+            assert ex.groups == rounds + 1 if group > 1000 else \
+                ex.groups > rounds + 1
+            assert ex.groups >= sum(-(-n // group)
+                                    for n in stats["lanes_by_round"]) + 1
 
-        def test(a, b):
-            asked.append(a.numel())
-            return tb.bloom_query_words_plain(filt, a, b)
-        got = infer_errors_sharded(codes, tr0, test, 16, 7, W)
-        assert torch.equal(got, want) and len(asked) > 1
-    # no rows, three rounds agreed elsewhere: each round asks nothing
-    rounds = iter([True, True, False, True, False])
-    asked.clear()
-    empty = infer_errors_sharded(codes[:0], tr0[:0], test, 16, 7, None,
-                                 reduce_any=lambda active: next(rounds))
-    assert empty.shape == (0, codes.shape[1]) and asked == [0, 0, 0]
+    class Others:
+        """Two owners, the other rank walking for three more groups."""
+        owners, shift = 2, 15
+
+        def __init__(self):
+            self.rows, self.agreed = [], iter([0, 0, 0, None])
+
+        def exchange(self, row, pairs):
+            self.rows.append(row.tolist())
+            mine = next(self.agreed)
+            return None if mine is None else (
+                torch.zeros(0, dtype=torch.uint8), mine)
+    ex = Others()
+    empty = infer_errors_sharded(codes[:0], tr0[:0], ex, 16, 7, None, 8)
+    assert empty.shape == (0, codes.shape[1])
+    assert ex.rows == [[0, 0, 0]] * 4
 
 
 def test_sharded_params_bump_and_the_keep_planes(hashed):
