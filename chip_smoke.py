@@ -67,7 +67,17 @@ bloom_layout="sharded" at D = the card count, the streamed route on the
 ranks with a checkpoint and that run resumed after pass 2, each the main
 path's bytes, launches by rank held to the run's shape, each rank holding
 1/D of each filter, exchange seconds and bytes, the walk's rounds, lane
-groups and collectives, pass 3 and peak device bytes printed.  Last, BASELINE.json config
+groups and collectives, pass 3 and peak device bytes printed.  Then
+several hosts (``[multihost]``, ``kbbq_tpu_torch.parallel.multihost``):
+host processes of ``python -m kbbq_tpu_torch recalibrate ... --multihost``
+on this machine (one host of one card here; 2 hosts of half the cards each
+where there are two or more), one NCCL group over them: config 2's reads
+as 4 FASTQ files of unequal size with each filter layout (every output
+the single host's streamed bytes), config 3's BAM (-s) and CRAM (at one
+host the one part is the single host's file; at several, cat of the BAM
+parts holds its records and of the CRAM parts is its bytes); launches by
+rank held to each rank's windows; wall, start-up, spawn and each host's
+stages printed.  Last, BASELINE.json config
 4 on the one card: 13,000,000 reads x 150 at 30x (``make_arrays_chunked``,
 a FASTQ over 2 GiB), the command line (its streamed engine) and the
 resident route in process write the same bytes, and against the run's
@@ -88,8 +98,10 @@ resident and command-line runs), ``launches_devices`` and
 ``launches_devices_by_rank`` (config 2's resident run on the ranks, summed
 and per rank), ``launches_sharded``, ``launches_sharded_by_rank`` and
 ``launches_sharded_streamed`` (the same with the hash-space-sharded
-filters: the resident run, the streamed run) and
-``launches_scale_devices_by_rank`` (config 4's) beside it in every entry;
+filters: the resident run, the streamed run),
+``launches_scale_devices_by_rank`` (config 4's) and
+``launches_multihost_by_rank`` (the [multihost] FASTQ run with replicated
+filters, by global rank) beside it in every entry;
 the entries of the sharded layout's entry points (``path`` "sharded":
 ``launches`` is the sharded resident run's count, ``plain_ms`` of the walk's
 three the plain walk of the chunk, whole, beside ``walk_ms``, ``rounds``,
@@ -2378,6 +2390,302 @@ def phase_cram(tmp, arrays, starts, cfg, bam_quals):
 # runs it (runpy); when it exits it writes to argv[1] the launches of each
 # kernel entry point (none if it never loaded the kernels) and its peak
 # resident set
+MH_SHARES = (0.4, 0.3, 0.2, 0.1)   # config 2's reads in the [multihost] files
+MH_TIMEOUT = 300                   # seconds a host process may take
+
+
+def split_fastq(src, paths, shares) -> list:
+    """Write `src`'s records into `paths` in order, `shares` of the records
+    each (the last takes the rest) -> each file's read count."""
+    buf = np.fromfile(src, np.uint8)
+    nl = np.flatnonzero(buf == 10)
+    n = nl.size // 4
+    counts = [int(n * f) for f in shares[:-1]]
+    counts.append(n - sum(counts))
+    start = rec = 0
+    for path, c in zip(paths, counts):
+        rec += c
+        end = int(nl[4 * rec - 1]) + 1 if rec else 0
+        buf[start:end].tofile(path)
+        start = end
+    return counts
+
+
+def run_hosts(tmp, argv, hosts: int, local: int, name: str, crash=None):
+    """`hosts` processes of ``python -m kbbq_tpu_torch <argv> --multihost
+    --devices <local>`` on this machine, one "host" each (its own cards by
+    CUDA_VISIBLE_DEVICES where there are several hosts, its own session),
+    over a coordinator on localhost -> (wall s on this clock, each host's
+    stats line).  With `crash` (a callable), host 1 is killed between pass 1
+    and pass 2 (``KBBQ_CRASH_POINT``) and must exit 41; the other hosts,
+    left waiting on it, are killed once ``crash()`` says pass 1's checkpoint
+    is on disk, and no stats are read.  Every host's process group is
+    killed at the end."""
+    import signal
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    procs, logs = [], []
+    t0 = time.time()
+    try:
+        for pid in range(hosts):
+            e = dict(os.environ, JAX_COORDINATOR=coord,
+                     JAX_NUM_PROCESSES=str(hosts), JAX_PROCESS_ID=str(pid))
+            if hosts > 1:
+                e["CUDA_VISIBLE_DEVICES"] = ",".join(
+                    str(pid * local + i) for i in range(local))
+            if crash:
+                e["KBBQ_CRASH_POINT"] = "pass2:1"
+            out, err = (os.path.join(tmp, f"{name}_host{pid}.{x}")
+                        for x in ("out", "err"))
+            logs.append((out, err))
+            with open(out, "wb") as fo, open(err, "wb") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "kbbq_tpu_torch", *argv,
+                     "--multihost", "--devices", str(local)], cwd=HERE,
+                    env=e, stdout=fo, stderr=fe, start_new_session=True))
+        if crash:
+            code = procs[1].wait(timeout=MH_TIMEOUT)
+            if code != 41:
+                raise AssertionError(f"{name}: host 1 exited {code}, not 41")
+            deadline = time.time() + 120
+            while not crash() and time.time() < deadline:
+                time.sleep(0.2)
+            if not crash():
+                raise AssertionError(f"{name}: pass 1's checkpoint is "
+                                     f"missing")
+            return time.time() - t0, None
+        codes = [p.wait(timeout=MH_TIMEOUT) for p in procs]
+        wall = time.time() - t0
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    stats = []
+    for pid, (code, (out, err)) in enumerate(zip(codes, logs)):
+        if code != 0:
+            with open(err) as f:
+                raise AssertionError(f"{name}: host {pid} exited {code}: "
+                                     f"{f.read()[-3000:]}")
+        with open(out) as f:
+            stats.append(json.loads(f.read().splitlines()[-1]))
+    return wall, stats
+
+
+def mh_line(route: str, wall: float, stats: list) -> dict:
+    """Log one multi-host run: the group, the wall, start-up, each host's
+    own seconds, its slowest rank's stages, merges and exchanges, peak
+    device bytes and the launches of every rank (global rank order)."""
+    hosts = []
+    for s in stats:
+        t = s["timings"]
+        hosts.append({
+            "host": s["process_id"], "wall_s": s["wall_s"],
+            "spawn_s": t["spawn"], "scan_s": t["scan"],
+            "slowest_rank_s": {k: t[k] for k in ("setup", "pass1", "pass2",
+                                                 "pass3", "deltas", "pass4")
+                               if k in t},
+            "merge_s": t["merge"], "merge_bytes": t["merge_bytes"],
+            "exchange_s": t["exchange"],
+            "exchange_bytes": t["exchange_bytes"],
+            "walk_rounds": t["walk_rounds"], "walk_groups": t["walk_groups"],
+            "peak_device_bytes": max((v for k, v in t.items()
+                                      if k.endswith("_peak_bytes")),
+                                     default=None),
+            "windows": s["windows"], "reads": s["host_reads_written"]})
+    by_rank = [r for s in stats for r in s["timings"]["launches_by_rank"]]
+    rec = {"route": route, "hosts": len(stats),
+           "ranks_per_host": stats[0]["local_devices"],
+           "world": stats[0]["devices"], "layout": stats[0]["bloom_layout"],
+           "wall_s": wall, "startup_s": wall - max(h["wall_s"] for h in hosts),
+           "spawn_s": max(h["spawn_s"] for h in hosts), "by_host": hosts,
+           "launches_by_rank": by_rank}
+    log(f"[multihost] {route}: {len(stats)} host(s) x "
+        f"{rec['ranks_per_host']} rank(s), {rec['layout']}: wall "
+        f"{wall:.3f} s (process start-up {rec['startup_s']:.3f} s, spawn "
+        f"{rec['spawn_s']:.3f} s); by host {json.dumps(hosts)}; launches by "
+        f"rank {json.dumps(by_rank)}")
+    return rec
+
+
+def check_mh_launches(route: str, stats: list, windows_by_rank, n: int,
+                      layout: str, passes=(1, 2, 3)) -> None:
+    """A multi-host run's launches, rank by rank, held to its windows
+    (windows_by_rank: each rank's windows' rows, global rank order) through
+    `passes`."""
+    by_rank = [r for s in stats for r in s["timings"]["launches_by_rank"]]
+    if layout == "sharded":
+        check_sharded_launches(route, by_rank,
+                               sharded_want(windows_by_rank, n, passes,
+                                            False))
+        return
+    # every pass of the windowed engine per window (pass 2 and 3 re-hash), a
+    # walk launch per 65,536 rows; resumed after pass 1, no hash_build
+    want = [{**NO_LAUNCHES, "hash_build": len(w) if 1 in passes else 0,
+             "hash_only": 2 * len(w), "bloom_probe_trust": len(w),
+             "bloom_or_words": len(w), "bloom_probe_words": len(w),
+             "walk_errors": sum(-(-n // DEVICES_CHUNK) for n in w)}
+            for w in windows_by_rank]
+    for r, (got, w) in enumerate(zip(by_rank, want)):
+        if {**NO_LAUNCHES, **got} != w:
+            raise AssertionError(f"{route}, rank {r}: launched {got}, "
+                                 f"expected {w}")
+
+
+def phase_multihost(tmp, cfg, hosts: int, local: int,
+                    routes=(("fastq", "replicated"), ("fastq", "sharded"),
+                            ("bam", "replicated"), ("cram", "replicated")),
+                    kill: bool = False) -> dict:
+    """Several hosts (``kbbq_tpu_torch.parallel.multihost``) through the
+    command line: `hosts` processes of `local` cards each, every one
+    running ``python -m kbbq_tpu_torch recalibrate ... --multihost`` as a
+    host would, one NCCL group over them all.  Config 2's reads split into
+    4 FASTQ files of 40/30/20/10 %, each host its LPT share, every output
+    the single host's streamed bytes; config 3's BAM ([bam]'s reads.bam, -s)
+    and CRAM ([cram]'s reads.cram), each host a contiguous run of chunks or
+    containers: at one host the one part is whole and is the single host's
+    file, at several ``cat`` of the BAM parts holds its records and of the
+    CRAM parts is its bytes.  Launches by rank held to each rank's windows;
+    with `kill`, the FASTQ run again with host 1 killed between pass 1 and
+    pass 2, then resumed (pass 1 loaded, not rewritten).  On one card the
+    group is one rank and the exchange between hosts is unchecked; NCCL
+    between real hosts is unchecked anywhere."""
+    from kbbq_tpu_torch.io.bgzf import decompress
+    from kbbq_tpu_torch.parallel.multihost import (partition_bam_chunks,
+                                                   partition_inputs,
+                                                   scan_bam_multihost)
+    from kbbq_tpu_torch.pipeline import recalibrate_fastq_streaming
+    from kbbq_tpu_torch.pipeline.cram_stream import scan_cram_meta
+
+    t_phase = time.time()
+    H, L = hosts, local
+    flags = ["-k", str(cfg.k), "-c", f"{cfg.coverage:g}", "--batch-size",
+             str(cfg.batch_size)]
+    paths = [os.path.join(tmp, f"mh_in{i}.fq") for i in range(len(MH_SHARES))]
+    want = [os.path.join(tmp, f"mh_want{i}.fq") for i in range(len(paths))]
+    counts = split_fastq(os.path.join(tmp, "reads.fq"), paths, MH_SHARES)
+    t0 = time.time()
+    recalibrate_fastq_streaming(paths, want, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    one_wall = time.time() - t0
+    log(f"[multihost] config 2 as {len(paths)} FASTQ files of {counts} "
+        f"reads; the single host's streamed route {one_wall:.3f} s")
+
+    def ranks_of(host_windows):
+        return [w[r::L] for w in host_windows for r in range(L)]
+
+    fq_windows = []
+    for h in range(H):
+        shard = partition_inputs(paths, counts, h, H)
+        fq_windows.append([min(STREAM_WINDOW, c - s) for c in
+                           shard.read_counts
+                           for s in range(0, c, STREAM_WINDOW)])
+    n_win = 150 - cfg.k + 1
+    runs = {}
+    for fmt, layout in routes:
+        name = f"mh_{fmt}_{layout}"
+        if fmt == "fastq":
+            outs = [os.path.join(tmp, f"{name}{i}.fq")
+                    for i in range(len(paths))]
+            argv = ["recalibrate", *paths, *flags, "--bloom-layout", layout]
+            for o in outs:
+                argv += ["-o", o]
+            wall, stats = run_hosts(tmp, argv, H, L, name)
+            check_mh_launches(f"FASTQ, {layout}", stats, ranks_of(fq_windows),
+                              n_win, layout)
+            for o, w in zip(outs, want):
+                if not same_file(o, w):
+                    raise AssertionError(f"multi-host FASTQ ({layout}) wrote "
+                                         f"other bytes than one host")
+                os.remove(o)
+        else:
+            src = os.path.join(tmp, f"reads.{fmt}")
+            single = os.path.join(tmp, f"{fmt}1.{fmt}")
+            out = os.path.join(tmp, f"{name}.{fmt}")
+            metas = (scan_bam_multihost(src, cfg.k, 1 << 16)[2]
+                     if fmt == "bam" else scan_cram_meta(src, cfg.k, None)[0])
+            wins = [[m["n_primary"] for m in metas[a:b] if m["n_primary"]]
+                    for a, b in partition_bam_chunks(metas, H)]
+            wall, stats = run_hosts(
+                tmp, ["recalibrate", src, "-o", out, *flags,
+                      "--bloom-layout", layout,
+                      *(["-s"] if fmt == "bam" else [])], H, L, name)
+            check_mh_launches(f"{fmt.upper()}, {layout}", stats,
+                              ranks_of(wins), n_win, layout)
+            parts = [f"{out}.part-{h:04d}-of-{H:04d}" for h in range(H)]
+            if H == 1:
+                ok = same_file(parts[0], single)
+            else:
+                cat = b"".join(open(p, "rb").read() for p in parts)
+                with open(single, "rb") as f:
+                    whole = f.read()
+                ok = (decompress(cat) == decompress(whole) if fmt == "bam"
+                      else cat == whole)
+                del cat, whole
+            if not ok:
+                raise AssertionError(f"multi-host {fmt.upper()} ({layout}) "
+                                     f"parts differ from one host's output")
+            for p in parts:
+                os.remove(p)
+        if sum(s["host_reads_written"] for s in stats) != \
+                stats[0]["num_reads"]:
+            raise AssertionError(f"{name}: the hosts wrote "
+                                 f"{[s['host_reads_written'] for s in stats]}"
+                                 f" of {stats[0]['num_reads']} reads")
+        runs[f"{fmt}, {layout}"] = mh_line(f"{fmt.upper()}, {layout}", wall,
+                                            stats)
+
+    if kill:
+        ck = os.path.join(tmp, "mh_ck")
+        outs = [os.path.join(tmp, f"mh_kill{i}.fq") for i in range(len(paths))]
+        argv = ["recalibrate", *paths, *flags, "--checkpoint-dir", ck]
+        for o in outs:
+            argv += ["-o", o]
+        rows_a = os.path.join(ck, "mh_rows_a.npy")
+
+        def marked():
+            try:
+                with open(os.path.join(ck, "meta.json")) as f:
+                    return "mh_rows_a" in json.load(f)["passes_done"]
+            except (OSError, ValueError):
+                return False
+
+        wall_k, _ = run_hosts(tmp, argv, H, L, "mh_kill", crash=marked)
+        mtime = os.path.getmtime(rows_a)
+        wall, stats = run_hosts(tmp, argv, H, L, "mh_resume")
+        check_mh_launches("FASTQ resumed after pass 1", stats,
+                          ranks_of(fq_windows), n_win, "replicated", (2, 3))
+        if os.path.getmtime(rows_a) != mtime or not all(
+                same_file(o, w) for o, w in zip(outs, want)):
+            raise AssertionError("the resumed multi-host run rewrote pass 1 "
+                                 "or wrote other bytes than one host")
+        runs["fastq, killed at pass2:1 then resumed"] = mh_line(
+            "FASTQ, resumed after host 1 was killed at pass2:1", wall, stats)
+        runs["fastq, killed at pass2:1 then resumed"]["killed_run_wall_s"] = \
+            wall_k
+        shutil.rmtree(ck, ignore_errors=True)
+        for o in outs:
+            os.remove(o)
+    for p in paths + want:
+        os.remove(p)
+    if H * L == 1:
+        log("[multihost] this machine has 1 CUDA device: one host of one "
+            "NCCL rank (every collective at world size 1); the exchange "
+            "between hosts is unchecked here; scripts/torch_devices_check.py "
+            "runs 2 x 2 and 4 x 1 on four cards of one machine")
+    log("[multihost] NCCL between real hosts is unchecked: every host here "
+        f"is a process on one machine; {smi_line()}")
+    result = {"hosts": H, "ranks_per_host": L, "single_host_wall_s": one_wall,
+              "runs": runs, "seconds": time.time() - t_phase,
+              "card": smi_line()}
+    log("[multihost] " + json.dumps(result))
+    return result
+
+
 _CLI_RUNNER = """
 import atexit, json, runpy, sys
 from kbbq_tpu_torch.utils.metrics import peak_rss_bytes
@@ -2932,6 +3240,10 @@ def main(argv=None) -> int:
         cram, cram_streamed = phase_cram(tmp, arrays, starts, cfg,
                                          bam_quals)
         del bam_quals
+        D = torch.cuda.device_count()
+        mh = phase_multihost(tmp, cfg, 2 if D >= 2 else 1,
+                             max(1, D // 2) if D >= 2 else 1)
+        mh_by_rank = mh["runs"]["fastq, replicated"]["launches_by_rank"]
         if args.scale_reads:
             job = start_scale_data(args.scale_reads, args.seed)
         cli = phase_cli(tmp, cfg, args.seed, genome_len, {
@@ -2958,6 +3270,8 @@ def main(argv=None) -> int:
         r["launches_sharded"] = sh_launches[r["entry"]]
         r["launches_sharded_by_rank"] = [c[r["entry"]] for c in sh_by_rank]
         r["launches_sharded_streamed"] = sh_streamed[r["entry"]]
+        r["launches_multihost_by_rank"] = [c.get(r["entry"], 0)
+                                           for c in mh_by_rank]
         if scale is not None:
             r["launches_scale"] = \
                 scale["resident_launches_by_entry"][r["entry"]]

@@ -5,9 +5,12 @@ Counterpart of ``kbbq_tpu/cli/main.py``: the same subcommands
 routing rules, messages and exit codes, onto the port's entry points.
 ``--devices N`` runs N ranks, one process per card over NCCL (``0``: every
 card), with replicated or hash-space-sharded filters (``--bloom-layout``;
-``auto`` picks by the filters' size).  What the port does not have yet is
-refused with a ``SystemExit`` that names its ROADMAP item: ``--multihost``
-(A16).
+``auto`` picks by the filters' size).  ``--multihost`` (or
+``JAX_NUM_PROCESSES`` > 1) runs the same command on every host as one group
+(``parallel/multihost.py``; ``JAX_COORDINATOR``, ``JAX_NUM_PROCESSES``,
+``JAX_PROCESS_ID``), each host on ``--devices`` local ranks (default: every
+card), FASTQ, BAM and CRAM, with the reference's refusals; each host prints
+its summary on stderr and its stats as one JSON line on stdout.
 
 Every route runs on the CUDA device; without one it fails with
 ``resolve_device``'s error.  There is no flag for the CPU: the tests call
@@ -81,8 +84,12 @@ def _add_recal_args(p: argparse.ArgumentParser) -> None:
                         "(bounded host memory; auto-enabled for inputs "
                         "over ~2 GB)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process run over several hosts (not "
-                        "ported yet, ROADMAP A16)")
+                   help="multi-process run over several hosts: every "
+                        "host runs this same command; coordinator/"
+                        "process-id resolve from JAX_COORDINATOR, "
+                        "JAX_NUM_PROCESSES, JAX_PROCESS_ID (auto-enabled "
+                        "when JAX_NUM_PROCESSES > 1); --devices = the "
+                        "ranks on each host (default: every card)")
     p.add_argument("--chunk-reads", type=int, default=None,
                    help="reads per streamed chunk (default 131072)")
     p.add_argument("--report-out", default=None, metavar="REPORT",
@@ -95,12 +102,8 @@ def _add_recal_args(p: argparse.ArgumentParser) -> None:
                         "by input path, BAM/CRAM by RG tag)")
 
 
-def _refuse_unported(args) -> int | None:
-    """Refuse what the port does not have yet (several hosts); returns the
-    device count (``--devices 0`` = every card)."""
-    if args.multihost:
-        raise SystemExit("--multihost is not ported yet (ROADMAP A16): run "
-                         "one process on one host")
+def _devices(args) -> int | None:
+    """The device count (``--devices 0`` = every card)."""
     devices = args.devices
     if devices == 0:  # 0 = all available
         import torch
@@ -120,6 +123,68 @@ def _summary(stats: dict, dt: float) -> None:
           file=sys.stderr)
 
 
+def _finish_multihost(stats: dict, dt: float, out=None,
+                      timings: dict | None = None) -> int:
+    """A host's epilogue: its summary on stderr, its stats (with its wall
+    seconds and `timings`) as one JSON line on stdout, which the launcher
+    collects."""
+    import json
+    part = f" -> {stats['part']}" if out is not None else ""
+    cat = f"; `cat {out}.part-* > {out}`" if out is not None else ""
+    print(f"[kbbq-tpu] host {stats['process_id']}/{stats['num_processes']}: "
+          f"wrote {stats['host_reads_written']} of {stats['num_reads']} "
+          f"reads{part} in {dt:.2f}s ({stats['devices']} devices){cat}",
+          file=sys.stderr)
+    print(json.dumps({**stats, "wall_s": round(dt, 3),
+                      "timings": timings or {}}), flush=True)
+    return 0
+
+
+def _multihost(args, cfg, report_out, apply_report) -> int:
+    """The multi-host routes, with the reference's refusals."""
+    from ..parallel import multihost as mh
+
+    first = args.input[0]
+    if first.endswith(".sam"):
+        raise SystemExit("multi-host mode supports FASTQ, BAM and CRAM "
+                         "inputs; convert SAM to BAM first")
+    out = None
+    if first.endswith(".cram"):
+        if len(args.input) != 1:
+            raise SystemExit("multi-host CRAM mode takes one input")
+        if args.set_oq:
+            raise SystemExit("--set-oq with multi-host CRAM is unsupported "
+                             "(it changes tag streams; use the whole-file "
+                             "path)")
+        out = (args.output or ["out.cram"])[0]
+        route, inputs = mh.recalibrate_cram_multihost, (first, out)
+        kw = dict(use_oq=args.use_oq, fasta_ref=args.fasta_ref)
+    elif first.endswith(".bam"):
+        if len(args.input) != 1:
+            raise SystemExit("multi-host BAM mode takes one input")
+        out = (args.output or ["out.bam"])[0]
+        route, inputs = mh.recalibrate_bam_multihost, (first, out)
+        kw = dict(use_oq=args.use_oq, set_oq=args.set_oq,
+                  chunk_records=args.chunk_reads)
+    else:
+        if args.output is None or len(args.output) != len(args.input):
+            raise SystemExit("multi-host mode needs one -o output per input "
+                             "file (a single concatenated sink is impossible "
+                             "across hosts)")
+        route, inputs = mh.recalibrate_fastq_multihost, (args.input,
+                                                         args.output)
+        kw = dict(interleaved=args.interleaved, chunk_reads=args.chunk_reads)
+    timings: dict = {}
+    info = mh.init_multihost()
+    t0 = time.time()
+    stats = route(*inputs, cfg, info=info, timings=timings,
+                  checkpoint_dir=args.checkpoint_dir,
+                  bloom_layout=args.bloom_layout, report_out=report_out,
+                  apply_report=apply_report, devices=args.devices,
+                  device=getattr(args, "device", None), **kw)
+    return _finish_multihost(stats, time.time() - t0, out, timings)
+
+
 def cmd_recalibrate(args) -> int:
     from ..pipeline import RecalConfig
 
@@ -131,7 +196,9 @@ def cmd_recalibrate(args) -> int:
     apply_report = getattr(args, "apply_report", None)
     if apply_report and report_out:
         raise SystemExit("--apply-report and --report-out are exclusive")
-    devices = _refuse_unported(args)
+    if args.multihost or int(os.environ.get("JAX_NUM_PROCESSES", "1")) > 1:
+        return _multihost(args, cfg, report_out, apply_report)
+    devices = _devices(args)
     common = dict(checkpoint_dir=args.checkpoint_dir, report_out=report_out,
                   apply_report=apply_report,
                   device=getattr(args, "device", None))

@@ -117,16 +117,22 @@ class CramStreamWriter:
     containers appended as chunks arrive, EOF container on close: the
     streamed sink of write_cram's profile (O(container) memory).  The
     record counter of a re-encoded container counts only the records
-    written by ``write_records``, as the JAX package's writer does.  (The
-    JAX package's headerless and unterminated parts come with ROADMAP
-    A16.)"""
+    written by ``write_records``, as the JAX package's writer does.
+    ``write_header=False`` / ``write_eof=False`` write a part with no file
+    definition and header container / no EOF container: on several hosts
+    host 0's part carries the first, the last host's the second, and
+    ``cat`` of the parts is one CRAM."""
 
-    def __init__(self, path, header_text: str, ref_names=None):
+    def __init__(self, path, header_text: str, ref_names=None,
+                 write_header: bool = True, write_eof: bool = True):
         self.f = open(path, "wb") if isinstance(path, (str, bytes)) \
             else path
         self._own = isinstance(path, (str, bytes))
         self.ref_names = list(ref_names or [])
         self.counter = 0
+        self._write_eof = write_eof
+        if not write_header:
+            return
         self.f.write(b"CRAM" + bytes([3, 0]) + bytes(20))
         htext = header_text.encode()
         hblock = _block(0, 0, 0, struct.pack("<i", len(htext)) + htext)
@@ -147,7 +153,8 @@ class CramStreamWriter:
         self.f.write(raw)
 
     def close(self):
-        self.f.write(_EOF_CONTAINER)
+        if self._write_eof:
+            self.f.write(_EOF_CONTAINER)
         if self._own:
             self.f.close()
 

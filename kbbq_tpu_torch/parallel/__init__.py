@@ -1,16 +1,19 @@
-"""More than one device on one host: the replicated-filter layout over
-``torch.distributed`` (counterpart of ``kbbq_tpu/parallel/``, less the
-hash-space-sharded filters of ``sharded_bloom.py`` and the hosts of
-``multihost.py``).
+"""More than one device: the group of ranks over ``torch.distributed``
+(counterpart of ``kbbq_tpu/parallel/``), on one host or several.
 
 - ``mesh``             — the group of ranks: one spawned process per card
-                         (NCCL) or per CPU rank (gloo), ``launch``,
+                         (NCCL) or per CPU rank (gloo), ``launch`` (with
+                         ``Hosts``, one group over several hosts),
                          ``SharedArrays``.
 - ``merge``            — the pass-boundary merges: ``or_merge``,
                          ``sum_merge``, ``broadcast_table``.
 - ``resident_sharded`` — the resident path on each rank's rows.
 - ``sharded``          — the windowed engine on each rank's windows, and the
                          multi-device dispatch of the entry points.
+- ``sharded_bloom``    — the hash-space-sharded filters.
+- ``multihost``        — several hosts: partitions, the FASTQ, BAM and CRAM
+                         routes over one group, per-host parts and
+                         checkpoints (imported where used).
 """
 
 from .mesh import Rank, SharedArrays, launch

@@ -14,6 +14,12 @@ The reads axis is the only one: rank r takes the contiguous rows
 windowed route).  Sampling keys on the global read ordinal, so any split
 gives the same filters (DECISIONS D5).
 
+Several hosts (``Hosts``, ``parallel/multihost.py``): every host process
+runs ``launch`` with the same coordinator, and its L local ranks join ONE
+group of H x L ranks, host h's local rank r as global rank h * L + r, the
+group's store at the coordinator's address.  A host with one local rank
+runs it in its own process instead of spawning one.
+
 Arrays reach the ranks through memory-mapped files in a temporary
 directory (``SharedArrays``), and the output rows come back the same way:
 a file needs no ``/dev/shm`` capacity, which a container may hold small,
@@ -57,20 +63,47 @@ def row_range(n: int, world: int, rank: int) -> tuple[int, int]:
 
 
 @dataclasses.dataclass
+class Hosts:
+    """A group that spans host processes: the coordinator's ``host:port``
+    (the group's store, bound by host 0), the host count and this host's
+    index."""
+
+    coordinator: str
+    count: int
+    index: int
+
+
+@dataclasses.dataclass
 class Rank:
-    """What a rank knows of its group.  `stats` collects the merges'
-    seconds and bytes (``parallel/merge.py``) and the sharded filters'
-    exchanges' (``parallel/sharded_bloom.py``)."""
+    """What a rank knows of its group: its global rank in a group of
+    `world`, and on several hosts its host, the host count and its rank
+    among the `local_world` ranks of its host (on one host, the global
+    ones).  `stats` collects the merges' seconds and bytes
+    (``parallel/merge.py``) and the sharded filters' exchanges'
+    (``parallel/sharded_bloom.py``)."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
+    host: int = 0
+    hosts: int = 1
+    local_rank: int = -1
+    local_world: int = 0
     stats: dict = dataclasses.field(
         default_factory=lambda: {"merge": 0.0, "merge_bytes": 0,
                                  "exchange": 0.0, "exchange_bytes": 0,
                                  "walk_rounds": 0, "walk_groups": 0,
                                  "walk_collectives": 0})
+
+    def __post_init__(self):
+        if not self.local_world:
+            self.local_rank, self.local_world = self.rank, self.world
+
+    @property
+    def leader(self) -> int:
+        """The global rank of this host's local rank 0."""
+        return self.rank - self.local_rank
 
 
 def _free_port() -> int:
@@ -79,56 +112,78 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _worker(rank, fn, world, device_type, port, result_dir, args):
-    """One rank: bind the device, join the group, run fn, write what it
-    returned and this process's kernel launches, leave the group."""
+def _run_rank(local, fn, devices, device_type, init, hosts, args,
+              on_error=None) -> dict:
+    """Local rank `local` of this host: bind the device, join the group, run
+    fn -> its result, when it was ready, the kernel launches it made and
+    its stats; the group is left at the end.  `on_error` sees an exception
+    of fn before the group is left."""
     import torch.distributed as dist
 
     from .. import kernels
 
+    host, nhosts = (hosts.index, hosts.count) if hosts else (0, 1)
+    world = devices * nhosts
     if device_type == "cuda":
-        dev = torch.device("cuda", rank)
+        dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
     else:
         dev = torch.device("cpu")
-        torch.set_num_threads(max(1, available_devices("cpu") // world))
+        torch.set_num_threads(max(1, available_devices("cpu") // devices))
     backend = BACKENDS[device_type]
     dist.init_process_group(
-        backend, init_method=f"tcp://localhost:{port}", world_size=world,
-        rank=rank, device_id=dev if device_type == "cuda" else None)
+        backend, init_method=init, world_size=world,
+        rank=host * devices + local,
+        device_id=dev if device_type == "cuda" else None)
     try:
         ready = time.time()
-        kernels.reset_launches()
-        ctx = Rank(rank, world, dev, backend)
+        before = dict(kernels.ENTRY_LAUNCHES)
+        ctx = Rank(host * devices + local, world, dev, backend, host, nhosts,
+                   local, devices)
         try:
             out = fn(ctx, *args)
         except BaseException as e:
-            # stamped: a rank whose peer failed fails later, in a collective
-            try:
-                blob = pickle.dumps((time.time_ns(), e))
-            except Exception:
-                blob = pickle.dumps((time.time_ns(), RuntimeError(repr(e))))
-            path = os.path.join(result_dir, f"{rank}.err")
-            with open(path + ".tmp", "wb") as f:
-                f.write(blob)
-            os.replace(path + ".tmp", path)    # whole, or not at all
+            if on_error is not None:
+                on_error(e)
             raise
         if device_type == "cuda":
             torch.cuda.synchronize(dev)
-        with open(os.path.join(result_dir, f"{rank}.pkl"), "wb") as f:
-            pickle.dump({"result": out, "ready": ready,
-                         "launches": dict(kernels.ENTRY_LAUNCHES),
-                         "stats": ctx.stats}, f)
+        return {"result": out, "ready": ready, "stats": ctx.stats,
+                "launches": {e: n - before.get(e, 0)
+                             for e, n in kernels.ENTRY_LAUNCHES.items()}}
     finally:
         dist.destroy_process_group()
 
 
-def launch(fn, devices: int, device_type: str, *args,
-           timings: dict | None = None) -> list:
-    """Run ``fn(rank, *args)`` on `devices` ranks, one spawned process each
-    (``rank`` a ``Rank``); returns the ranks' results, rank 0 first.
+def _worker(local, fn, devices, device_type, init, hosts, result_dir, args):
+    """A spawned local rank: ``_run_rank``, its outcome written into
+    `result_dir` (an exception stamped with its time: a rank whose peer
+    failed fails later, in a collective)."""
 
-    The ranks' kernel launches are added to this process's counters
+    def failed(e):
+        try:
+            blob = pickle.dumps((time.time_ns(), e))
+        except Exception:
+            blob = pickle.dumps((time.time_ns(), RuntimeError(repr(e))))
+        path = os.path.join(result_dir, f"{local}.err")
+        with open(path + ".tmp", "wb") as f:
+            f.write(blob)
+        os.replace(path + ".tmp", path)    # whole, or not at all
+
+    res = _run_rank(local, fn, devices, device_type, init, hosts, args,
+                    failed)
+    with open(os.path.join(result_dir, f"{local}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def launch(fn, devices: int, device_type: str, *args,
+           timings: dict | None = None, hosts: Hosts | None = None) -> list:
+    """Run ``fn(rank, *args)`` on `devices` ranks, one spawned process each
+    (``rank`` a ``Rank``); returns the ranks' results, rank 0 first.  With
+    `hosts`, the `devices` ranks are this host's of a group over every
+    host, and the results are theirs; one rank then runs in this process.
+
+    The ranks' kernel launches count in this process's counters
     (``kernels.add_launches``); ``timings``, when given, gets ``spawn`` (s
     from the call to the last rank in the group), ``world``, ``backend``,
     ``launches_by_rank``, the slowest rank's ``merge`` and ``exchange``
@@ -138,20 +193,45 @@ def launch(fn, devices: int, device_type: str, *args,
     failing rank's own exception, where it pickles); the other ranks are
     stopped.
     """
-    import torch.multiprocessing as mp
-    from torch.multiprocessing.spawn import ProcessException
-
     from .. import kernels
 
     if device_type not in BACKENDS:
         raise ValueError(f"no process group for device type {device_type!r}")
     check_devices(devices, device_type)
-    result_dir = tempfile.mkdtemp(prefix="kbbq_ranks_")
+    init = (f"tcp://{hosts.coordinator}" if hosts
+            else f"tcp://localhost:{_free_port()}")
     t0 = time.time()
+    if hosts and devices == 1:
+        outs = [_run_rank(0, fn, 1, device_type, init, hosts, args)]
+    else:
+        outs = _spawn(fn, devices, device_type, init, hosts, args)
+        for o in outs:
+            kernels.add_launches(o["launches"])
+    if timings is not None:
+        timings["spawn"] = round(max(o["ready"] for o in outs) - t0, 3)
+        timings["world"] = devices * (hosts.count if hosts else 1)
+        timings["backend"] = BACKENDS[device_type]
+        timings["launches_by_rank"] = [o["launches"] for o in outs]
+        for name in ("merge", "exchange"):
+            timings[name] = round(max(o["stats"][name] for o in outs), 3)
+            timings[name + "_bytes"] = max(o["stats"][name + "_bytes"]
+                                           for o in outs)
+        for name in ("walk_rounds", "walk_groups", "walk_collectives"):
+            timings[name] = max(o["stats"][name] for o in outs)
+    return [o["result"] for o in outs]
+
+
+def _spawn(fn, devices, device_type, init, hosts, args) -> list:
+    """``_run_rank``'s outcome of `devices` spawned local ranks, rank 0
+    first."""
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    result_dir = tempfile.mkdtemp(prefix="kbbq_ranks_")
     try:
         try:
             mp.start_processes(
-                _worker, args=(fn, devices, device_type, _free_port(),
+                _worker, args=(fn, devices, device_type, init, hosts,
                                result_dir, args),
                 nprocs=devices, join=True, start_method="spawn")
         except ProcessException as e:
@@ -172,20 +252,7 @@ def launch(fn, devices: int, device_type: str, *args,
                 outs.append(pickle.load(f))
     finally:
         shutil.rmtree(result_dir, ignore_errors=True)
-    for o in outs:
-        kernels.add_launches(o["launches"])
-    if timings is not None:
-        timings["spawn"] = round(max(o["ready"] for o in outs) - t0, 3)
-        timings["world"] = devices
-        timings["backend"] = BACKENDS[device_type]
-        timings["launches_by_rank"] = [o["launches"] for o in outs]
-        for name in ("merge", "exchange"):
-            timings[name] = round(max(o["stats"][name] for o in outs), 3)
-            timings[name + "_bytes"] = max(o["stats"][name + "_bytes"]
-                                           for o in outs)
-        for name in ("walk_rounds", "walk_groups", "walk_collectives"):
-            timings[name] = max(o["stats"][name] for o in outs)
-    return [o["result"] for o in outs]
+    return outs
 
 
 def slowest(per_rank: list, timings: dict | None) -> None:

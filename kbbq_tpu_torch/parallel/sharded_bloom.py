@@ -238,9 +238,12 @@ class ShardedFilter:
         D, me = self.rank.world, self.rank.rank
         stats = self.rank.stats
         t0 = time.time()
-        flat = torch.empty(D * (D + 1), dtype=torch.int64, device=row.device)
-        dist.all_gather_into_tensor(flat, row)
-        M = flat.view(D, D + 1).tolist()
+        rows = [torch.empty_like(row) for _ in range(D)]
+        # the list form, as parallel/merge.py: all_gather_into_tensor is
+        # deprecated in newer torch, and its successor is missing from
+        # older releases
+        dist.all_gather(rows, row)
+        M = torch.stack(rows).tolist()
         stats["walk_groups"] += 1
         stats["walk_collectives"] += 1
         if not any(map(any, M)):

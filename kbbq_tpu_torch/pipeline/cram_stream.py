@@ -166,13 +166,20 @@ class CramWindowSource:
     (cont, blocks, raw, slices, rows) of that container and of the
     containers without a primary record around it (those before the first
     window go with it, the others with the window before them); rows[j] is
-    the number of primary records of slice j."""
+    the number of primary records of slice j.  `span`: (first container,
+    end container, global ordinal of the first primary) of a run of data
+    containers to cover instead of the file, those before it seeked over
+    undecoded (a host's range on several hosts,
+    ``parallel/multihost.py``); `num_reads` is then the span's
+    primaries."""
 
     def __init__(self, path: str, fasta_ref: str | None, registry: dict,
                  rg_names: list, max_len: int, num_reads: int,
                  total_bases: int, total_kmers_: int, use_oq: bool,
-                 host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES):
+                 host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES,
+                 span=None):
         self.path = path
+        self.span = span
         self.registry = registry
         self.rg_names = rg_names
         self.num_rg = max(1, len(registry))
@@ -212,9 +219,15 @@ class CramWindowSource:
     def _read(self):
         """(cont, blocks, raw, slices, arrays, rows) per container, read and
         decoded in order."""
+        lo, hi = (0, None) if self.span is None else self.span[:2]
+        if hi is not None and lo >= hi:
+            return
         with CramStream(self.path) as cs:
             ref_names = cs.ref_names
-            for cont, blocks, raw in cs.containers():
+            for i, (cont, blocks, raw) in enumerate(cs.containers(skip=lo),
+                                                    lo):
+                if hi is not None and i >= hi:
+                    break
                 comp = parse_compression_header(blocks[0].data)
                 slices = _decode_container(comp, blocks, cont, self.refs,
                                            ref_names, self.max_len,
@@ -238,7 +251,7 @@ class CramWindowSource:
     def windows(self):
         pending: list = []    # containers with no primary record, not yet placed
         held = None           # the last window, waiting for what follows it
-        ordinal = 0
+        ordinal = 0 if self.span is None else int(self.span[2])
         for cont, blocks, raw, slices, arrays, rows in \
                 self.containers_decoded():
             item = (cont, blocks, raw, slices, rows)
@@ -385,7 +398,20 @@ def recalibrate_cram_stream_resident(
             write_gatk_report(eng.tables, names, report_out)
 
     # ---- pass 4: gather on the card, rebuild + write in order on one thread
-    writer = CramStreamWriter(out_path, header_text)
+    windows = write_cram_windows(eng, recal, src,
+                                 CramStreamWriter(out_path, header_text))
+    clock.mark("pass4")
+    return {"num_reads": n, "total_bases": bases, "read_groups": eng.num_rg,
+            "streamed": True, "engine": "resident-window", "format": "cram",
+            "windows": windows}
+
+
+def write_cram_windows(eng, recal, src, writer) -> int:
+    """Pass 4 of the container-windowed route into `writer` (closed at the
+    end): each window's gather on the card, then per container the QS
+    blocks rebuilt (a container the wholesale decoder refused re-encoded)
+    and written in order on one thread; a source with no window writes
+    every container as it is.  Returns the windows."""
     wex = ThreadPoolExecutor(1)
     pending: list = []
 
@@ -393,21 +419,23 @@ def recalibrate_cram_stream_resident(
         if all(kind == "fast" for kind, _, _ in slices):
             writer.write_raw(rewrite_container_quals(
                 cont, blocks, raw,
-                container_new_qs(slices, blocks, nq, rows, max_len)))
+                container_new_qs(slices, blocks, nq, rows, src.max_len)))
         else:
             writer.write_records(rewrite_fallback_container(
-                slices, nq, max_len, registry, rg_names, use_oq))
+                slices, nq, src.max_len, src.registry, src.rg_names,
+                src.use_oq))
 
     windows = 0
     try:
-        for _, nq, (_, _, conts) in eng.gathered(recal, host=True):
+        for _, nq, (_, _, conts) in eng.gathered(recal, host=True,
+                                                 every=True):
             windows += 1
             if len(pending) >= 2:     # at most two windows wait to be written
                 pending.pop(0).result()
             for cont, blocks, raw, slices, rows in conts:
                 pending.append(wex.submit(put, cont, blocks, raw, slices,
                                           rows, nq if sum(rows) else None))
-        if not windows:                  # no primary record in the file
+        if not windows:                  # no primary record in the source
             for cont, blocks, raw, slices, _, rows in \
                     src.containers_decoded():
                 pending.append(wex.submit(put, cont, blocks, raw, slices,
@@ -419,7 +447,4 @@ def recalibrate_cram_stream_resident(
         finally:
             wex.shutdown(wait=True)
             writer.close()
-    clock.mark("pass4")
-    return {"num_reads": n, "total_bases": bases, "read_groups": eng.num_rg,
-            "streamed": True, "engine": "resident-window", "format": "cram",
-            "windows": windows}
+    return windows

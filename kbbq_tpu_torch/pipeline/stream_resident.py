@@ -35,7 +35,10 @@ Pass boundaries are checkpoints (``state/checkpoint.py``: the JAX package's
 files), and a streamed FASTQ run into one plain file resumes pass 4 at the
 chunk it had reached.
 
-As a rank of a group the engine stages every world-th window.  With the
+As a rank of a group the engine stages every L-th window of its source, L
+the ranks of its host (on one host, the group's world; on several hosts,
+``parallel/multihost.py``, each host's source is its own partition).  The
+merges span the whole group.  With the
 replicated layout its filters are merged at the pass boundaries; with the
 hash-space-sharded layout (``parallel/sharded_bloom.py``) it holds its
 shard of each filter, and every insert, word test and walk round is an
@@ -121,16 +124,25 @@ class FastqWindowSource:
     """Windows over FASTQ files: one window per chunk of `chunk_reads`
     records (a file's last chunk may be shorter; each file is its own read
     group, ordinals run on across files).  Items: (ordinal, arrays, file
-    index, FastqData) with arrays = ``chunk_to_batch_arrays``'s."""
+    index, FastqData) with arrays = ``chunk_to_batch_arrays``'s.  `files`:
+    the (file index, global ordinal of its first read) of the files to
+    cover, by default every file in order; on several hosts, a host's own
+    files at their canonical ordinals (``parallel/multihost.py``)."""
 
     def __init__(self, in_paths, scan, interleaved: bool, chunk_reads: int,
-                 host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES):
+                 host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES,
+                 files=None):
         self.in_paths = list(in_paths)
         self.scan = scan
         self.interleaved = interleaved
         self.chunk_reads = int(chunk_reads)
         self.num_rg = len(self.in_paths)
-        self.num_reads = scan.num_reads
+        if files is None:
+            firsts = np.cumsum([0] + list(scan.per_file_reads))
+            files = zip(range(self.num_rg), firsts)
+        self.files = [(int(fi), int(o)) for fi, o in files]
+        self.num_reads = sum(int(scan.per_file_reads[fi])
+                             for fi, _ in self.files)
         self.max_len = scan.max_len
         self.total_bases = scan.total_bases
         self._cache = _HostChunkCache(host_cache_bytes)
@@ -146,19 +158,19 @@ class FastqWindowSource:
 
         def parsed():
             # read + record scan on their own thread, beside the extract
-            for fi, path in enumerate(self.in_paths):
-                for fq in iter_fastq_chunks(path, self.chunk_reads):
-                    yield fi, fq
+            for fi, ordinal in self.files:
+                for fq in iter_fastq_chunks(self.in_paths[fi],
+                                            self.chunk_reads):
+                    yield fi, ordinal, fq
+                    ordinal += fq.num_reads
 
-        ordinal = 0
-        for fi, fq in prefetch_iter(parsed(), depth=2):
+        for fi, ordinal, fq in prefetch_iter(parsed(), depth=2):
             arrs = chunk_to_batch_arrays(fq, self.max_len, fi, ordinal,
                                          self.interleaved)
             item = (ordinal, arrs, fi, fq)
             self._cache.add(item, fq.buf.nbytes
                             + sum(a.nbytes for a in arrs))
             yield item
-            ordinal += fq.num_reads
         self._cache.finish()
 
 
@@ -197,13 +209,19 @@ class BamWindowSource:
     (buf, offs, sizes, decoded) of the window's chunk and of the chunks
     with no primary record around it (those before the first window go
     with it, the others with the window before them), so pass 4 writes
-    every chunk of the file in order."""
+    every chunk of the file in order.  `span`: (compressed offset, offset
+    into its BGZF member, records, global ordinal of the first primary) of
+    a run of whole chunks to cover instead of the file (a host's range on
+    several hosts, ``parallel/multihost.py``); `num_reads` is then the
+    span's primaries."""
 
     def __init__(self, path: str, registry: dict, max_len: int,
                  num_reads: int, total_bases: int, total_kmers_: int,
                  use_oq: bool, chunk_records: int,
-                 host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES):
+                 host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES,
+                 span=None):
         self.path = path
+        self.span = span
         self.registry = registry
         self.num_rg = max(1, len(registry))
         self.max_len = max_len
@@ -224,10 +242,15 @@ class BamWindowSource:
         if self._cache.complete:
             yield from self._cache.items
             return
-        from ..io.bam_stream import iter_bam_raw_chunks
+        from ..io.bam_stream import (iter_bam_raw_chunks,
+                                     iter_bam_raw_chunks_range)
         from ..io.bam_vec import decode_machine_chunk
         self._cache.restart()
-        _, _, chunks = iter_bam_raw_chunks(self.path, self.chunk_records)
+        if self.span is None:
+            _, _, chunks = iter_bam_raw_chunks(self.path, self.chunk_records)
+        else:
+            chunks = iter_bam_raw_chunks_range(self.path, *self.span[:3],
+                                               self.chunk_records)
         for buf, offs, sizes in prefetch_iter(chunks, depth=2):
             dec = decode_machine_chunk(buf, offs, sizes, self.max_len,
                                        self.registry, use_oq=self.use_oq)
@@ -239,7 +262,7 @@ class BamWindowSource:
     def windows(self):
         pending: list = []      # chunks with no primary record, not yet placed
         held = None             # the last window, waiting for what follows it
-        ordinal = 0
+        ordinal = 0 if self.span is None else int(self.span[3])
         for item in self.raw_chunks_decoded():
             prim = item[3][6]
             if not prim.size:
@@ -276,8 +299,9 @@ class StreamResidentEngine:
                  filter_names=("rows_a", "rows_b")):
         self.source = source
         # a rank of a process group (``parallel/mesh.py``): it stages every
-        # world-th window and merges at every pass boundary, or with the
-        # "sharded" layout holds its shard of each filter
+        # L-th window (L = its host's ranks) and merges over the group at
+        # every pass boundary, or with the "sharded" layout holds its shard
+        # of each filter
         self.rank = rank
         self.sharded = layout == "sharded"
         # the checkpoint files of filters A and B
@@ -309,14 +333,15 @@ class StreamResidentEngine:
         # codes, quals, mask: 3 B per padded base; rgs 8 B, seconds 1 B a read
         budget = (default_device_cache_bytes(dev)
                   if device_cache_bytes is None else device_cache_bytes)
-        world = rank.world if rank is not None else 1
-        self._cache_on = -(-source.num_reads // world) * (3 * self.L + 9) \
+        local = rank.local_world if rank is not None else 1
+        self._cache_on = -(-source.num_reads // local) * (3 * self.L + 9) \
             <= budget
         self._dev_cache: list = []
         self._cache_complete = False
 
     def _mine(self, i: int) -> bool:
-        return self.rank is None or i % self.rank.world == self.rank.rank
+        return (self.rank is None
+                or i % self.rank.local_world == self.rank.local_rank)
 
     def _windows(self, host: bool = False, every: bool = False):
         """(ordinal, device tensors (codes, quals, mask, rgs, seconds),
@@ -522,10 +547,10 @@ class StreamResidentEngine:
     def gathered(self, recal: np.ndarray, host: bool = False,
                  every: bool = False):
         """Pass 4: (ordinal, new quals int8 [n, L] on the host, source item
-        or None) per window of this rank.  With `every`, rank 0 gets every
-        window in order, another rank's rows sent by their owner (a
-        point-to-point send of the gathered tensor), and the other ranks
-        get nothing."""
+        or None) per window of this rank.  With `every`, the host's local
+        rank 0 gets every window of the source in order, another rank's rows
+        sent by their owner (a point-to-point send of the gathered tensor),
+        and the other ranks get nothing."""
         recal_dev = torch.from_numpy(np.ascontiguousarray(recal)).to(self.dev)
         if not every or self.rank is None:
             for ordinal, w, item in self._windows(host):
@@ -533,18 +558,19 @@ class StreamResidentEngine:
                                                      self.rows), item
             return
         import torch.distributed as dist
-        me, world = self.rank.rank, self.rank.world
+        me, local = self.rank.local_rank, self.rank.local_world
+        leader = self.rank.leader
         for i, (ordinal, w, item) in enumerate(
                 self._windows(host, every=me == 0)):
             if w is not None:
                 nq = apply_table_tensor(recal_dev, *w, self.rows)
                 if me:
-                    dist.send(nq, 0)
+                    dist.send(nq, leader)
                     continue
             else:
                 nq = torch.empty((item[1][0].shape[0], self.L),
                                  dtype=torch.int8, device=self.dev)
-                dist.recv(nq, i % world)
+                dist.recv(nq, leader + i % local)
             yield ordinal, nq.cpu().numpy(), item
 
 
@@ -822,7 +848,6 @@ def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
     `layout`, and rank 0 alone writes the report, the checkpoints and the
     output, every chunk in order."""
     from ..io.bam_stream import BamStreamWriter, open_bam_stream
-    from ..io.bam_vec import rewrite_quals_chunk
     from ..state.checkpoint import Checkpoint
     from .bam import _registry_names
 
@@ -858,6 +883,19 @@ def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
     header_text, refs, reader = open_bam_stream(in_path)
     reader.f.close()
     writer = BamStreamWriter(out_path, header_text, refs)
+    windows = write_bam_windows(eng, recal, src, writer, set_oq)
+    clock.mark("pass4")
+    return {**stats, "windows": windows}
+
+
+def write_bam_windows(eng, recal, src, writer, set_oq: bool) -> int:
+    """Pass 4 of the windowed BAM route into `writer` (closed at the end):
+    each window's gather on the card, then its raw chunks rewritten
+    natively (those with no primary record as they are) and written in
+    order on one thread; a source with no window writes every chunk as it
+    is.  Returns the windows."""
+    from ..io.bam_vec import rewrite_quals_chunk
+
     wex = ThreadPoolExecutor(1)
     pending: list = []
 
@@ -876,7 +914,7 @@ def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
             for buf, offs, sizes, dec in raws:
                 pending.append(wex.submit(put, buf, offs, sizes, dec,
                                           nq if dec[6].size else None))
-        if not windows:                  # no primary record in the file
+        if not windows:                  # no primary record in the source
             for buf, offs, sizes, dec in src.raw_chunks_decoded():
                 pending.append(wex.submit(put, buf, offs, sizes, dec, None))
     finally:
@@ -886,5 +924,4 @@ def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
         finally:
             wex.shutdown(wait=True)
             writer.close()
-    clock.mark("pass4")
-    return {**stats, "windows": windows}
+    return windows

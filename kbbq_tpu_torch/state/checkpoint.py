@@ -1,7 +1,6 @@
 """Pass-boundary checkpoints and resume.
 
-Counterpart of ``kbbq_tpu/state/checkpoint.py`` (single process: without
-the multi-host sidecar files).  The natural checkpoints are the pass
+Counterpart of ``kbbq_tpu/state/checkpoint.py``.  The natural checkpoints are the pass
 boundaries: filter A, filter B and the covariate totals are each one dense
 array.  A checkpoint directory holds, with the JAX package's names and
 formats, so each package resumes from the other's streamed checkpoints:
@@ -14,6 +13,18 @@ formats, so each package resumes from the other's streamed checkpoints:
                 route with the hash-space-sharded layout, the reference's
                 names there; the same words, gathered from the shards)
   cov_*.npy     the four int64 covariate tables after pass 3
+
+and, of a run over several hosts (``parallel/multihost.py``), under the
+JAX package's names:
+
+  mh_rows_a.npy / mh_rows_b.npy   the replicated layout's filters (host 0)
+  mh_sh_rows_a_host{h}.npy / mh_sh_rows_b_host{h}.npy
+                host h's part of a hash-space-sharded filter (its ranks'
+                shards in order), marked done in ``meta.json`` only once
+                every host's part is on disk
+  host{h}.json  host h's pass-4 progress: files done, chunks and bytes of
+                the file it was writing (each host owns its file, so hosts
+                never write ``meta.json`` for their progress)
 
 Filters are saved as their packed words (``state/convert.py``), never as a
 byte per slot.  Every file is written to a temporary name and renamed, and a
@@ -103,9 +114,11 @@ class Checkpoint:
             json.dump(meta, f)
         os.replace(tmp, self._meta_path())
 
-    def check_fingerprint(self, fp: dict) -> None:
+    def check_fingerprint(self, fp: dict, record: bool = True) -> None:
         """Refuse to resume a checkpoint taken under different parameters
-        or inputs; record the fingerprint on first use."""
+        or inputs; record the fingerprint on first use (unless `record` is
+        false: the other hosts of a multi-host run leave that to host
+        0)."""
         meta = self.load_meta()
         stored = meta.get("fingerprint")
         if stored is not None and stored != fp:
@@ -116,9 +129,54 @@ class Checkpoint:
                 f"parameters or input data (mismatched: {', '.join(diffs)}); "
                 "delete the checkpoint directory or point --checkpoint-dir "
                 "elsewhere")
-        if stored is None:
+        if stored is None and record:
             meta["fingerprint"] = fp
             self.save_meta(meta)
+
+    # ------------------------------------------------------- several hosts
+    def _host_path(self, pid: int) -> str:
+        return os.path.join(self.path, f"host{pid}.json")
+
+    def load_host_meta(self, pid: int) -> dict:
+        """Host `pid`'s pass-4 progress ({} before any)."""
+        try:
+            with open(self._host_path(pid)) as f:
+                return json.load(f)
+        except FileNotFoundError:
+            return {}
+
+    def save_host_meta(self, pid: int, d: dict) -> None:
+        os.makedirs(self.path, exist_ok=True)
+        tmp = self._host_path(pid) + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(d, f)
+        os.replace(tmp, self._host_path(pid))
+
+    def save_host_array(self, pid: int, name: str, arr) -> None:
+        """Host `pid`'s part of a pass artifact, NOT marked done: the caller
+        marks the pass (``mark_pass``) once every host's part is on
+        disk."""
+        os.makedirs(self.path, exist_ok=True)
+        path = os.path.join(self.path, f"{name}_host{pid}.npy")
+        np.save(path + ".tmp.npy", np.asarray(arr))
+        os.replace(path + ".tmp.npy", path)
+
+    def load_host_array(self, pid: int, name: str) -> np.ndarray | None:
+        """Host `pid`'s part if the pass is marked done, else None; mapped
+        read-only."""
+        if name not in self.load_meta()["passes_done"]:
+            return None
+        path = os.path.join(self.path, f"{name}_host{pid}.npy")
+        if not os.path.exists(path):
+            raise ValueError(
+                f"checkpoint marks {name} complete but host {pid}'s part is "
+                f"missing: was the run restarted with a different process "
+                f"count?")
+        return np.load(path, mmap_mode="r")
+
+    def mark_pass(self, name: str) -> None:
+        """Mark a pass done (after all of its files are on disk)."""
+        self._mark(self.load_meta(), name)
 
     def _mark(self, meta: dict, name: str) -> None:
         if name not in meta["passes_done"]:

@@ -3,6 +3,8 @@
 
     python3 scripts/torch_devices_check.py             # every card
     python3 scripts/torch_devices_check.py --reads N   # a smaller dataset
+    python3 scripts/torch_devices_check.py --only devices     # one host
+    python3 scripts/torch_devices_check.py --only multihost   # several
 
 Needs two CUDA cards or more: one NCCL rank per card, so the collectives
 and the point-to-point sends run between cards (``chip_smoke.py`` runs the
@@ -15,7 +17,15 @@ the streamed route on D ranks with a checkpoint, then resumed after pass
 2), its ``[sharded]`` phase at D and at 2 ranks (the hash-space-sharded
 filters: the resident route, the streamed route with a checkpoint, then
 resumed after pass 2) and the command line with ``--devices 0`` and with
-``--devices 0 --bloom-layout sharded``.  Every run must write the
+``--devices 0 --bloom-layout sharded``.  Then several hosts
+(``chip_smoke.py``'s ``[multihost]`` phase): host processes on this
+machine, one NCCL group over them, at 2 hosts x D/2 cards and D hosts x 1
+card, each filter layout on FASTQ (config 2 as 4 files), BAM and CRAM
+(config 3, the same reads), and at 2 hosts one FASTQ run killed between
+pass 1 and pass 2 and resumed; the single host's bytes or, for BAM parts,
+records.  ``--only devices`` runs the single-host multi-card phases and
+``--only multihost`` the multi-host routes, each with the single-host runs
+it is held to, and nothing else.  Every run must write the
 one-device bytes, its launches asserted by entry point (by rank for the
 sharded layout).  Any difference raises, so the exit code is non-zero; the last
 two lines are the card's name and power limit and a JSON summary.
@@ -39,6 +49,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reads", type=int, default=1_533_333)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("devices", "multihost"),
+                    help="only the single-host multi-card phases, or only "
+                         "the multi-host routes (default: both)")
     args = ap.parse_args(argv)
 
     import torch
@@ -50,9 +63,13 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from kbbq_tpu_torch import kernels
     from kbbq_tpu_torch.io import native_lib
-    from kbbq_tpu_torch.pipeline import RecalConfig, recalibrate_fastq
-    from kbbq_tpu_torch.utils.synth import (arrays_to_fastq_bytes,
-                                            make_arrays_fast)
+    from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_bam,
+                                         recalibrate_cram_stream_resident,
+                                         recalibrate_fastq)
+    from kbbq_tpu_torch.utils.synth import (arrays_to_bam_bytes,
+                                            arrays_to_cram_bytes,
+                                            arrays_to_fastq_bytes,
+                                            make_arrays_fast, read_starts)
 
     t_start = time.time()
     cs.log(f"[devices_check] {D} cards; {cs.smi_line()}")
@@ -65,10 +82,21 @@ def main(argv=None) -> int:
                                  seed=args.seed, paired=True)
     cfg = RecalConfig(k=32, coverage=50.0, batch_size=8192)
     tmp = tempfile.mkdtemp(prefix="kbbq_devices_")
+    summary: dict = {}
     try:
         src, want = (os.path.join(tmp, n) for n in ("reads.fq", "out1.fq"))
         with open(src, "wb") as f:
             f.write(arrays_to_fastq_bytes(arrays))
+        multihost = args.only != "devices"
+        if multihost:      # config 3: the same reads as a BAM and a CRAM
+            starts = read_starts(genome_len, 150, args.reads, args.seed)
+            for fmt, make in (("bam", arrays_to_bam_bytes),
+                              ("cram", arrays_to_cram_bytes)):
+                data, _ = make(arrays, starts, extra_share=cs.BAM_EXTRA_SHARE)
+                with open(os.path.join(tmp, f"reads.{fmt}"), "wb") as f:
+                    f.write(data)
+                del data
+            del starts
         del arrays
         kernels.reset_launches()
         t0 = time.time()
@@ -78,48 +106,62 @@ def main(argv=None) -> int:
         one = dict(kernels.ENTRY_LAUNCHES)
         cs.log(f"[devices_check] one device: {one_wall:.3f} s, launches "
                f"{json.dumps(one)}")
-        by_rank, launches = cs.phase_devices(tmp, cfg, args.reads)
-        sharded = {}
-        for world in sorted({D, 2}, reverse=True):
-            t0 = time.time()
-            sh_by_rank, _, sh_streamed = cs.phase_sharded(tmp, cfg,
-                                                          args.reads, world)
-            sharded[world] = {"launches_by_rank": sh_by_rank,
-                              "streamed_launches": sh_streamed,
-                              "seconds": time.time() - t0}
-        cli_out = os.path.join(tmp, "cli.fq")
-        cli = {}
-        for layout in ("auto", "sharded"):
-            rc, wall, last, by_entry, _ = cs.run_cli(
-                tmp, ["recalibrate", src, "-o", cli_out, "--devices", "0",
-                      "--bloom-layout", layout, "-k", str(cfg.k), "-c",
-                      f"{cfg.coverage:g}", "--batch-size",
-                      str(cfg.batch_size)], args.reads,
-                name=f"devices_0_{layout}")
-            if layout == "auto":
-                cs.check_launches(f"command line --devices 0 ({D} cards)",
-                                  by_entry,
-                                  cs.resident_ranks_launches(args.reads, D))
-            elif not by_entry["walk_propose"] or by_entry["walk_errors"]:
-                raise AssertionError(f"--bloom-layout sharded launched "
-                                     f"{by_entry}")
-            if not cs.same_file(cli_out, want):
-                raise AssertionError(f"--devices 0 --bloom-layout {layout} "
-                                     f"wrote other bytes than one device")
-            cli[layout] = {"wall_s": wall, "stderr": last,
-                           "launches": by_entry}
+        summary.update(one_device_wall_s=one_wall, one_device_launches=one)
+        if args.only != "multihost":
+            summary.update(devices_phases(tmp, src, want, cfg, args.reads, D))
+        if multihost:
+            recalibrate_bam(os.path.join(tmp, "reads.bam"),
+                            os.path.join(tmp, "bam1.bam"), cfg, set_oq=True)
+            recalibrate_cram_stream_resident(
+                os.path.join(tmp, "reads.cram"),
+                os.path.join(tmp, "cram1.cram"), cfg)
+            routes = [(fmt, layout) for fmt in ("fastq", "bam", "cram")
+                      for layout in ("replicated", "sharded")]
+            summary["multihost"] = [
+                cs.phase_multihost(tmp, cfg, hosts, D // hosts, routes,
+                                   kill=hosts == 2)
+                for hosts in sorted({2, D})]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(cs.smi_line(), flush=True)
-    print(json.dumps({"cards": D, "reads": args.reads,
-                      "one_device_wall_s": one_wall,
-                      "one_device_launches": one,
-                      "resident_launches_by_rank": by_rank,
-                      "resident_launches": launches,
-                      "sharded": sharded,
-                      "cli_devices_0": cli,
+    print(json.dumps({"cards": D, "reads": args.reads, **summary,
                       "seconds": time.time() - t_start}), flush=True)
     return 0
+
+
+def devices_phases(tmp, src, want, cfg, reads: int, D: int) -> dict:
+    """chip_smoke.py's [devices] and [sharded] phases at D (and 2) ranks and
+    the command line's --devices 0 with each layout."""
+    import chip_smoke as cs
+    by_rank, launches = cs.phase_devices(tmp, cfg, reads)
+    sharded = {}
+    for world in sorted({D, 2}, reverse=True):
+        t0 = time.time()
+        sh_by_rank, _, sh_streamed = cs.phase_sharded(tmp, cfg, reads, world)
+        sharded[world] = {"launches_by_rank": sh_by_rank,
+                          "streamed_launches": sh_streamed,
+                          "seconds": time.time() - t0}
+    cli_out = os.path.join(tmp, "cli.fq")
+    cli = {}
+    for layout in ("auto", "sharded"):
+        rc, wall, last, by_entry, _ = cs.run_cli(
+            tmp, ["recalibrate", src, "-o", cli_out, "--devices", "0",
+                  "--bloom-layout", layout, "-k", str(cfg.k), "-c",
+                  f"{cfg.coverage:g}", "--batch-size", str(cfg.batch_size)],
+            reads, name=f"devices_0_{layout}")
+        if layout == "auto":
+            cs.check_launches(f"command line --devices 0 ({D} cards)",
+                              by_entry, cs.resident_ranks_launches(reads, D))
+        elif not by_entry["walk_propose"] or by_entry["walk_errors"]:
+            raise AssertionError(f"--bloom-layout sharded launched "
+                                 f"{by_entry}")
+        if not cs.same_file(cli_out, want):
+            raise AssertionError(f"--devices 0 --bloom-layout {layout} "
+                                 f"wrote other bytes than one device")
+        cli[layout] = {"wall_s": wall, "stderr": last, "launches": by_entry}
+    return {"resident_launches_by_rank": by_rank,
+            "resident_launches": launches, "sharded": sharded,
+            "cli_devices_0": cli}
 
 
 if __name__ == "__main__":

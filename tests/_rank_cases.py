@@ -75,3 +75,14 @@ def with_walk(rank, shared, walk_rows: int, chunk: int, body, *args):
     sharded_bloom.WALK_BLOCK_ROWS = walk_rows
     sharded_bloom.EXCHANGE_CHUNK = chunk
     return body(rank, shared, *args)
+
+
+def warnings_as_errors(rank, body, *args):
+    """``body(rank, *args)`` with torch's deprecation warnings
+    (``FutureWarning``, ``DeprecationWarning``) raised as errors in this
+    rank."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", FutureWarning)
+        warnings.simplefilter("error", DeprecationWarning)
+        return body(rank, *args)

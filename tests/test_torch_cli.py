@@ -240,12 +240,13 @@ def test_exclusive_flags_and_exit_codes(d, tmp_path, capsys):
     (["--devices", "2"], None),
     (["--devices", "2", "--bloom-layout", "sharded"], None),
     (["--bloom-layout", "replicated"], None),
-    (["--multihost"], "ROADMAP A16")])
+    (["--multihost"], None)])
 def test_unported_options_are_refused_by_name(d, tmp_path, flags, item):
     """What is not ported is refused by its ROADMAP item, and no output is
     written; what is (item None: two ranks, on the CPU two processes over
     gloo, with the hash-space-sharded filters, and the replicated layout)
-    writes the plain run's bytes and the JAX command line's."""
+    writes the plain run's bytes and the JAX command line's; --multihost
+    with no launcher variables is one host)."""
     out = tmp_path / "never.fq"
     if item is None:
         plain = tmp_path / "plain.fq"

@@ -43,7 +43,8 @@ from kbbq_tpu_torch import benchmark, plot
 from kbbq_tpu_torch.cli.main import main as cli_main
 from kbbq_tpu_torch.utils import metrics
 from kbbq_tpu_torch import parallel
-from kbbq_tpu_torch.parallel import mesh, merge, resident_sharded, sharded
+from kbbq_tpu_torch.parallel import (mesh, merge, multihost,
+                                     resident_sharded, sharded)
 cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
 src = {os.path.join(REPO, 'tests', 'data', 'tiny.fq')!r}
 assert cli_main(["recalibrate", src, "-k", "16", "-c", "18",
@@ -53,6 +54,9 @@ recalibrate_fastq(src, {str(tmp_path / 'direct.fq')!r}, cfg, device="cpu",
 info = recalibrate_fastq(src, {str(tmp_path / 'out.fq')!r}, cfg,
                          device="cpu",
                          apply_report={str(tmp_path / 'recal.report')!r})
+multihost.recalibrate_fastq_multihost(
+    [src], [{str(tmp_path / 'mh.fq')!r}], cfg, device="cpu",
+    info=multihost.init_multihost(num_processes=1, process_id=0))
 recalibrate_fastq_streaming(src, {str(tmp_path / 'streamed.fq.gz')!r}, cfg,
                             chunk_reads=50, device="cpu",
                             checkpoint_dir={str(tmp_path / 'ck')!r})
@@ -106,6 +110,7 @@ print("LIBS", libs)
     assert (tmp_path / "out.fq").read_bytes() == want
     assert (tmp_path / "direct.fq").read_bytes() == want
     assert (tmp_path / "cli.fq").read_bytes() == want
+    assert (tmp_path / "mh.fq").read_bytes() == want
     import gzip
     assert gzip.decompress((tmp_path / "streamed.fq.gz").read_bytes()) == want
     assert (tmp_path / "s.bam").read_bytes() == \

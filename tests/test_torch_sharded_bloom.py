@@ -165,6 +165,24 @@ def test_shards_end_to_end_are_the_one_device_filter(arrays, hashed,
     assert _no_group()
 
 
+def test_the_walks_group_loop_raises_no_deprecation_warning(arrays, hashed):
+    """Two gloo ranks walk through a sharded filter in lane groups of one
+    lane (many exchanges) with torch's deprecation warnings raised as errors
+    in the ranks: no exchange calls a deprecated collective
+    (``all_gather_into_tensor``), and the marks are the whole filter's."""
+    codes, h1, word, filt = hashed
+    N = codes.shape[0]
+    res = launch(_rank_cases.warnings_as_errors, 2, "cpu",
+                 _rank_cases.sharded_filter, arrays.codes, [0, N // 3, N],
+                 16, 7, SAMPLE, 16, 60)
+    for r, s, e in zip(res, (0, N // 3), (N // 3, N)):
+        want = tb.bloom_query_words_plain(filt, h1[s:e], word[s:e])
+        err = infer_errors_plain(filt, codes[s:e], 16, 7, trusted0=want)
+        assert (r["err"] == err.numpy()).all()
+        assert r["stats"]["walk_groups"] > r["stats"]["walk_rounds"] > 0
+    assert _no_group()
+
+
 @pytest.fixture(scope="module")
 def odd(arrays):
     """The first 317 reads: they split unevenly over 2 and 4 ranks."""
