@@ -83,7 +83,17 @@ a FASTQ over 2 GiB), the command line (its streamed engine) and the
 resident route in process write the same bytes, and against the run's
 filter B of 2^31 bits the walk equals its plain version on 8,192 reads and
 a chunk, the walk and the cached word test timed; config 4's reads also
-through the multi-device route at D ranks, the resident route's bytes.  Any failed phase raises,
+through the multi-device route at D ranks, the resident route's bytes; and
+``[oracle]``: the resident run held to the port's NumPy oracle
+(``scripts/torch_oracle_spot.py``) on 4,096 reads spread over all
+13,000,000 ordinals, against filters A and B as the run built them, its
+tables, Q' table and output (passes 1-4, covariates and deltas, every
+check exact).  Before config 4, ``[scaling]`` (``bench_scaling_torch.py``'s
+points on config 2's reads at D = 1, and at the card count where there
+are two or more, parity-gated) and ``[config5]``
+(``scripts/torch_config5_rehearsal.py`` at one host of one card, both
+filters forced to 2^33 bits under the sharded layout: the single-process
+bytes, the pass-2 peak's rise).  Any failed phase raises,
 so the exit code is non-zero; without a CUDA device the script exits 1 at
 once and prints no result.
 
@@ -138,6 +148,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from kbbq_tpu_torch.utils.metrics import smi_line
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "tests", "data")
 
@@ -167,14 +179,6 @@ DEVICE = "cuda"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def cuda_ms(fn, reps: int = 3, before=None) -> float:
@@ -1109,6 +1113,10 @@ def devices_line(route: str, t: dict, wall: float, by_entry: dict) -> dict:
     shards = {k: t[k] for k in ("shard_words_a", "shard_words_b",
                                 "walk_rounds", "walk_groups",
                                 "walk_collectives") if t.get(k)}
+    if "by_rank" in t:
+        shards["peak_device_bytes_by_rank"] = [
+            max((v for k, v in r.items() if k.endswith("_peak_bytes")),
+                default=None) for r in t["by_rank"]]
     rec = {"route": route, "world": t["world"], "backend": t["backend"],
            "wall_s": wall, "caller_s": caller, "spawn_s": t["spawn"],
            "merge_s": t["merge"],
@@ -1125,7 +1133,8 @@ def devices_line(route: str, t: dict, wall: float, by_entry: dict) -> dict:
         f"{t['exchange_bytes']} B sent by the busiest rank; slowest rank's "
         f"seconds by stage {json.dumps(stages)}; peak device bytes by stage "
         f"{json.dumps(peaks)}; launches summed over ranks "
-        f"{json.dumps(by_entry)}")
+        f"{json.dumps(by_entry)}; peak device bytes by rank "
+        f"{shards.get('peak_device_bytes_by_rank')}")
     if t.get("walk_groups"):
         log(f"{tag} {route}: the walk took {t['walk_rounds']} rounds (the "
             f"busiest rank's), {t['walk_groups']} lane groups and "
@@ -1229,44 +1238,70 @@ def phase_devices(tmp, cfg, reads):
     return runs[0]["launches_by_rank"], runs[0]["launches_by_entry"]
 
 
-def phase_devices_scale(tmp, src, want, cfg, n):
+def phase_devices_scale(tmp, src, want, cfg, n, world=None,
+                        layout="replicated", arrays=None):
     """Config 4's FASTQ (written by start_scale_data) through run_pipeline's
-    multi-device route at D = device_count ranks: the resident path on
-    each rank's rows, its output equal to [scale]'s resident bytes."""
+    multi-device route at D = `world` ranks (default device_count) with
+    the filter `layout`: the resident path on each rank's rows, its output
+    equal to the resident route's bytes (`want`), launches held to the
+    run's shape, each sharded rank holding 1/D of each filter.  `arrays`:
+    the file's (fqs, masks, ReadArrays) as ``_load_fastq_arrays`` gives
+    them, read here when not given."""
     from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.parallel.mesh import row_range
     from kbbq_tpu_torch.parallel.sharded import run_arrays_sharded
+    from kbbq_tpu_torch.parallel.sharded_bloom import sharded_params
     from kbbq_tpu_torch.pipeline.recalibrate import (_load_fastq_arrays,
                                                      _write_fastq_outputs)
-    D = torch.cuda.device_count()
+    D = world or torch.cuda.device_count()
     t0 = time.time()
-    fqs, mask_l, arrays = _load_fastq_arrays([src], True)
+    fqs, mask_l, ra = arrays or _load_fastq_arrays([src], True)
     read_s = time.time() - t0
     torch.cuda.empty_cache()
     t: dict = {}
     kernels.reset_launches()
     t0 = time.time()
-    nq = run_arrays_sharded(arrays, cfg, D, DEVICE, t)
+    nq = run_arrays_sharded(ra, cfg, D, DEVICE, t, None, layout)
     wall = time.time() - t0
     by_entry = dict(kernels.ENTRY_LAUNCHES)
-    del arrays
     out = os.path.join(tmp, "ranks.fq")
     t1 = time.time()
     _write_fastq_outputs(fqs, mask_l, nq, out)
     write_s = time.time() - t1
-    del fqs, mask_l, nq
+    del nq
     if "h2d" not in t:
         raise AssertionError("config 4 on the ranks took the windowed "
                              "engine, not the resident path")
-    check_launches(f"config 4, resident path on {D} ranks", by_entry,
-                   resident_ranks_launches(n, D))
+    route = f"config 4, resident, {n} reads"
+    if layout == "sharded":
+        w = ra.max_len - cfg.k + 1
+        lens = ra.mask.sum(axis=1)
+        alpha, coverage = cfg.resolve_alpha(int(lens.sum()))
+        pa, pb = sharded_params(cfg, int(np.maximum(lens - cfg.k + 1,
+                                                    0).sum()),
+                                alpha, coverage, D)
+        shares = [e - s for s, e in (row_range(n, D, r) for r in range(D))]
+        check_sharded_launches(f"config 4, sharded, on {D} ranks",
+                               t["launches_by_rank"],
+                               sharded_want([[x] for x in shares], w,
+                                            (1, 2, 3), True))
+        if (t["shard_words_a"], t["shard_words_b"]) != (
+                pa.m // 32 // D, pb.m // 32 // D):
+            raise AssertionError(f"a rank held {t['shard_words_a']} and "
+                                 f"{t['shard_words_b']} words of the "
+                                 f"filters")
+        route = f"config 4, sharded, resident, {n} reads"
+    else:
+        check_launches(f"config 4, resident path on {D} ranks", by_entry,
+                       resident_ranks_launches(n, D))
     if not same_file(out, want):
-        raise AssertionError(f"config 4 on {D} ranks wrote other bytes than "
-                             f"the resident route")
+        raise AssertionError(f"config 4 on {D} ranks ({layout}) wrote other "
+                             f"bytes than the resident route")
     os.remove(out)
-    rec = devices_line(f"config 4, resident, {n} reads", t, wall, by_entry)
-    log(f"[devices] config 4: FASTQ read {read_s:.3f} s and written "
-        f"{write_s:.3f} s in this process, outputs equal byte for byte; "
-        f"{smi_line()}")
+    rec = devices_line(route, t, wall, by_entry)
+    log(f"[devices] config 4 at {D} ranks, {layout}: FASTQ read {read_s:.3f}"
+        f" s and written {write_s:.3f} s in this process, outputs equal "
+        f"byte for byte; {smi_line()}")
     return rec
 
 
@@ -2411,13 +2446,16 @@ def split_fastq(src, paths, shares) -> list:
     return counts
 
 
-def run_hosts(tmp, argv, hosts: int, local: int, name: str, crash=None):
+def run_hosts(tmp, argv, hosts: int, local: int, name: str, crash=None,
+              cmd=None, timeout: float = MH_TIMEOUT):
     """`hosts` processes of ``python -m kbbq_tpu_torch <argv> --multihost
-    --devices <local>`` on this machine, one "host" each (its own cards by
-    CUDA_VISIBLE_DEVICES where there are several hosts, its own session),
-    over a coordinator on localhost -> (wall s on this clock, each host's
-    stats line).  With `crash` (a callable), host 1 is killed between pass 1
-    and pass 2 (``KBBQ_CRASH_POINT``) and must exit 41; the other hosts,
+    --devices <local>`` (or of the command `cmd`) on this machine, one
+    "host" each (its own cards by CUDA_VISIBLE_DEVICES where there are
+    several hosts, its own session), over a coordinator on localhost ->
+    (wall s on this clock, each host's stats line: the last line of its
+    standard output, JSON), each host given `timeout` s.  With `crash` (a
+    callable), host 1 is killed between pass 1 and pass 2
+    (``KBBQ_CRASH_POINT``) and must exit 41; the other hosts,
     left waiting on it, are killed once ``crash()`` says pass 1's checkpoint
     is on disk, and no stats are read.  Every host's process group is
     killed at the end."""
@@ -2442,11 +2480,12 @@ def run_hosts(tmp, argv, hosts: int, local: int, name: str, crash=None):
             logs.append((out, err))
             with open(out, "wb") as fo, open(err, "wb") as fe:
                 procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "kbbq_tpu_torch", *argv,
-                     "--multihost", "--devices", str(local)], cwd=HERE,
-                    env=e, stdout=fo, stderr=fe, start_new_session=True))
+                    cmd or [sys.executable, "-m", "kbbq_tpu_torch", *argv,
+                            "--multihost", "--devices", str(local)],
+                    cwd=HERE, env=e, stdout=fo, stderr=fe,
+                    start_new_session=True))
         if crash:
-            code = procs[1].wait(timeout=MH_TIMEOUT)
+            code = procs[1].wait(timeout=timeout)
             if code != 41:
                 raise AssertionError(f"{name}: host 1 exited {code}, not 41")
             deadline = time.time() + 120
@@ -2456,7 +2495,9 @@ def run_hosts(tmp, argv, hosts: int, local: int, name: str, crash=None):
                 raise AssertionError(f"{name}: pass 1's checkpoint is "
                                      f"missing")
             return time.time() - t0, None
-        codes = [p.wait(timeout=MH_TIMEOUT) for p in procs]
+        deadline = time.time() + timeout
+        codes = [p.wait(timeout=max(1.0, deadline - time.time()))
+                 for p in procs]
         wall = time.time() - t0
     finally:
         for p in procs:
@@ -2965,6 +3006,72 @@ def stop_scale_data(job) -> None:
     shutil.rmtree(job["tmp"], ignore_errors=True)
 
 
+ORACLE_SAMPLE = 4096          # reads of [oracle], spread over every ordinal
+
+
+def load_script(rel: str):
+    """A script of this checkout (path relative to it) as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(rel))[0], os.path.join(HERE, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_oracle(spot, src, out, kept, cfg, info) -> dict:
+    """[oracle]: config 4's resident run held to the port's NumPy oracle
+    (``scripts/torch_oracle_spot.py``) on ORACLE_SAMPLE reads spread over
+    all its ordinals, against filters A and B as the run built them (kept
+    by ``kept_resident_run``), its tables, Q' table and output; every
+    check must count 0."""
+    tables = kept["captured"]["tables"]
+    n = info["num_reads"]
+    t0 = time.time()
+    rows = spot.read_sample(src, out,
+                            spot.sample_ordinals(n, ORACLE_SAMPLE),
+                            tables.max_len, True)
+    read_s = time.time() - t0
+    if rows["num_reads"] != n:
+        raise AssertionError(f"[oracle] read {rows['num_reads']} of {n} "
+                             f"reads")
+    res = spot.oracle_spot(rows, kept["a"][-1], kept["b"][-1], tables,
+                           kept["recal"][-1], rows["usable_bases"], cfg,
+                           info["total_bases"], DEVICE)
+    res["read_s"] = read_s
+    log(f"[oracle] {json.dumps(res)}; {smi_line()}")
+    spot.check(res)
+    return res
+
+
+def phase_scaling(reads: int) -> dict:
+    """[scaling]: ``bench_scaling_torch.run_points`` on config 2's count of
+    reads at D = 1 (and at the card count where there are two or more),
+    each point parity-gated against D = 1."""
+    bench = load_script("bench_scaling_torch.py")
+    D = torch.cuda.device_count()
+    res = bench.run_points(reads, 150, 32, 8192, sorted({1, D}))
+    for p in res["points"]:
+        log(f"[scaling] {json.dumps(p)}")
+        if not p["parity_vs_1dev"]:
+            raise AssertionError(f"[scaling] D = {p['devices']} wrote other "
+                                 f"bytes than D = 1")
+    log(f"[scaling] {json.dumps(res)}")
+    return res
+
+
+def phase_config5() -> dict:
+    """[config5]: ``scripts/torch_config5_rehearsal.py`` at one host of one
+    card, both filters forced to 2^33 bits under the sharded layout, at its
+    default 12,000 reads: the host process writes the single-process
+    bytes, its rank holds the whole filters, and its pass-2 peak rises by
+    their growth."""
+    c5 = load_script("scripts/torch_config5_rehearsal.py")
+    res = c5.rehearse(c5.READS, [33], [(1, 1)])
+    log(f"[config5] {json.dumps(res)}")
+    return res
+
+
 def phase_scale(job):
     """BASELINE config 4 on one card: make_arrays_chunked's reads as a
     FASTQ over 2 GiB (start_scale_data), (a) the command line (its streamed
@@ -2974,7 +3081,10 @@ def phase_scale(job):
     walk_errors against its plain version on the first SCALE_SAMPLE reads
     and on one chunk (and timed from a CUDA graph), and the cached word test
     over the windows of the first FULL_READS reads (against its plain
-    version, timed, beside the library's gather)."""
+    version, timed, beside the library's gather).  Between them
+    ``phase_devices_scale`` and ``phase_oracle``, against both filters as
+    the resident run built them (kept until then, so its pass-3 and pass-4
+    peaks hold filter A too)."""
     from kbbq_tpu_torch import kernels
     from kbbq_tpu_torch.cli.main import AUTO_STREAM_BYTES
     from kbbq_tpu_torch.constants import DEFAULT_EXT_CAP
@@ -2985,7 +3095,6 @@ def phase_scale(job):
     from kbbq_tpu_torch.ops.kmers import u32_to_wide
     from kbbq_tpu_torch.oracle import bloom_params_for
     from kbbq_tpu_torch.pipeline import RecalConfig, recalibrate_fastq
-    from kbbq_tpu_torch.pipeline import resident as resident_mod
     from kbbq_tpu_torch.pipeline.recalibrate import resident_need_bytes
     import resource
 
@@ -3034,13 +3143,7 @@ def phase_scale(job):
     if need > free:
         raise AssertionError(f"resident need {need} B is over the "
                              f"card's free {free} B")
-    built = []
-    build = resident_mod.bloom_build_words
-
-    def keep_filter_b(*args, **kw):
-        built.append(build(*args, **kw))
-        return built[-1]
-
+    spot = load_script("scripts/torch_oracle_spot.py")
     res_fq = os.path.join(tmp, "res.fq")
     t: dict = {}
     try:        # the peak resident set from here on (Linux: clear_refs 5)
@@ -3049,8 +3152,7 @@ def phase_scale(job):
         rss_from = "the resident run"
     except OSError:
         rss_from = "the script's start"
-    resident_mod.bloom_build_words = keep_filter_b
-    try:
+    with spot.kept_resident_run() as kept:
         kernels.reset_launches()
         t0 = time.time()
         info = recalibrate_fastq([src], res_fq, cfg, interleaved=True,
@@ -3060,8 +3162,6 @@ def phase_scale(job):
         by_entry_b = dict(kernels.ENTRY_LAUNCHES)
         rss_b = peak_rss_bytes()
         rss_all = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-    finally:
-        resident_mod.bloom_build_words = build
     check_launches("resident route at config 4", by_entry_b, {
         "bloom_probe_trust": 1, "bloom_probe_words": 1,
         "bloom_probe_hashed": 0, "hash_build": 1, "bloom_or_words": 1,
@@ -3073,6 +3173,7 @@ def phase_scale(job):
                              "from the resident route's")
     out_size = os.path.getsize(res_fq)
     devices = phase_devices_scale(tmp, src, res_fq, cfg, n)
+    oracle = phase_oracle(spot, src, res_fq, kept, cfg, info)
     # the first FULL_READS reads' codes, for the kernel checks: every record
     # of the generator's FASTQ has the same size
     nr = min(FULL_READS, n)
@@ -3093,8 +3194,8 @@ def phase_scale(job):
 
     # ---- the kernels against the run's filter B
     dev = torch.device(DEVICE)
-    filt_b = built[0]
-    del built
+    filt_b = kept["b"][0]
+    del kept
     if filt_b.numel() * 32 != 1 << pb.log2_m:
         raise AssertionError(f"filter B has {filt_b.numel()} words, "
                              f"expected 2^{pb.log2_m} bits")
@@ -3178,7 +3279,7 @@ def phase_scale(job):
               "generator_peak_rss_bytes": made["peak_rss_bytes"],
               "cli_peak_rss_bytes": rss_a, "resident_peak_rss_bytes": rss_b,
               "script_ru_maxrss_bytes": rss_all, "devices": devices,
-              "card": smi_line()}
+              "oracle": oracle, "card": smi_line()}
     log("[scale] " + json.dumps(result))
     return result
 
@@ -3252,6 +3353,9 @@ def main(argv=None) -> int:
             "read_len": read_len})
         shutil.rmtree(tmp, ignore_errors=True)
         del arrays, true_err, starts
+        torch.cuda.empty_cache()
+        phase_scaling(args.reads)
+        phase_config5()
         torch.cuda.empty_cache()
         scale = phase_scale(job) if job is not None else None
     finally:

@@ -6,8 +6,10 @@ package ``kbbq_tpu`` that sits beside it: same sub-package and function
 names, same output bytes, PyTorch idiom inside.  It imports ``torch``,
 ``numpy``, ``scipy`` and the standard library, and nothing of ``kbbq_tpu``.
 
-- ``oracle``   — the host-side pieces of the NumPy spec that the device path
-                 needs (filter sizing, coverage thresholds, float64 delta math).
+- ``oracle``   — the NumPy spec, a copy of the JAX package's (k-mer hashing,
+                 the byte-per-slot filter, trust rule and walk, covariates,
+                 float64 delta math, ``recalibrate_reads``); the device path
+                 uses its sizing, thresholds and delta math.
 - ``io``       — FASTQ reader/writer (native C++ codec ``csrc/kbbq_io.cc``,
                  built with g++ at first use), BGZF, chunked reads,
                  ``ReadArrays``.

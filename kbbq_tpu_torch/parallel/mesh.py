@@ -7,7 +7,8 @@ per device, each a rank of a ``torch.distributed`` group: NCCL on cards
 run).  ``launch`` starts the ranks with the spawn start method (CUDA does
 not survive ``fork``), runs a function on each and returns what each
 returned, rank 0 first.  The caller holds no process group and no CUDA
-context of its own for it.
+context of its own for it; it holds the group's store (``TCPStore``),
+bound before any rank starts on a port the system picks.
 
 The reads axis is the only one: rank r takes the contiguous rows
 ``row_range(N, D, r)`` (the resident route) or every D-th window (the
@@ -17,8 +18,11 @@ gives the same filters (DECISIONS D5).
 Several hosts (``Hosts``, ``parallel/multihost.py``): every host process
 runs ``launch`` with the same coordinator, and its L local ranks join ONE
 group of H x L ranks, host h's local rank r as global rank h * L + r, the
-group's store at the coordinator's address.  A host with one local rank
-runs it in its own process instead of spawning one.
+group's store at the coordinator's address: host 0's process binds it at
+its first launch and keeps it, and each launch keys its group under a
+prefix of its own, so the launches of one set of host processes follow one
+another on one coordinator.  A host with one local rank runs it in its own
+process instead of spawning one.
 
 Arrays reach the ranks through memory-mapped files in a temporary
 directory (``SharedArrays``), and the output rows come back the same way:
@@ -29,10 +33,10 @@ and pages it through the host's page cache like shared memory.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import pickle
 import shutil
-import socket
 import tempfile
 import time
 
@@ -65,10 +69,10 @@ def row_range(n: int, world: int, rank: int) -> tuple[int, int]:
 @dataclasses.dataclass
 class Hosts:
     """A group that spans host processes: the coordinator's ``host:port``
-    (the group's store, bound by host 0), the host count and this host's
-    index."""
+    (the group's store, bound by host 0; None for one host, whose store
+    ``launch`` binds), the host count and this host's index."""
 
-    coordinator: str
+    coordinator: str | None
     count: int
     index: int
 
@@ -106,10 +110,31 @@ class Rank:
         return self.rank - self.local_rank
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+# how long a rank waits for its group's store and its peers
+STORE_TIMEOUT = datetime.timedelta(minutes=30)
+# host 0's store of each coordinator ("host:port"): it listens for the life
+# of this process, and the launches over it in this process count, so each
+# launch's group keys its rendezvous under a prefix of its own, the same on
+# every host (each host makes the same calls in the same order)
+_COORDINATOR_STORES: dict = {}
+_COORDINATOR_LAUNCHES: dict = {}
+
+
+def _coordinated(hosts: "Hosts", devices: int) -> tuple:
+    """The (address, port, key prefix) by which a launch's ranks join the
+    group of `hosts` over its coordinator.  Host 0 binds the coordinator's
+    store once, in this process, so a host that starts its next launch
+    before host 0 has left the last one finds a store that lasts and keys
+    of the new group, never the keys or the closing store of the last."""
+    import torch.distributed as dist
+    addr, port = hosts.coordinator.rsplit(":", 1)
+    if hosts.index == 0 and hosts.coordinator not in _COORDINATOR_STORES:
+        _COORDINATOR_STORES[hosts.coordinator] = dist.TCPStore(
+            addr, int(port), devices * hosts.count, is_master=True,
+            wait_for_workers=False, timeout=STORE_TIMEOUT)
+    n = _COORDINATOR_LAUNCHES.get(hosts.coordinator, 0)
+    _COORDINATOR_LAUNCHES[hosts.coordinator] = n + 1
+    return addr, int(port), f"launch{n}"
 
 
 def _run_rank(local, fn, devices, device_type, init, hosts, args,
@@ -131,8 +156,11 @@ def _run_rank(local, fn, devices, device_type, init, hosts, args,
         dev = torch.device("cpu")
         torch.set_num_threads(max(1, available_devices("cpu") // devices))
     backend = BACKENDS[device_type]
+    addr, port, prefix = init           # the group's store and key prefix
+    store = dist.TCPStore(addr, port, world, is_master=False,
+                          timeout=STORE_TIMEOUT)
     dist.init_process_group(
-        backend, init_method=init, world_size=world,
+        backend, store=dist.PrefixStore(prefix, store), world_size=world,
         rank=host * devices + local,
         device_id=dev if device_type == "cuda" else None)
     try:
@@ -198,8 +226,17 @@ def launch(fn, devices: int, device_type: str, *args,
     if device_type not in BACKENDS:
         raise ValueError(f"no process group for device type {device_type!r}")
     check_devices(devices, device_type)
-    init = (f"tcp://{hosts.coordinator}" if hosts
-            else f"tcp://localhost:{_free_port()}")
+    store = None
+    if hosts and hosts.coordinator:
+        init = _coordinated(hosts, devices)
+    else:
+        # the group's store listens in this process before any rank starts,
+        # on a port the system picks as it binds: no other process can take
+        # that port between its choice and its use
+        import torch.distributed as dist
+        store = dist.TCPStore("localhost", 0, devices, is_master=True,
+                              wait_for_workers=False, timeout=STORE_TIMEOUT)
+        init = ("localhost", store.port, "group")
     t0 = time.time()
     if hosts and devices == 1:
         outs = [_run_rank(0, fn, 1, device_type, init, hosts, args)]
@@ -207,6 +244,7 @@ def launch(fn, devices: int, device_type: str, *args,
         outs = _spawn(fn, devices, device_type, init, hosts, args)
         for o in outs:
             kernels.add_launches(o["launches"])
+    del store                 # every rank has left the group
     if timings is not None:
         timings["spawn"] = round(max(o["ready"] for o in outs) - t0, 3)
         timings["world"] = devices * (hosts.count if hosts else 1)

@@ -50,7 +50,7 @@ import os
 
 import numpy as np
 
-from .mesh import Hosts, _free_port, launch, slowest
+from .mesh import Hosts, launch, slowest
 
 CRASH_EXIT = 41          # the exit code of a host killed by KBBQ_CRASH_POINT
 
@@ -281,9 +281,10 @@ def _save_filter(eng, rank, ckpt, name: str, filt) -> None:
         ckpt.mark_pass(name)
 
 
-def _run_passes(eng, rank, ckpt, mark) -> np.ndarray:
+def _run_passes(eng, rank, ckpt, mark, timings: dict) -> np.ndarray:
     """Passes 1-3 under the multi-host checkpoint protocol, then the Q'
-    table (rank 0's delta math, broadcast)."""
+    table (rank 0's delta math, broadcast); the sharded layout's shard
+    sizes go to `timings` (``shard_words_a`` / ``_b``)."""
     from ..oracle.gatk import build_recal_table
     from .merge import broadcast_table
 
@@ -299,6 +300,9 @@ def _run_passes(eng, rank, ckpt, mark) -> np.ndarray:
             run()
             if ckpt:
                 _save_filter(eng, rank, ckpt, name, getattr(eng, attr))
+        if eng.sharded:
+            timings["shard_words" + attr[-2:]] = int(
+                getattr(eng, attr).words.numel())
         mark(stage)
         if stage == "pass1":
             _maybe_crash("pass2", rank)
@@ -374,7 +378,7 @@ def _host_rank(rank, job: _Job):
         recal = recal_table_from_report(read_gatk_report(job.apply_report),
                                         job.rg_names, eng.L)
     else:
-        recal = _run_passes(eng, rank, ckpt, clock.mark)
+        recal = _run_passes(eng, rank, ckpt, clock.mark, timings)
         if job.report_out is not None and rank.rank == 0:
             from ..gatk_report import write_gatk_report
             write_gatk_report(eng.tables, job.rg_names, job.report_out)
@@ -471,11 +475,10 @@ def _launch(job: _Job, local: int, device_type: str, info: dict,
     every host -> the windows this host wrote; a host whose ranks were
     killed by ``KBBQ_CRASH_POINT`` exits with their code."""
     from torch.multiprocessing.spawn import ProcessExitedException
-    coordinator = info["coordinator"] or f"localhost:{_free_port()}"
     run_t: dict = {}
     try:
         res = launch(_host_rank, local, device_type, job, timings=run_t,
-                     hosts=Hosts(coordinator, info["num_processes"],
+                     hosts=Hosts(info["coordinator"], info["num_processes"],
                                  info["process_id"]))
     except ProcessExitedException as e:
         if e.exit_code == CRASH_EXIT:
@@ -484,6 +487,7 @@ def _launch(job: _Job, local: int, device_type: str, info: dict,
     if timings is not None:
         slowest([r[0] for r in res], timings)
         timings.update(run_t)
+        timings["by_rank"] = [r[0] for r in res]
     return res[0][1]
 
 
@@ -529,10 +533,11 @@ def recalibrate_fastq_multihost(in_paths, out_paths, config,
     and ``interleaved`` (a rerun resumes on the same host count only), pass
     4 per host from ``host{pid}.json``.  report_out: host 0 writes the
     report; apply_report: pass 4 alone, no collective.  `timings` gets this
-    host's ``scan``, the slowest local rank's stages and the launch's
-    figures (``mesh.launch``).  Returns the counts, this host's reads and
-    windows, ``process_id``, ``num_processes`` and ``devices`` (the group's
-    ranks).
+    host's ``scan``, the slowest local rank's stages, the launch's figures
+    (``mesh.launch``) and ``by_rank``, each local rank's own stages (with
+    the sharded layout's ``shard_words_a`` / ``_b``).  Returns the counts,
+    this host's reads and windows, ``process_id``, ``num_processes`` and
+    ``devices`` (the group's ranks).
     """
     import time
 

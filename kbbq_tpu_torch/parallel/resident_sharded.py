@@ -260,9 +260,10 @@ def run_ranks(body, arrays: ReadArrays, devices: int, device_type: str,
               timings: dict | None, *args) -> np.ndarray:
     """Share `arrays`, run ``body(rank, shared, *args)`` on `devices` ranks
     (it returns (its timings, tables or None)), and return the output rows;
-    the slowest rank's stages, the launch's own figures and ``share`` (s to
-    write the shared files) go to `timings`, rank 0's tables to
-    ``oracle.gatk``'s capture (report_out)."""
+    the slowest rank's stages, each rank's own (``by_rank``), the launch's
+    own figures and ``share`` (s to write the shared files) go to
+    `timings`, rank 0's tables to ``oracle.gatk``'s capture
+    (report_out)."""
     from ..oracle.gatk import note_tables
     t0 = time.time()
     shared = share_arrays(arrays)
@@ -280,6 +281,7 @@ def run_ranks(body, arrays: ReadArrays, devices: int, device_type: str,
         timings["share"] = round(t_share, 3)
         slowest([r[0] for r in res], timings)
         timings.update(run_t)
+        timings["by_rank"] = [r[0] for r in res]
     return out
 
 

@@ -55,6 +55,17 @@ class _PassTimer:
         return False
 
 
+def smi_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    import subprocess
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
 def peak_rss_bytes() -> int | None:
     """This process's peak resident set in bytes (``VmHWM`` of
     ``/proc/self/status``), or None where /proc does not give it.

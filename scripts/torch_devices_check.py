@@ -5,6 +5,7 @@
     python3 scripts/torch_devices_check.py --reads N   # a smaller dataset
     python3 scripts/torch_devices_check.py --only devices     # one host
     python3 scripts/torch_devices_check.py --only multihost   # several
+    python3 scripts/torch_devices_check.py --only scale       # config 4
 
 Needs two CUDA cards or more: one NCCL rank per card, so the collectives
 and the point-to-point sends run between cards (``chip_smoke.py`` runs the
@@ -25,7 +26,13 @@ card, each filter layout on FASTQ (config 2 as 4 files), BAM and CRAM
 pass 1 and pass 2 and resumed; the single host's bytes or, for BAM parts,
 records.  ``--only devices`` runs the single-host multi-card phases and
 ``--only multihost`` the multi-host routes, each with the single-host runs
-it is held to, and nothing else.  Every run must write the
+it is held to, and nothing else.  ``--only scale`` runs BASELINE config 4
+alone (``chip_smoke.py``'s ``[scale]`` data: 13,000,000 reads x 150 at
+30x, filters of 2^31 bits): one device's resident bytes, then
+run_pipeline's multi-device route at D and 2 ranks with the sharded layout
+(config 4's layout in BASELINE: filters sharded over one host's cards) and
+at D with the replicated one, walls, spawn, exchanges and peak device
+bytes by rank.  Every run must write the
 one-device bytes, its launches asserted by entry point (by rank for the
 sharded layout).  Any difference raises, so the exit code is non-zero; the last
 two lines are the card's name and power limit and a JSON summary.
@@ -49,9 +56,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reads", type=int, default=1_533_333)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("devices", "multihost"),
-                    help="only the single-host multi-card phases, or only "
-                         "the multi-host routes (default: both)")
+    ap.add_argument("--only", choices=("devices", "multihost", "scale"),
+                    help="only the single-host multi-card phases, only "
+                         "the multi-host routes (default: both), or only "
+                         "config 4")
     args = ap.parse_args(argv)
 
     import torch
@@ -76,6 +84,12 @@ def main(argv=None) -> int:
     shutil.rmtree(kernels.BUILD_DIR, ignore_errors=True)
     kernels.library()
     native_lib.library()
+    if args.only == "scale":
+        summary = scale_phases(cs.SCALE_READS, args.seed, D)
+        print(cs.smi_line(), flush=True)
+        print(json.dumps({"cards": D, **summary,
+                          "seconds": time.time() - t_start}), flush=True)
+        return 0
     genome_len = max(10_000, int(4_600_000 * args.reads / cs.FULL_READS))
     arrays, _ = make_arrays_fast(genome_len=genome_len, read_len=150,
                                  num_reads=args.reads, error_rate=0.005,
@@ -127,6 +141,49 @@ def main(argv=None) -> int:
     print(json.dumps({"cards": D, "reads": args.reads, **summary,
                       "seconds": time.time() - t_start}), flush=True)
     return 0
+
+
+def scale_phases(reads: int, seed: int, D: int) -> dict:
+    """Config 4 on the cards: its FASTQ (``chip_smoke.start_scale_data``),
+    one device's resident bytes, then ``chip_smoke.phase_devices_scale`` at
+    D and 2 ranks sharded and at D replicated, each those bytes."""
+    import torch
+
+    import chip_smoke as cs
+    from kbbq_tpu_torch import kernels
+    from kbbq_tpu_torch.pipeline import RecalConfig, recalibrate_fastq
+    from kbbq_tpu_torch.pipeline.recalibrate import _load_fastq_arrays
+    job = cs.start_scale_data(reads, seed)
+    try:
+        out, err = job["proc"].communicate(timeout=1800)
+        if job["proc"].returncode != 0:
+            raise AssertionError(f"config 4's data generator failed: "
+                                 f"{err[-3000:]}")
+        made = json.loads(out.strip().splitlines()[-1])
+        tmp, src, n = job["tmp"], job["src"], job["reads"]
+        cfg = RecalConfig(k=32, coverage=cs.SCALE_COVERAGE)
+        want = os.path.join(tmp, "one.fq")
+        t: dict = {}
+        kernels.reset_launches()
+        t0 = time.time()
+        recalibrate_fastq([src], want, cfg, interleaved=True, timings=t)
+        torch.cuda.synchronize()
+        one_wall = time.time() - t0
+        one = dict(kernels.ENTRY_LAUNCHES)
+        cs.check_launches("config 4 on one device", one,
+                          cs.resident_ranks_launches(n, 1))
+        cs.log(f"[scale] {n} reads (data {json.dumps(made)}); one device: "
+               f"{one_wall:.3f} s, stages {json.dumps(t)}")
+        arrays = _load_fastq_arrays([src], True)
+        runs = [cs.phase_devices_scale(tmp, src, want, cfg, n, world, layout,
+                                       arrays)
+                for world, layout in ((D, "sharded"), (2, "sharded"),
+                                      (D, "replicated"))]
+    finally:
+        cs.stop_scale_data(job)
+    return {"scale_reads": n, "data": made, "one_device_wall_s": one_wall,
+            "one_device_timings": t, "one_device_launches": one,
+            "runs": runs}
 
 
 def devices_phases(tmp, src, want, cfg, reads: int, D: int) -> dict:

@@ -42,11 +42,13 @@ class Hosts:
     ``close`` kills whatever is left."""
 
     def __init__(self, argv, logdir, hosts: int = 2, env=None,
-                 clock: float | None = None, jax: bool = False):
+                 clock: float | None = None, jax: bool = False,
+                 program: str | None = None):
         coord = f"127.0.0.1:{free_port()}"
         # the JAX package's command line: its own test's environment, one
-        # CPU device a process
+        # CPU device a process; `program`: a Python program of its own
         cmd = ([sys.executable, "-m", "kbbq_tpu"] if jax else
+               [sys.executable, "-c", program] if program else
                [sys.executable, "-c", _RUNNER,
                 "" if clock is None else repr(clock)])
         self.logs = []
@@ -110,10 +112,12 @@ class Hosts:
 
 
 def run_hosts(argv, logdir, hosts: int = 2, env=None,
-              clock: float | None = None, jax: bool = False) -> list:
-    """Run the hosts (the JAX package's command line with `jax`) to their
-    end; each must exit 0 -> their stats."""
-    with Hosts(argv, logdir, hosts, env, clock, jax) as h:
+              clock: float | None = None, jax: bool = False,
+              program: str | None = None) -> list:
+    """Run the hosts (the JAX package's command line with `jax`, a program
+    of its own with `program`) to their end; each must exit 0 -> their
+    stats."""
+    with Hosts(argv, logdir, hosts, env, clock, jax, program) as h:
         codes = h.wait()
         for pid, code in enumerate(codes):
             assert code == 0, f"host {pid} exited {code}: {h.stderr(pid)}"

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor anything of kbbq_tpu,
-runs on the CPU only when asked, and raises without a CUDA device
+"""The port stands alone: it (with its oracle, its scaling harness and its
+config-5 and oracle spot-check scripts) imports neither jax nor anything of
+kbbq_tpu, runs on the CPU only when asked, and raises without a CUDA device
 otherwise.
 """
 
@@ -45,6 +46,22 @@ from kbbq_tpu_torch.utils import metrics
 from kbbq_tpu_torch import parallel
 from kbbq_tpu_torch.parallel import (mesh, merge, multihost,
                                      resident_sharded, sharded)
+from kbbq_tpu_torch.oracle import (OracleBloom, OracleConfig,
+                                   canonical_kmers, fmix32,
+                                   infer_read_errors, kmer_hashes,
+                                   recalibrate_reads, sample_hash,
+                                   trusted_kmer_mask)
+from kbbq_tpu_torch.oracle.pipeline import ReadBatch
+import importlib.util
+for rel in ("bench_scaling_torch.py", "scripts/torch_config5_rehearsal.py",
+            "scripts/torch_oracle_spot.py"):
+    spec = importlib.util.spec_from_file_location(
+        rel.replace("/", "_")[:-3], {REPO!r} + "/" + rel)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+ds = synth.make_dataset(genome_len=600, read_len=40, coverage=8.0, seed=2)
+oq, _ = recalibrate_reads(ReadBatch(ds.codes, ds.quals, ds.rgs, ds.seconds),
+                          OracleConfig(k=16, coverage=8.0))
+assert len(oq) == len(ds.codes)
 cfg = RecalConfig(k=16, coverage=18.0, batch_size=64)
 src = {os.path.join(REPO, 'tests', 'data', 'tiny.fq')!r}
 assert cli_main(["recalibrate", src, "-k", "16", "-c", "18",
@@ -127,7 +144,10 @@ print("LIBS", libs)
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bench_scaling_torch.py"),
+             os.path.join(REPO, "scripts", "torch_config5_rehearsal.py"),
+             os.path.join(REPO, "scripts", "torch_oracle_spot.py")]
     for root, _, names in os.walk(PORT):
         if os.path.basename(root) in ("build", "__pycache__"):
             continue
