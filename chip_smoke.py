@@ -153,11 +153,14 @@ from kbbq_tpu_torch.utils.metrics import smi_line
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "tests", "data")
 
-# NVIDIA H100 SXM data sheet: device memory rate, and the float32 rate
-# outside the tensor cores, taken as the ceiling for the kernels' 32/64-bit
-# integer operations (the integer pipes are no faster)
+# NVIDIA H100 SXM data sheet: the device memory rate.  The kernels do integer
+# work only, and an SM issues 64 integer ALU lanes a clock (four
+# sub-partitions of 16 INT32 units; the data sheet's 67 TFLOP/s of float32
+# counts 128 FP32 lanes and an FMA as two): the data sheet's 132 SMs at the
+# 1.98 GHz boost clock, until [device] puts in the card's own SM count and
+# clocks.max.sm.  Operations below are 32-bit integer operations.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+INT_OPS_PER_S = 132 * 64 * 1.98e9
 # a random 4-byte read of the filter moves one sector of this size through L2
 L2_SECTOR = 32
 
@@ -169,6 +172,36 @@ TWO_SIDED_SHAPES = [(36, 8, 8), (44, 16, 16), (40, 12, 6)]
 TWO_SIDED_LAUNCHES = 20
 # the fused trust probe on narrow reads: (read length, k, trust threshold)
 NARROW_TRUST_SHAPES = [(36, 8, None), (36, 8, 5), (44, 16, 9)]
+# fmix32: three xor-shifts (a shift and a xor each) and two multiplies
+FMIX32_OPS = 8
+
+
+def hash_ops(k: int, num_hashes: int, sample: bool = False,
+             insert: bool = False) -> int:
+    """Integer operations a window that the spec's hash needs, whatever the
+    kernel: the forward k-mer and its reverse complement cut from packed
+    strands (a funnel shift a 32-bit word each), the canonical pick (a
+    compare and a select a word), validity (a funnel shift of the N mask and
+    a test), the block and probe hashes (four fmix32, four xors), the probe
+    word (a rotation, a shift and an or a probe bit) and the zero word of an
+    invalid window; sampling adds the ordinal's mix (a multiply, a xor), a
+    fifth fmix32, the threshold test and the validity; the insert its block
+    index."""
+    words = 1 if k <= 16 else 2
+    ops = 2 * words + 2 * words + 2 + 4 * FMIX32_OPS + 4 + 3 * num_hashes + 1
+    if sample:
+        ops += 2 + FMIX32_OPS + 2
+    if insert:
+        ops += 1
+    return ops
+
+
+# Integer operations a window of the coverage rule (trusted_mask_batch): the
+# hit and valid bits (a vote each); per base the hit and the valid windows
+# that cover it (a funnel shift, a mask and a count each), t(x) and the
+# compare, and the covered bit's vote; per window its covered bases (a
+# funnel shift, a mask, a count), the compare with T and the validity.
+TRUST_RULE_OPS = 2 + 6 + 2 + 1 + 3 + 2
 KERNEL_SOURCE = "kbbq_tpu_torch/csrc/kbbq_kernels.cu"
 CODEC_SOURCE = "kbbq_tpu_torch/csrc/kbbq_io.cc"
 STREAM_WINDOW = 131_072      # reads per window of the streamed path
@@ -214,8 +247,10 @@ def cuda_graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
 
 
 def bound(bytes_moved: float, ops: float):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the integer operations over the integer ALU rate."""
     tb = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    to = ops / PEAK_OPS_PER_S * 1e3
+    to = ops / INT_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -228,9 +263,18 @@ def mismatches(a: torch.Tensor, b: torch.Tensor) -> int:
 # --------------------------------------------------------------- phases
 
 def phase_device():
+    global INT_OPS_PER_S
     from kbbq_tpu_torch import kernels
     from kbbq_tpu_torch.io import native_lib
     log(f"[device] {smi_line()}")
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True,
+                           check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT_OPS_PER_S = sms * 64 * float(clock) * 1e6
+    log(f"[device] {sms} SMs, SM clock at most {clock} MHz: the bounds take "
+        f"{INT_OPS_PER_S / 1e12:.3f} T integer operations/s")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     nvcc = subprocess.run([kernels._find_nvcc(), "--version"],
@@ -427,27 +471,34 @@ def phase_kernels(arrays, cfg):
     log(f"[kernels] hash-only mode: {mm_ho} mismatches over {nwin} windows "
         f"(h1 and word against the plain hash pass); one window of {wr_s} "
         f"reads {ho_ms:.4f} ms ({ho_graph_ms:.4f} from a graph)")
-    # ~140 integer operations per window: the fused build's less the
-    # sampling hash; bytes: 1 B per base read, 8 B per window written
+    # the spec's hash a window (hash_ops); bytes: 1 B per base read, 8 B per
+    # window written
     record("bloom_or_words.hash_only", "hash_only",
            "kbbq_tpu/pipeline/stream_resident.py:108 + "
-           "kbbq_tpu/pipeline/recalibrate.py:95",
+           "kbbq_tpu/pipeline/recalibrate.py:98",
            mm_ho, ho_ms, ho_plain_ms,
-           bound(wr_s * L + nwin_s * 8, nwin_s * 140), n=nwin_s,
-           graph_ms=ho_graph_ms, windows_checked=nwin, path="streamed",
+           bound(wr_s * L + nwin_s * 8, nwin_s * hash_ops(k, h)),
+           n=nwin_s, graph_ms=ho_graph_ms, windows_checked=nwin,
+           path="streamed",
            replaces_note="the XLA hash pass inside _p2_window and "
                          "_step_trusted; no Pallas counterpart")
     scratch = torch.empty_like(filt_a)
     fused_ms = cuda_ms(
         lambda: kernels.hash_build(codes, scratch, 0, k, h, thr),
         before=scratch.zero_)
-    # ~150 integer operations per window: k-mer roll, two fmix32 pairs, the
-    # probe word, the sampling hash
+    # the card's time alone: five builds into the same filter in a graph
+    fused_graph_ms = cuda_graph_ms(
+        lambda: kernels.hash_build(codes, scratch, 0, k, h, thr), launches=5)
+    log(f"[kernels] bloom_or_words fused: {fused_ms:.4f} ms "
+        f"({fused_graph_ms:.4f} from a graph)")
+    # bytes: the codes, the three planes, filter A read and written;
+    # operations: the spec's hash, sampling and insert a window
     record("bloom_or_words.hash_build", "hash_build",
            "kbbq_tpu/ops/bloom.py:164 + kbbq_tpu/pipeline/resident.py:330",
            sum(mm_f.values()), fused_ms, fused_plain_ms,
-           bound(N * L + nwin * 9 + 2 * filt_a.numel() * 4, nwin * 150),
-           n=nwin, kept=kept_a,
+           bound(N * L + nwin * 9 + 2 * filt_a.numel() * 4,
+                 nwin * hash_ops(k, h, sample=True, insert=True)),
+           n=nwin, kept=kept_a, graph_ms=fused_graph_ms,
            replaces_note="XLA sort build bloom_rows_dense and the XLA hash "
                          "pass _pass1_kmers_slice; no Pallas counterpart")
 
@@ -536,12 +587,12 @@ def phase_kernels(arrays, cfg):
         filt_a, h1, word, t_table, k, k if T is None else T,
         out=trusted_plain), launches=5)
     del trusted_plain, keep
-    # ~14 integer operations per window: the test, two ballots, two counts
-    # over the hit and valid masks, the table, one count over the covered mask
+    # operations: the word test (a mask and a compare) and the rule
     record("bloom_probe.trust", "bloom_probe_trust",
-           "kbbq_tpu/pipeline/resident.py:404 + kbbq_tpu/ops/trusted.py:57",
+           "kbbq_tpu/pipeline/resident.py:387 + kbbq_tpu/ops/trusted.py:57",
            mm_k1t + mm_k1t_low + mm_narrow, k1t_ms, k1t_plain_ms,
-           bound(nwin * 9 + filt_a.numel() * 4, nwin * 14), n=nwin,
+           bound(nwin * 9 + filt_a.numel() * 4, nwin * (TRUST_RULE_OPS + 2)),
+           n=nwin,
            bound_l2_ms=k1_l2_ms, graph_ms=k1t_graph_ms,
            trusted=int(trusted.sum()),
            narrow_windows=narrow_windows,
@@ -1377,14 +1428,19 @@ def phase_sharded_kernels(arrays, cfg):
     keep_plain_ms = (time.time() - t0) * 1e3
     del p1, pw, pk
     keep_ms = cuda_ms(lambda: kernels.hash_keep(codes, 0, k, h, thr))
+    keep_graph_ms = cuda_graph_ms(
+        lambda: kernels.hash_keep(codes, 0, k, h, thr), launches=5)
     log(f"[sharded_kernels] hash_keep: {mm_keep} mismatches over {nwin} "
         f"windows (against hash_build's planes and the plain hash pass), "
-        f"{keep_ms:.4f} ms, plain {keep_plain_ms:.1f} ms")
-    # the fused build's bytes and operations less the filter's
+        f"{keep_ms:.4f} ms ({keep_graph_ms:.4f} from a graph), plain "
+        f"{keep_plain_ms:.1f} ms")
+    # the fused build's bytes less the filter's; the spec's hash and
+    # sampling a window
     record("bloom_or_words.hash_keep", "hash_keep",
-           "kbbq_tpu/parallel/sharded_bloom.py:294", mm_keep, keep_ms,
-           keep_plain_ms, bound(N * L + nwin * 9, nwin * 150), n=nwin,
-           kept=int(keep.sum()),
+           "kbbq_tpu/parallel/sharded_bloom.py:246", mm_keep, keep_ms,
+           keep_plain_ms,
+           bound(N * L + nwin * 9, nwin * hash_ops(k, h, sample=True)),
+           n=nwin, kept=int(keep.sum()), graph_ms=keep_graph_ms,
            replaces_note="the XLA hash pass and sampling of step_sample; no "
                          "Pallas counterpart")
 
@@ -1446,11 +1502,12 @@ def phase_sharded_kernels(arrays, cfg):
         f"(against bloom_probe_trust and the plain rule on the same hits), "
         f"{int(trusted.sum())} trusted; {rule_ms:.4f} ms "
         f"({rule_graph_ms:.4f} from a graph), plain {rule_plain_ms:.1f} ms")
-    # bytes: the hit byte and the word in, the trusted byte out; operations
-    # as the fused trust probe's, less the filter read
+    # bytes: the hit byte and the word in, the trusted byte out;
+    # operations: the rule a window (TRUST_RULE_OPS)
     record("bloom_probe.trust_rule", "trust_rule",
-           "kbbq_tpu/parallel/sharded_bloom.py:264", mm_rule, rule_ms,
-           rule_plain_ms, bound(nwin * 6, nwin * 14), n=nwin,
+           "kbbq_tpu/parallel/sharded_bloom.py:258", mm_rule, rule_ms,
+           rule_plain_ms,
+           bound(nwin * 6, nwin * TRUST_RULE_OPS), n=nwin,
            graph_ms=rule_graph_ms, trusted=int(trusted.sum()),
            replaces_note="trusted_mask_batch inside step_trusted after the "
                          "collective query; no Pallas counterpart")
@@ -1615,7 +1672,7 @@ def phase_sharded_kernels(arrays, cfg):
                    "(infer_errors_plain)")
     replaces = "kbbq_tpu/ops/pallas_walk.py:242"
     note = ("_round_kernel where filter B is hash-space sharded "
-            "(kbbq_tpu/parallel/sharded_bloom.py:283)")
+            "(kbbq_tpu/parallel/sharded_bloom.py:276)")
     record("walk_round.start", "walk_start", replaces, mm_walk,
            cuda_ms(lambda: kernels.walk_start(c, tr0, k, G)),
            chunk["plain_ms"], start_bound, graph_ms=start_graph_ms,
@@ -2517,7 +2574,7 @@ def run_hosts(tmp, argv, hosts: int, local: int, name: str, crash=None,
     return wall, stats
 
 
-def mh_line(route: str, wall: float, stats: list) -> dict:
+def mh_line(route: str, wall: float, stats: list, load: str = "") -> dict:
     """Log one multi-host run: the group, the wall, start-up, each host's
     own seconds, its slowest rank's stages, merges and exchanges, peak
     device bytes and the launches of every rank (global rank order)."""
@@ -2544,11 +2601,12 @@ def mh_line(route: str, wall: float, stats: list) -> dict:
            "world": stats[0]["devices"], "layout": stats[0]["bloom_layout"],
            "wall_s": wall, "startup_s": wall - max(h["wall_s"] for h in hosts),
            "spawn_s": max(h["spawn_s"] for h in hosts), "by_host": hosts,
-           "launches_by_rank": by_rank}
+           "launches_by_rank": by_rank, "under_load": load or None}
+    under = f", under load: {load}" if load else ""
     log(f"[multihost] {route}: {len(stats)} host(s) x "
         f"{rec['ranks_per_host']} rank(s), {rec['layout']}: wall "
-        f"{wall:.3f} s (process start-up {rec['startup_s']:.3f} s, spawn "
-        f"{rec['spawn_s']:.3f} s); by host {json.dumps(hosts)}; launches by "
+        f"{wall:.3f} s{under} (process start-up {rec['startup_s']:.3f} s, "
+        f"spawn {rec['spawn_s']:.3f} s); by host {json.dumps(hosts)}; launches by "
         f"rank {json.dumps(by_rank)}")
     return rec
 
@@ -2580,7 +2638,7 @@ def check_mh_launches(route: str, stats: list, windows_by_rank, n: int,
 def phase_multihost(tmp, cfg, hosts: int, local: int,
                     routes=(("fastq", "replicated"), ("fastq", "sharded"),
                             ("bam", "replicated"), ("cram", "replicated")),
-                    kill: bool = False) -> dict:
+                    kill: bool = False, load: str = "") -> dict:
     """Several hosts (``kbbq_tpu_torch.parallel.multihost``) through the
     command line: `hosts` processes of `local` cards each, every one
     running ``python -m kbbq_tpu_torch recalibrate ... --multihost`` as a
@@ -2594,7 +2652,8 @@ def phase_multihost(tmp, cfg, hosts: int, local: int,
     with `kill`, the FASTQ run again with host 1 killed between pass 1 and
     pass 2, then resumed (pass 1 loaded, not rewritten).  On one card the
     group is one rank and the exchange between hosts is unchecked; NCCL
-    between real hosts is unchecked anywhere."""
+    between real hosts is unchecked anywhere.  `load` says what runs beside
+    the phase: each wall is logged as taken under it."""
     from kbbq_tpu_torch.io.bgzf import decompress
     from kbbq_tpu_torch.parallel.multihost import (partition_bam_chunks,
                                                    partition_inputs,
@@ -2613,8 +2672,9 @@ def phase_multihost(tmp, cfg, hosts: int, local: int,
     recalibrate_fastq_streaming(paths, want, cfg, device=DEVICE)
     torch.cuda.synchronize()
     one_wall = time.time() - t0
+    under = f" (under load: {load})" if load else ""
     log(f"[multihost] config 2 as {len(paths)} FASTQ files of {counts} "
-        f"reads; the single host's streamed route {one_wall:.3f} s")
+        f"reads; the single host's streamed route {one_wall:.3f} s{under}")
 
     def ranks_of(host_windows):
         return [w[r::L] for w in host_windows for r in range(L)]
@@ -2678,7 +2738,7 @@ def phase_multihost(tmp, cfg, hosts: int, local: int,
                                  f"{[s['host_reads_written'] for s in stats]}"
                                  f" of {stats[0]['num_reads']} reads")
         runs[f"{fmt}, {layout}"] = mh_line(f"{fmt.upper()}, {layout}", wall,
-                                            stats)
+                                            stats, load)
 
     if kill:
         ck = os.path.join(tmp, "mh_ck")
@@ -2705,7 +2765,8 @@ def phase_multihost(tmp, cfg, hosts: int, local: int,
             raise AssertionError("the resumed multi-host run rewrote pass 1 "
                                  "or wrote other bytes than one host")
         runs["fastq, killed at pass2:1 then resumed"] = mh_line(
-            "FASTQ, resumed after host 1 was killed at pass2:1", wall, stats)
+            "FASTQ, resumed after host 1 was killed at pass2:1", wall, stats,
+            load)
         runs["fastq, killed at pass2:1 then resumed"]["killed_run_wall_s"] = \
             wall_k
         shutil.rmtree(ck, ignore_errors=True)
@@ -2746,10 +2807,11 @@ NO_LAUNCHES = {"bloom_probe_hashed": 0, "bloom_probe_words": 0,
                "walk_resolve": 0}
 
 
-def run_cli(tmp, argv, reads=None, expect_ok=True, name="cli"):
+def run_cli(tmp, argv, reads=None, expect_ok=True, name="cli", load=""):
     """One command-line run from the repo root -> (exit code, wall s, the
     command line's last stderr line, launches by entry point, its peak
-    resident set in bytes).  Prints the wall, the reads/s and that line."""
+    resident set in bytes).  Prints the wall, the reads/s and that line;
+    `load` says what ran beside it, if anything did."""
     counts = os.path.join(tmp, f"{name}_launches.json")
     if os.path.exists(counts):
         os.remove(counts)
@@ -2766,8 +2828,9 @@ def run_cli(tmp, argv, reads=None, expect_ok=True, name="cli"):
     with open(counts) as f:
         got = json.load(f)
     rate = f", {reads / wall:.0f} reads/s" if reads else ""
+    under = f" (under load: {load})" if load else ""
     log(f"[cli] python -m kbbq_tpu_torch {' '.join(argv)}: exit "
-        f"{res.returncode}, {wall:.3f} s{rate}, peak RSS "
+        f"{res.returncode}, {wall:.3f} s{rate}{under}, peak RSS "
         f"{got['peak_rss_bytes']} B; {last}")
     return (res.returncode, wall, last, {**NO_LAUNCHES, **got["launches"]},
             got["peak_rss_bytes"])
@@ -2800,7 +2863,9 @@ def calibration_gap(tsv) -> tuple:
 def phase_cli(tmp, cfg, seed, genome_len, want):
     """The command line on the card, each run `python -m kbbq_tpu_torch`
     in a process of its own with the flags of the library call it is held
-    against: config 2's FASTQ resident and --stream (the [main_path]
+    against (the FASTQ, BAM and CRAM runs as three chains side by side, the
+    last four runs side by side; walls are under that load): config 2's
+    FASTQ resident and --stream (the [main_path]
     output's bytes), --report-out then applybqsr (the same bytes, no
     launch), config 3's BAM whole-file and --stream with -s ([bam]'s
     output), the [cram] phase's cut CRAM to .bam (its qualities) and
@@ -2827,61 +2892,80 @@ def phase_cli(tmp, cfg, seed, genome_len, want):
     flags = ["-k", str(cfg.k), "-c", f"{cfg.coverage:g}", "--batch-size",
              str(cfg.batch_size)]
     n_fq = n_bam = want["reads"]
+    L = want["read_len"]
     out = {}
 
+    # every run here has others beside it: its wall is not a lone run's
+    load = "other command lines run beside it"
+
     def check(name, argv, got, want_file=None, reads=None, launches=None):
-        _, wall, last, by_entry, rss = run_cli(tmp, argv, reads, name=name)
+        _, wall, last, by_entry, rss = run_cli(tmp, argv, reads, name=name,
+                                               load=load)
         check_launches(f"command line ({name})", by_entry,
                        NO_LAUNCHES if launches is None else launches)
         if want_file is not None and not same_file(got, want_file):
             raise AssertionError(f"command line ({name}) wrote other bytes "
                                  f"than the library route")
         out[name] = {"wall_s": wall, "stderr": last, "peak_rss_bytes": rss,
-                     "reads_per_s": reads / wall if reads else None}
+                     "reads_per_s": reads / wall if reads else None,
+                     "under_load": load}
         return by_entry
 
     cli_fq = os.path.join(tmp, "cli.fq")
-    resident = check("fastq", ["recalibrate", fq, "-o", cli_fq, *flags],
-                     cli_fq, fq_out, n_fq, want["fastq"])
-    check("fastq_stream", ["recalibrate", fq, "-o", cli_fq, "--stream",
-                           *flags], cli_fq, fq_out, n_fq,
-          want["fastq_stream"])
-    report = os.path.join(tmp, "cli.report")
-    check("fastq_report_out", ["recalibrate", fq, "-o", cli_fq,
-                               "--report-out", report, *flags], cli_fq,
-          fq_out, n_fq, want["fastq"])
-    check("applybqsr", ["applybqsr", "-r", report, fq, "-o", cli_fq,
-                        *flags], cli_fq, fq_out, n_fq)
-    os.remove(cli_fq)
 
-    cli_bam = os.path.join(tmp, "cli.bam")
-    check("bam_stream", ["recalibrate", bam, "-o", cli_bam, "-s", "--stream",
-                         *flags], cli_bam, bam_out, n_bam,
-          want["bam_stream"])
-    check("bam", ["recalibrate", bam, "-o", cli_bam, "-s", *flags], cli_bam,
-          bam_out, n_bam, want["bam"])
+    # three chains side by side, each in its order and with files of its
+    # own: the card holds all three, and each is mostly process start-up
+    def fastq_chain():
+        resident = check("fastq", ["recalibrate", fq, "-o", cli_fq, *flags],
+                         cli_fq, fq_out, n_fq, want["fastq"])
+        check("fastq_stream", ["recalibrate", fq, "-o", cli_fq, "--stream",
+                               *flags], cli_fq, fq_out, n_fq,
+              want["fastq_stream"])
+        report = os.path.join(tmp, "cli.report")
+        check("fastq_report_out", ["recalibrate", fq, "-o", cli_fq,
+                                   "--report-out", report, *flags], cli_fq,
+              fq_out, n_fq, want["fastq"])
+        check("applybqsr", ["applybqsr", "-r", report, fq, "-o", cli_fq,
+                            *flags], cli_fq, fq_out, n_fq)
+        os.remove(cli_fq)
+        return resident
 
-    metas = scan_cram_meta(cram, cfg.k, None)[0]
-    n_cram = sum(m["n_primary"] for m in metas)
-    W = sum(1 for m in metas if m["n_primary"])
-    cli_cram = os.path.join(tmp, "cli.cram")
-    check("cram_stream", ["recalibrate", cram, "-o", cli_cram, "--stream",
-                          *flags], cli_cram, cram_out, n_cram, {
-        "hash_build": W, "hash_only": 2 * W, "bloom_probe_trust": W,
-        "bloom_or_words": W, "bloom_probe_words": W,
-        "walk_errors": sum(-(-m["n_primary"] // DEFAULT_CHUNK_ROWS)
-                           for m in metas), "bloom_probe_hashed": 0})
-    cram_bam = os.path.join(tmp, "cli_cram.bam")
-    check("cram", ["recalibrate", cram, "-o", cram_bam, *flags], None, None,
-          n_cram, want["cram"])
-    L = want["read_len"]
-    b, o, z = index_bam_bytes(read_bam_bytes(cram_bam))[2:]
-    if not np.array_equal(bam_vec.decode_machine_chunk(b, o, z, L, None)[1],
-                          cram_quals(cram_out, L)):
-        raise AssertionError("the command line's CRAM -> BAM qualities "
-                             "differ from the windowed route's")
-    del b, o, z
-    os.remove(cram_bam)
+    def bam_chain():
+        cli_bam = os.path.join(tmp, "cli.bam")
+        check("bam_stream", ["recalibrate", bam, "-o", cli_bam, "-s",
+                             "--stream", *flags], cli_bam, bam_out, n_bam,
+              want["bam_stream"])
+        check("bam", ["recalibrate", bam, "-o", cli_bam, "-s", *flags],
+              cli_bam, bam_out, n_bam, want["bam"])
+
+    def cram_chain():
+        metas = scan_cram_meta(cram, cfg.k, None)[0]
+        n_cram = sum(m["n_primary"] for m in metas)
+        W = sum(1 for m in metas if m["n_primary"])
+        cli_cram = os.path.join(tmp, "cli.cram")
+        check("cram_stream", ["recalibrate", cram, "-o", cli_cram,
+                              "--stream", *flags], cli_cram, cram_out,
+              n_cram, {
+            "hash_build": W, "hash_only": 2 * W, "bloom_probe_trust": W,
+            "bloom_or_words": W, "bloom_probe_words": W,
+            "walk_errors": sum(-(-m["n_primary"] // DEFAULT_CHUNK_ROWS)
+                               for m in metas), "bloom_probe_hashed": 0})
+        cram_bam = os.path.join(tmp, "cli_cram.bam")
+        check("cram", ["recalibrate", cram, "-o", cram_bam, *flags], None,
+              None, n_cram, want["cram"])
+        b, o, z = index_bam_bytes(read_bam_bytes(cram_bam))[2:]
+        if not np.array_equal(
+                bam_vec.decode_machine_chunk(b, o, z, L, None)[1],
+                cram_quals(cram_out, L)):
+            raise AssertionError("the command line's CRAM -> BAM qualities "
+                                 "differ from the windowed route's")
+        os.remove(cram_bam)
+
+    with ThreadPoolExecutor(3) as ex:
+        chains = [ex.submit(f) for f in (fastq_chain, bam_chain, cram_chain)]
+        resident = chains[0].result()
+        for c in chains[1:]:
+            c.result()
 
     # benchmark: the generator's genome (make_arrays_fast's first draw) as
     # the reference, under the BAM's @SQ name; no variable site
@@ -2909,7 +2993,7 @@ def phase_cli(tmp, cfg, seed, genome_len, want):
                 for name, src in (("input", bam), ("output", bam_out))]
         two = ex.submit(run_cli, tmp, ["recalibrate", fq, "-o", cli_fq,
                                        "--devices", "2", *flags],
-                        expect_ok=D >= 2, name="devices")
+                        expect_ok=D >= 2, name="devices", load=load)
         every = ex.submit(check, "devices_0", ["recalibrate", fq, "-o",
                                                cli_all, "--devices", "0",
                                                *flags], cli_all, fq_out,
@@ -2978,7 +3062,7 @@ print(json.dumps({"generate_s": t1 - t0, "render_s": time.time() - t1,
 def start_scale_data(reads, seed):
     """Cut `reads` to what the host's memory and the disk hold, and start
     writing config 4's FASTQ in a process of its own (it runs beside the
-    [cli] phase) -> the job for phase_scale."""
+    [multihost] and [cli] phases) -> the job for phase_scale."""
     with open("/proc/meminfo") as f:
         mem_total = next(int(ln.split()[1]) * 1024 for ln in f
                          if ln.startswith("MemTotal:"))
@@ -3303,6 +3387,10 @@ def main(argv=None) -> int:
                                             make_arrays_fast, read_starts)
 
     t_start = time.time()
+
+    def mark(phase):  # the run's timeline: seconds since the start
+        log(f"[time] {phase} done at {time.time() - t_start:.1f} s")
+
     phase_device()
 
     read_len = 150
@@ -3315,8 +3403,10 @@ def main(argv=None) -> int:
         f"genome, seed {args.seed} ({time.time() - t_start:.0f} s)")
 
     records, expected = phase_kernels(arrays, cfg)
+    mark("kernels")
     torch.cuda.empty_cache()
     records += phase_sharded_kernels(arrays, cfg)
+    mark("sharded_kernels")
     torch.cuda.empty_cache()
     fastq_bytes = arrays_to_fastq_bytes(arrays)
 
@@ -3332,32 +3422,42 @@ def main(argv=None) -> int:
         del expected
         streamed = phase_streaming(tmp, src, out1, cfg, args.reads)
         phase_checkpoint(tmp)
+        mark("golden to checkpoint")
         dev_by_rank, dev_launches = phase_devices(tmp, cfg, args.reads)
+        mark("devices")
         sh_by_rank, sh_launches, sh_streamed = phase_sharded(tmp, cfg,
                                                              args.reads)
+        mark("sharded")
         starts = read_starts(genome_len, read_len, args.reads, args.seed)
         bam, bam_streamed, bam_quals = phase_bam(tmp, arrays, starts, cfg)
         phase_resident_need(arrays, cfg)
         cram, cram_streamed = phase_cram(tmp, arrays, starts, cfg,
                                          bam_quals)
+        mark("bam, cram")
         del bam_quals
         D = torch.cuda.device_count()
-        mh = phase_multihost(tmp, cfg, 2 if D >= 2 else 1,
-                             max(1, D // 2) if D >= 2 else 1)
-        mh_by_rank = mh["runs"]["fastq, replicated"]["launches_by_rank"]
-        if args.scale_reads:
+        if args.scale_reads:  # config 4's data, beside [multihost] and [cli]
             job = start_scale_data(args.scale_reads, args.seed)
+        mh = phase_multihost(tmp, cfg, 2 if D >= 2 else 1,
+                             max(1, D // 2) if D >= 2 else 1,
+                             load="config 4's FASTQ written beside"
+                             if job is not None else "")
+        mh_by_rank = mh["runs"]["fastq, replicated"]["launches_by_rank"]
+        mark("multihost")
         cli = phase_cli(tmp, cfg, args.seed, genome_len, {
             "fastq": launches, "fastq_stream": streamed, "bam": bam,
             "bam_stream": bam_streamed, "cram": cram, "reads": args.reads,
             "read_len": read_len})
+        mark("cli")
         shutil.rmtree(tmp, ignore_errors=True)
         del arrays, true_err, starts
         torch.cuda.empty_cache()
         phase_scaling(args.reads)
         phase_config5()
+        mark("scaling, config5")
         torch.cuda.empty_cache()
         scale = phase_scale(job) if job is not None else None
+        mark("scale")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         stop_scale_data(job)

@@ -29,9 +29,9 @@ constexpr uint32_t kSeedH2 = 0x85EBCA77u;
 constexpr uint32_t kSeedSample = 0xC0FFEE01u;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
-constexpr int kThreads = 256;      // probe / build / hash blocks
+constexpr int kThreads = 256;      // probe / build / hash / trust-rule blocks
 constexpr int kMaxBlocks = 132 * 32;
-constexpr int kHashSeg = 15;       // windows per thread of the fused build
+constexpr int kDefaultHashes = 7;  // DEFAULT_NUM_HASHES of the spec
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may ask for
 constexpr uint32_t kFullWarp = 0xFFFFFFFFu;
 
@@ -87,24 +87,28 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t rotr32(uint32_t x, uint32_t s) {
-  return (x >> s) | (x << ((32u - s) & 31u));
-}
-
-// OR of the num_hashes probe bits rotr32(h2, 5j & 31) & 31 of one k-mer.
+// OR of the num_hashes probe bits 1 << ((h2 rotated right by 5j mod 32) mod
+// 32) of one k-mer, each two funnel shifts (a rotation, then 1 << (x & 31)).
+// kHashes > 0 fixes the count at compile time, and the loop unrolls whole;
+// a count known only at run time keeps a loop test and computed shift
+// counts, which made the fused hash kernel 7-18 % slower (PERF.md).
+template <int kHashes = 0>
 __device__ __forceinline__ uint32_t probe_word(uint32_t h2, int num_hashes) {
+  const int count = kHashes > 0 ? kHashes : num_hashes;
   uint32_t w = 0;
-  for (int j = 0; j < num_hashes; ++j)
-    w |= 1u << (rotr32(h2, (5u * (uint32_t)j) & 31u) & 31u);
+#pragma unroll
+  for (int j = 0; j < count; ++j)
+    w |= __funnelshift_l(0u, 1u, __funnelshift_r(h2, h2, 5u * (uint32_t)j));
   return w;
 }
 
 // block hash and probe word of a canonical k-mer (hi, lo)
+template <int kHashes = 0>
 __device__ __forceinline__ void kmer_hash(uint32_t hi, uint32_t lo,
                                           int num_hashes, uint32_t& h1,
                                           uint32_t& word) {
   h1 = fmix32(lo ^ fmix32(hi ^ kSeedH1));
-  word = probe_word(fmix32(hi ^ fmix32(lo ^ kSeedH2)), num_hashes);
+  word = probe_word<kHashes>(fmix32(hi ^ fmix32(lo ^ kSeedH2)), num_hashes);
 }
 
 inline int grid_for(int64_t n, int threads) {
@@ -114,32 +118,42 @@ inline int grid_for(int64_t n, int threads) {
   return (int)blocks;
 }
 
-// One insert of the build: packed[h1 & mask] |= word.  The word is read first
-// through L2 (__ldcg: the filter is being written, so not the read-only
-// path) and the atomic is skipped when every bit is already set.  A stale
-// read can only miss a bit, which the atomic then sets, so the filter is the
-// same with and without the test.  kTestFirst is each entry point's measured
-// winner on an H100 (PERF.md): the test for the cached build, whose windows
-// mostly repeat, the plain atomic for the fused build's thin sample.
-template <bool kTestFirst>
+// One insert of the cached build: packed[h1 & mask] |= word.  The word is
+// read first through L2 (__ldcg: the filter is being written, so not the
+// read-only path) and the atomic is skipped when every bit is already set:
+// the cached build's windows mostly repeat.  A stale read can only miss a
+// bit, which the atomic then sets, so the filter is the same with and
+// without the test.
 __device__ __forceinline__ void or_word(uint32_t* __restrict__ packed,
                                         uint32_t block_mask, uint32_t h1,
                                         uint32_t word) {
   uint32_t* p = packed + (h1 & block_mask);
-  if (kTestFirst && (__ldcg(p) & word) == word) return;
+  if ((__ldcg(p) & word) == word) return;
   atomicOr(p, word);
 }
 
-// roll base c (< 4) into a window's forward and reverse-complement words;
-// forward is big-endian, `top` = 2(k-1) is the bit position of the first base
-__device__ __forceinline__ void roll_kmer(uint64_t& f, uint64_t& rc, int c,
-                                          uint64_t kmask, int top) {
-  f = ((f << 2) | (uint64_t)c) & kmask;
-  rc = (rc >> 2) | ((uint64_t)(3 - c) << top);
+// One insert of the fused build: the atomic at once (testing first measured
+// slower there, PERF.md), its line marked evict-last in L2 as the probe's
+// filter reads are (`policy` from filter_policy()).  A build for the host has
+// no PTX: there it is a plain atomicOr.
+__device__ __forceinline__ void or_word_last(uint32_t* p, uint32_t word,
+                                             uint64_t policy) {
+#ifdef __CUDA_ARCH__
+  asm volatile("red.relaxed.gpu.global.or.L2::cache_hint.b32 [%0], %1, %2;"
+               :
+               : "l"(p), "r"(word), "l"(policy)
+               : "memory");
+#else
+  (void)policy;
+  atomicOr(p, word);
+#endif
 }
 
-__device__ __forceinline__ uint64_t kmer_mask(int k) {
-  return (k >= 32) ? ~0ull : ((1ull << (2 * k)) - 1ull);  // no shift by 64
+// reverse complement of a k-mer held in the low 2k bits
+__device__ __forceinline__ uint64_t revcomp_kmer(uint64_t f, int k) {
+  uint64_t x = __brevll(~f);  // reverses the bases, and the bits of each
+  x = ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
+  return x >> (64 - 2 * k);
 }
 
 __host__ __device__ __forceinline__ int round16(int x) {
@@ -216,10 +230,6 @@ __device__ __forceinline__ void tile_copy(uint8_t* dst, const uint8_t* src,
 //     same body (the TPU version left them to XLA).  The Pallas kernel's
 //     [rows, 128] row gather and lane select exist only because Mosaic
 //     lowers 2-D gathers alone: here the word is simply loaded.
-//   - Its rule-only mode (kbbq_trust_rule, pass 2 of the hash-space-sharded
-//     layout) takes the hits plane of the collective word test in place of
-//     the filter: the tile stages a byte per window instead of h1, a hit
-//     stands in for the filter word, and the rule below runs unchanged.
 //   - bloom_probe_trust (pass 2) keeps the answers on the SM.  A block stages
 //     a tile of reads' h1 and word rows in shared memory with wide streamed
 //     loads; a warp takes a read, thread t the windows t, t+32, ..: it starts
@@ -234,6 +244,20 @@ __device__ __forceinline__ void tile_copy(uint8_t* dst, const uint8_t* src,
 //     streamed stores.  The build of filter B from those bytes stays the
 //     launch of its own that bloom_or_words is: fused in here it would save
 //     about a millisecond and orphan that kernel's cached entry point.
+//   - The rule-only entry point (kbbq_trust_rule, pass 2 of the
+//     hash-space-sharded layout) takes the hits plane of the collective word
+//     test in place of the filter.  With no gather left it is bound by integer
+//     issue (33 ALU instructions a window) and close behind by its bytes (1 B +
+//     4 B in, 1 B out per window), so it has a body of its own with nothing
+//     staged: a warp per read, thread t on windows t, t+32, ..; each 32 windows
+//     are one coalesced load of their hit bytes and words, issued a step ahead,
+//     and two ballots (hit, valid).  The rule then streams over the read: the
+//     covered mask of the 32 bases a chunk of windows starts at needs only that
+//     chunk's masks and the one before, and a window's trusted bit only its own
+//     bases' covered bits and the next 32, so every mask lives in registers,
+//     the table t(x) in a register per lane (read by a shuffle), and each byte
+//     is stored by its lane, coalesced.  No shared memory, no __syncthreads,
+//     and no length limit.
 // ---------------------------------------------------------------------------
 
 // One window of either entry point: (a, b) is the cached (h1, word) pair or
@@ -358,17 +382,11 @@ __host__ __device__ inline int trust_tile_bytes(int n, int k, int rows,
                  4);
 }
 
-// kRule: the rule-only mode.  `hits` [num_reads, n] (bytes 0/1) holds every
-// window's answer from a word test made elsewhere (the collective test of
-// the hash-space-sharded layout) and stands in for the probe; there is no
-// filter and no h1 plane.
-template <bool kRule>
 __global__ void bloom_probe_trust_kernel(
     const uint32_t* __restrict__ packed, uint32_t block_mask,
-    const uint32_t* __restrict__ h1, const uint8_t* __restrict__ hits,
-    const uint32_t* __restrict__ word, const int32_t* __restrict__ thresholds,
-    uint8_t* __restrict__ out, int64_t num_reads, int n, int k,
-    int trust_threshold, int tile_rows) {
+    const uint32_t* __restrict__ h1, const uint32_t* __restrict__ word,
+    const int32_t* __restrict__ thresholds, uint8_t* __restrict__ out,
+    int64_t num_reads, int n, int k, int trust_threshold, int tile_rows) {
   extern __shared__ uint4 smem4[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
   const int L = n + k - 1;
@@ -377,9 +395,7 @@ __global__ void bloom_probe_trust_kernel(
   const int64_t rest = num_reads - r0;
   const int R = rest < tile_rows ? (int)rest : tile_rows;
 
-  // the h1 rows, or in rule-only mode the hits rows, a byte per window
-  const uint8_t* gh1 = kRule ? hits + r0 * n
-                             : reinterpret_cast<const uint8_t*>(h1 + r0 * n);
+  const uint8_t* gh1 = reinterpret_cast<const uint8_t*>(h1 + r0 * n);
   const uint8_t* gword = reinterpret_cast<const uint8_t*>(word + r0 * n);
   uint8_t* gout = out + r0 * n;
   const int plane = round16(tile_rows * n * 4 + 16);
@@ -395,7 +411,7 @@ __global__ void bloom_probe_trust_kernel(
   uint32_t* valid = hit + nw;
   uint32_t* cov = valid + nw;
 
-  tile_copy<1>(sh1, gh1, R * n * (kRule ? 1 : 4), tid, nthreads);
+  tile_copy<1>(sh1, gh1, R * n * 4, tid, nthreads);
   tile_copy<1>(sword, gword, R * n * 4, tid, nthreads);
   for (int i = tid; i <= k; i += nthreads) st[i] = thresholds[i];
   __syncthreads();
@@ -406,7 +422,6 @@ __global__ void bloom_probe_trust_kernel(
   if (lane == 0) hit[nc] = valid[nc] = cov[lc] = 0u;  // the words never set
   for (int r = tid >> 5; r < R; r += nthreads >> 5) {
     const uint32_t* rh = reinterpret_cast<const uint32_t*>(sh1) + r * n;
-    const uint8_t* rhit = sh1 + r * n;
     const uint32_t* rw = reinterpret_cast<const uint32_t*>(sword) + r * n;
     // 1. the probes: hit and valid, a bit per window
     for (int c0 = 0; c0 < nc; c0 += kTrustUnroll) {
@@ -417,9 +432,7 @@ __global__ void bloom_probe_trust_kernel(
         w[u] = got[u] = 0u;
         if (j < n) {
           w[u] = rw[j];
-          // rule-only: a hit passes the word test as the filter word itself
-          got[u] = kRule ? (rhit[j] ? w[u] : 0u)
-                         : filter_word(packed + (rh[j] & block_mask), policy);
+          got[u] = filter_word(packed + (rh[j] & block_mask), policy);
         }
       }
 #pragma unroll
@@ -461,6 +474,92 @@ __global__ void bloom_probe_trust_kernel(
   tile_copy<2>(gout, sout, R * n, tid, nthreads);
 }
 
+// bits s .. s+31 of the 64-bit word (hi:lo), 0 <= s < 64
+__device__ __forceinline__ uint32_t bits_at(uint32_t lo, uint32_t hi, int s) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> s);
+}
+
+// The coverage rule's covered bits of the 32 bases of one chunk, base i =
+// 32q + t, from the hit and valid masks of window chunks q-1 (h0, v0) and q
+// (h1, v1): the windows that overlap base i are i-k+1 .. i, bits s0 .. s0+k-1
+// of (h1:h0) with s0 = 33 + t - k; windows before 0 or past n have no bit
+// set.  tl: t(x) of x = lane (x < 32), t32: t(32).
+__device__ __forceinline__ uint32_t covered_bits(uint32_t h0, uint32_t h1,
+                                                 uint32_t v0, uint32_t v1,
+                                                 int s0, uint32_t kmask,
+                                                 int tl, int t32) {
+  const int s = __popc(bits_at(h0, h1, s0) & kmask);
+  const int x = __popc(bits_at(v0, v1, s0) & kmask);
+  const int tx = __shfl_sync(kFullWarp, tl, x & 31);
+  return __ballot_sync(kFullWarp, s >= (x == 32 ? t32 : tx));
+}
+
+// The hit byte and the word of window c0 + lane of one read, both loads in
+// flight at once (0 past n: no hit, not valid).
+struct RuleIn {
+  uint32_t word;
+  uint8_t hit;
+};
+
+__device__ __forceinline__ RuleIn rule_load(const uint8_t* hits,
+                                            const uint32_t* word, int c0,
+                                            int n, int t) {
+  const int j = c0 + t;
+  RuleIn x{0u, 0};
+  if (j < n) {
+    x.word = stream_load(word + j);
+    x.hit = stream_load(hits + j);
+  }
+  return x;
+}
+
+// The rule-only entry point: trusted bytes of every window from the hits of
+// a word test made elsewhere.  A warp per read (grid-stride over reads).
+__global__ void trust_rule_kernel(const uint8_t* __restrict__ hits,
+                                  const uint32_t* __restrict__ word,
+                                  const int32_t* __restrict__ thresholds,
+                                  uint8_t* __restrict__ out,
+                                  int64_t num_reads, int n, int k,
+                                  int trust_threshold) {
+  const int t = threadIdx.x & 31;
+  const int tl = t <= k ? thresholds[t] : 0;
+  const int t32 = k >= 32 ? thresholds[32] : 0;
+  const uint32_t kmask = k >= 32 ? kFullWarp : (1u << k) - 1u;
+  const int s0 = 33 + t - k;
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  for (int64_t r = (int64_t)blockIdx.x * (blockDim.x >> 5) +
+                   (threadIdx.x >> 5);
+       r < num_reads; r += warps) {
+    const uint8_t* rh = hits + r * n;
+    const uint32_t* rw = word + r * n;
+    uint8_t* o = out + r * n;
+    // the windows of chunk q (hq, vq) and their bases' covered bits (cq);
+    // chunk q+1's loads in flight
+    RuleIn x = rule_load(rh, rw, 0, n, t);
+    RuleIn ahead = rule_load(rh, rw, 32, n, t);
+    uint32_t vq = __ballot_sync(kFullWarp, x.word != 0u);
+    uint32_t hq = __ballot_sync(kFullWarp, x.word != 0u && x.hit != 0);
+    uint32_t cq = covered_bits(0u, hq, 0u, vq, s0, kmask, tl, t32);
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      // chunk q+1, and the covered bits of its bases; chunk q+2 in flight
+      x = ahead;
+      ahead = rule_load(rh, rw, c0 + 64, n, t);
+      const uint32_t vn = __ballot_sync(kFullWarp, x.word != 0u);
+      const uint32_t hn = __ballot_sync(kFullWarp, x.word != 0u && x.hit != 0);
+      const uint32_t cn = covered_bits(hq, hn, vq, vn, s0, kmask, tl, t32);
+      // trusted: valid, and at least trust_threshold of its k bases covered
+      const int j = c0 + t;
+      if (j < n)
+        stream_store(o + j, (uint8_t)(((vq >> t) & 1u) != 0u &&
+                                      __popc(bits_at(cq, cn, t) & kmask) >=
+                                          trust_threshold));
+      hq = hn;
+      vq = vn;
+      cq = cn;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K3  bloom_or_words
 //
@@ -475,8 +574,8 @@ __global__ void bloom_probe_trust_kernel(
 //   keep) plus one access to a random 4-byte filter word per KEPT window;
 //   the 32 MiB filter is L2-resident, where atomics resolve.  Fused entry
 //   point: 1 B per base in, 9 B per window out, the same filter traffic
-//   (hash-only mode: 1 B per base in, 8 B per window out, no filter);
-//   about 150 integer operations per window stay under that.
+//   (hash-only mode: 1 B per base in, 8 B per window out, no filter) on
+//   paper; in practice integer instruction issue (below).
 // Design: OR commutes and is idempotent, so the words equal the sort build's
 //   word for word whatever the thread order.  Sequencing data repeats (every
 //   genomic k-mer arrives once per unit of coverage), so most inserts find
@@ -484,33 +583,59 @@ __global__ void bloom_probe_trust_kernel(
 //   the atomic.
 //   Cached entry point (pass 2, filter B from the trusted windows of the hash
 //   cache): one thread per window, grid-stride.
-//   Fused entry point (pass 1): a block stages a tile of reads' codes in
-//   shared memory with wide loads; a thread takes kHashSeg consecutive
-//   windows of one read, warms the forward and RC 64-bit words with k rolls
-//   and then rolls one base per window, so no [rows, n] intermediate is ever
-//   written: the kernel reads 1 B per base and writes the hash cache that
-//   passes 2 and 3 reuse, and ORs the sampled windows into filter A on the
-//   way.  An N is rolled in as base 0 (the run counter keeps validity), so
-//   h1 of an invalid window equals the plain version's.  The three output
-//   planes are collected in shared memory and stored by the whole block, so
-//   the stores of the flat [N * n] arrays coalesce; kHashSeg is odd, which
-//   keeps the threads' shared-memory words on distinct banks.
+//   Fused entry point (pass 1): no [rows, n] intermediate is ever written:
+//   the kernel reads 1 B per base, writes the hash cache that passes 2 and 3
+//   reuse, and ORs the sampled windows into filter A on the way.  Its bytes
+//   are few (0.58 ms of them for config 2's 182 M windows), its instructions
+//   many: the spec fixes four fmix32, seven probe bits and, when sampling, a
+//   fifth fmix32 per window, so it is bound by integer issue (85-110 ALU
+//   instructions a window by mode, 64 ALU lanes an SM), and the design is
+//   about spending little on top of the hash:
+//   - A warp takes a read (grid-stride over reads), thread t the windows t,
+//     t+32, ..; nothing is staged per tile and nothing waits at a barrier.
+//   - Each 32 bases are one coalesced byte load, a base a lane, loaded a step
+//     ahead.  Two shuffles and two ballots pack them 2 bits a base, first
+//     base highest (pack_chunk: lane p votes bit p&1 of the base it reads
+//     from lane 15 - p/2, then 31 - p/2), and a third ballot gives their N
+//     mask; the words stay in registers, every lane holding the same.
+//     walk_start packs the walk's working copy with the same helper.  An N
+//     is packed as base 0, so h1 of an invalid window is the plain
+//     version's.
+//   - A window's forward k-mer is two funnel shifts of the words of its
+//     chunk and the next (window_top), its reverse complement a bit reversal
+//     (revcomp_kmer, which reads an N as 3 as the complement strand does),
+//     its validity no N bit among its k bases (one funnel shift).  No base
+//     is rolled and no window's work is done twice.
+//   - The probe word is two funnel shifts a bit (probe_word).  With
+//     num_hashes = 7, the default, its loop is unrolled whole (kernel
+//     instance kHashes = 7); other counts take the loop (kHashes = 0).
+//     One loop for every count, unrolled by 7, issued 36-41 more
+//     integer-ALU instructions a window at the default and ran 7-18 %
+//     slower by mode (PERF.md).
+//   - Lane t stores window t of each 32, coalesced streaming stores straight
+//     from registers.  Rows of n windows start anywhere in a line, so a
+//     warp's 128-byte store splits across two lines; in the build that costs
+//     the inserts their L2 hits (the split lines' partial sectors and the
+//     filter's random sectors meet in L2: 2.42 ms against 1.47 without the
+//     inserts, PERF.md), so there each step's planes leave as the aligned
+//     group it completed (realign, a shuffle a plane and a ballot for keep),
+//     and each insert marks its line evict-last (or_word_last).  In the
+//     other modes the shuffles cost more than the split lines.
 //   Keep mode of the fused entry point (kbbq_hash_keep: pass 1 of the
 //   hash-space-sharded layout, where no rank holds filter A whole and the
 //   kept windows travel to their owners before any insert; it replaces the
 //   hash and sampling inside kbbq_tpu/parallel/sharded_bloom.py::step_sample):
-//   the same tile, rolls and sampling hash, writing h1, word and keep, and no
+//   the same body and sampling hash, writing h1, word and keep, and no
 //   atomic.  A one-word stand-in filter would have served too, at the cost of
 //   every kept window's atomic landing on that one word.
 //   Hash-only mode of the fused entry point (kbbq_hash_only: passes 2 and 3
 //   of the windowed engine, where no window's hash cache outlives its pass;
 //   it replaces the hash pass inside kbbq_tpu/pipeline/stream_resident.py::
 //   _p2_window and kbbq_tpu/pipeline/recalibrate.py::_step_trusted): the same
-//   tile and rolls, writing h1 and word only, 1 B per base in and 8 B per
-//   window out.  It reads no ordinal and touches no filter: re-running the
-//   build against filter A would set no new bit (the keep bits depend only on
-//   the global ordinals) but would still cost every sampled window its
-//   atomic.
+//   body, writing h1 and word only, 1 B per base in and 8 B per window out.
+//   It reads no ordinal and touches no filter: re-running the build against
+//   filter A would set no new bit (the keep bits depend only on the global
+//   ordinals) but would still cost every sampled window its atomic.
 // ---------------------------------------------------------------------------
 
 __global__ void bloom_or_words_kernel(uint32_t* __restrict__ packed,
@@ -522,7 +647,7 @@ __global__ void bloom_or_words_kernel(uint32_t* __restrict__ packed,
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride)
-    if (keep[i]) or_word<true>(packed, block_mask, h1[i], word[i]);
+    if (keep[i]) or_word(packed, block_mask, h1[i], word[i]);
 }
 
 // The three modes of the fused entry point: the hash cache and the sampled
@@ -531,53 +656,64 @@ __global__ void bloom_or_words_kernel(uint32_t* __restrict__ packed,
 // owners first), and (h1, word) alone (passes 2 and 3 of the windowed engine).
 constexpr int kModeHashOnly = 0, kModeKeep = 1, kModeBuild = 2;
 
-// (h1, word, keep) of windows [j0, j1) of one read, and their inserts; in
-// keep mode no insert; in hash-only mode the pair (h1, word) alone, with no
-// sampling, keep plane or filter.
-// c: the read's codes [L]; oh1, oword, okeep: the read's rows of the output
-// planes [n]; rid: the 32-bit pattern of the read's global ordinal.
-template <int kMode>
-__device__ __forceinline__ void hash_segment(
-    const int8_t* c, int j0, int j1, int k, int num_hashes, uint32_t rid,
-    uint32_t threshold, uint32_t* oh1, uint32_t* oword, uint8_t* okeep,
-    uint32_t* __restrict__ packed, uint32_t block_mask) {
-  const uint64_t kmask = kmer_mask(k);
-  const int top = 2 * (k - 1);
-  const uint32_t sr = fmix32(rid ^ kSeedSample);
-  uint64_t f = 0, rc = 0;
-  int run = 0;  // consecutive non-N bases ending at the last base rolled in
-  for (int i = j0; i < j0 + k - 1; ++i) {
-    const int b = c[i];
-    if (b >= 4) { run = 0; roll_kmer(f, rc, 0, kmask, top); }
-    else { ++run; roll_kmer(f, rc, b, kmask, top); }
-  }
-  for (int j = j0; j < j1; ++j) {
-    const int b = c[j + k - 1];
-    if (b >= 4) { run = 0; roll_kmer(f, rc, 0, kmask, top); }
-    else { ++run; roll_kmer(f, rc, b, kmask, top); }
-    const bool valid = run >= k;
-    const uint64_t cn = f <= rc ? f : rc;  // canonical: (hi, lo) unsigned order
-    uint32_t h1, w;
-    kmer_hash((uint32_t)(cn >> 32), (uint32_t)cn, num_hashes, h1, w);
-    if (!valid) w = 0u;
-    oh1[j] = h1;
-    oword[j] = w;
-    if (kMode != kModeHashOnly) {
-      const bool kp =
-          valid && fmix32(sr ^ ((uint32_t)j * kGolden)) <= threshold;
-      okeep[j] = kp ? 1 : 0;
-      if (kMode == kModeBuild && kp) or_word<false>(packed, block_mask, h1, w);
-    }
-  }
+// Lanes to aligned stores (build mode).  A warp that works on windows c0 + t
+// of a read whose first window is element R of a flat plane (off = R mod 32)
+// stores them as the aligned group of 32 elements each step completes:
+// element t of the group is window c0 - off + t, held by lane
+// (t - off) mod 32 of this step (t >= off) or of the step before.  Each store
+// then fills whole lines (sectors, for bytes) where the plane is 128-byte
+// aligned, as torch's allocations are, and no line is written by two steps.
+// A lane sends its value of the step its receiver takes, so one shuffle
+// moves a plane.
+template <class T>
+__device__ __forceinline__ T realign(T cur, T prev, int t, int off) {
+  return __shfl_sync(kFullWarp, t + off < 32 ? cur : prev, (t - off) & 31);
 }
 
-// shared memory of one block of hash_build_kernel, in bytes
-__host__ __device__ inline int hash_tile_bytes(int L, int n, int rows) {
-  return round16(rows * L + 16) + 2 * round16(rows * n * 4) +
-         round16(rows * n + 16);
+// realign() for a plane of one bit a window, from the ballots of this step
+// (cur) and the step before (prev): no shuffle
+__device__ __forceinline__ int realign_bit(uint32_t cur, uint32_t prev, int t,
+                                           int off) {
+  return (int)(bits_at(prev, cur, 32 + t - off) & 1u);
 }
 
-template <int kMode>
+// One 32-base chunk of a read as its warp packs it: (hi:lo) the bases 2 bits
+// each, first base in the highest bits, an N as base 0; nmask bit t: base t
+// is an N.  Every lane holds the same words.
+struct Chunk {
+  uint32_t hi, lo, nmask;
+};
+
+// code: this lane's base t of the chunk (4 where the read has ended)
+__device__ __forceinline__ Chunk pack_chunk(int code, int t) {
+  const bool is_n = code >= 4;
+  const int c = is_n ? 0 : code;
+  // lane p votes bit p&1 of base 15 - p/2 (hi) and of base 31 - p/2 (lo)
+  const int bit = 1 << (t & 1);
+  const int a = __shfl_sync(kFullWarp, c, 15 - (t >> 1));
+  const int b = __shfl_sync(kFullWarp, c, 31 - (t >> 1));
+  return {__ballot_sync(kFullWarp, (a & bit) != 0),
+          __ballot_sync(kFullWarp, (b & bit) != 0),
+          __ballot_sync(kFullWarp, is_n)};
+}
+
+// The 32 bases that start at base t of chunk x (y the next chunk), 2 bits
+// each, first base in the highest bits: a window's forward k-mer is its top
+// 2k bits.
+__device__ __forceinline__ uint64_t window_top(const Chunk& x, const Chunk& y,
+                                               int t) {
+  const bool first = t < 16;  // starts in x's high word
+  const uint32_t a = first ? x.hi : x.lo;
+  const uint32_t b = first ? x.lo : y.hi;
+  const uint32_t c = first ? y.hi : y.lo;
+  const uint32_t s = 2u * (uint32_t)(t & 15);
+  return ((uint64_t)__funnelshift_l(b, a, s) << 32) | __funnelshift_l(c, b, s);
+}
+
+// codes int8 [num_reads, L]; h1, word [num_reads, n] and keep (not in
+// hash-only mode), every element written; packed: filter A (build mode
+// only).  kHashes: the probe count when fixed at compile time, else 0.
+template <int kMode, int kHashes>
 __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
                                   uint32_t* __restrict__ packed,
                                   uint32_t block_mask,
@@ -585,49 +721,84 @@ __global__ void hash_build_kernel(const int8_t* __restrict__ codes,
                                   uint32_t* __restrict__ word,
                                   uint8_t* __restrict__ keep,
                                   int64_t num_reads, int64_t first_id, int L,
-                                  int k, int num_hashes, uint32_t threshold,
-                                  int tile_rows) {
-  extern __shared__ uint4 smem4[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+                                  int k, int num_hashes, uint32_t threshold) {
+  // the build's planes leave in aligned groups (realign, K3 note); the
+  // other modes store lane by lane
+  constexpr bool kAligned = kMode == kModeBuild;
   const int n = L - k + 1;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int64_t r0 = (int64_t)blockIdx.x * tile_rows;
-  const int64_t left = num_reads - r0;
-  const int R = left < tile_rows ? (int)left : tile_rows;
-
-  const uint8_t* gcodes = reinterpret_cast<const uint8_t*>(codes) + r0 * L;
-  uint8_t* gkeep = kMode != kModeHashOnly ? keep + r0 * n : nullptr;
-  const int plane = round16(tile_rows * n * 4);
-  uint8_t* sc = smem + ((uintptr_t)gcodes & 15u);
-  uint32_t* sh1 =
-      reinterpret_cast<uint32_t*>(smem + round16(tile_rows * L + 16));
-  uint32_t* sword = sh1 + plane / 4;
-  uint8_t* skeep = reinterpret_cast<uint8_t*>(sword) + plane +
-                   ((uintptr_t)gkeep & 15u);
-
-  tile_copy(sc, gcodes, R * L, tid, nthreads);
-  __syncthreads();
-
-  const int nseg = (n + kHashSeg - 1) / kHashSeg;
-  for (int item = tid; item < R * nseg; item += nthreads) {
-    const int r = item / nseg;
-    const int j0 = (item - r * nseg) * kHashSeg;
-    const int j1 = j0 + kHashSeg < n ? j0 + kHashSeg : n;
-    hash_segment<kMode>(reinterpret_cast<const int8_t*>(sc) + r * L, j0,
-                          j1, k, num_hashes,
-                          (uint32_t)(uint64_t)(first_id + r0 + r), threshold,
-                          sh1 + r * n, sword + r * n, skeep + r * n, packed,
-                          block_mask);
+  const int t = threadIdx.x & 31;
+  const int down = 64 - 2 * k;  // window_top's k-mer to the low 2k bits
+  const uint32_t kmask = k >= 32 ? kFullWarp : (1u << k) - 1u;
+  const uint64_t policy = filter_policy();
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  for (int64_t r = (int64_t)blockIdx.x * (blockDim.x >> 5) +
+                   (threadIdx.x >> 5);
+       r < num_reads; r += warps) {
+    const int8_t* c = codes + r * L;
+    uint32_t* oh1 = h1 + r * n;
+    uint32_t* ow = word + r * n;
+    uint8_t* ok = kMode != kModeHashOnly ? keep + r * n : nullptr;
+    // the sampling hash's per-read half, of the ordinal's low 32 bits
+    const uint32_t sr =
+        fmix32((uint32_t)(uint64_t)(first_id + r) ^ kSeedSample);
+    Chunk x = pack_chunk(t < L ? stream_load(c + t) : 4, t);
+    int ahead = 32 + t < L ? stream_load(c + 32 + t) : 4;  // the next chunk
+    const int off = (int)((r * n) & 31);
+    uint32_t p1 = 0u, pw = 0u, pk = 0u;  // the step before's h1, word, keep
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      const Chunk y = pack_chunk(ahead, t);
+      ahead = c0 + 64 + t < L ? stream_load(c + c0 + 64 + t) : 4;
+      const int j = c0 + t;
+      uint32_t hh = 0u, w = 0u;
+      bool kp = false;
+      if (j < n) {
+        const uint64_t f = window_top(x, y, t) >> down;
+        const uint64_t rc = revcomp_kmer(f, k);
+        // canonical: the smaller in (hi, lo) unsigned order
+        const uint64_t cn = f <= rc ? f : rc;
+        const bool valid =
+            (__funnelshift_r(x.nmask, y.nmask, t) & kmask) == 0u;
+        kmer_hash<kHashes>((uint32_t)(cn >> 32), (uint32_t)cn, num_hashes, hh,
+                           w);
+        if (!valid) w = 0u;
+        if (kMode != kModeHashOnly)
+          kp = valid && fmix32(sr ^ ((uint32_t)j * kGolden)) <= threshold;
+        if (kMode == kModeBuild && kp)
+          or_word_last(packed + (hh & block_mask), w, policy);
+      }
+      if (!kAligned) {
+        if (j < n) {
+          stream_store(oh1 + j, hh);
+          stream_store(ow + j, w);
+          if (kMode != kModeHashOnly) stream_store(ok + j, (uint8_t)kp);
+        }
+      } else {
+        const uint32_t a1 = realign(hh, p1, t, off);
+        const uint32_t aw = realign(w, pw, t, off);
+        const uint32_t kb = __ballot_sync(kFullWarp, kp);
+        const int wa = c0 - off + t;
+        if (wa >= 0 && wa < n) {
+          stream_store(oh1 + wa, a1);
+          stream_store(ow + wa, aw);
+          stream_store(ok + wa, (uint8_t)realign_bit(kb, pk, t, off));
+        }
+        p1 = hh;
+        pw = w;
+        pk = kb;
+      }
+      x = y;
+    }
+    if (kAligned) {  // the last step's windows past its aligned group
+      const uint32_t a1 = realign(0u, p1, t, off);
+      const uint32_t aw = realign(0u, pw, t, off);
+      const int wa = ((n + 31) & ~31) - off + t;
+      if (wa < n) {
+        stream_store(oh1 + wa, a1);
+        stream_store(ow + wa, aw);
+        stream_store(ok + wa, (uint8_t)realign_bit(0u, pk, t, off));
+      }
+    }
   }
-  __syncthreads();
-
-  uint32_t* gh1 = h1 + r0 * n;
-  uint32_t* gword = word + r0 * n;
-  for (int i = tid; i < R * n; i += nthreads) {
-    gh1[i] = sh1[i];
-    gword[i] = sword[i];
-  }
-  if (kMode != kModeHashOnly) tile_copy(gkeep, skeep, R * n, tid, nthreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -700,13 +871,6 @@ __device__ __forceinline__ uint64_t window_kmer(const uint64_t* pk, int s,
   const uint64_t v =
       r ? (pk[q] << (2 * r)) | (pk[q + 1] >> (64 - 2 * r)) : pk[q];
   return v >> (64 - 2 * k);
-}
-
-// reverse complement of a k-mer held in the low 2k bits
-__device__ __forceinline__ uint64_t revcomp_kmer(uint64_t f, int k) {
-  uint64_t x = __brevll(~f);  // reverses the bases, and the bits of each
-  x = ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
-  return x >> (64 - 2 * k);
 }
 
 // Step 2 for one read: w its codes [L] (zeroed here: they become the read's
@@ -1015,13 +1179,14 @@ __global__ void walk_errors_kernel(const int8_t* __restrict__ codes,
 //   looks for the active lanes.
 //   walk_start, a warp per read: the codes and the initial trust are read
 //     32 at a time, coalesced, four such loads in flight; a word of the
-//     packed copy is two ballots (the codes' two bits) spread into place;
-//     a window's validity is its distance from the last N, found by a
-//     ballot; the anchor (the longest initially trusted run, ties leftmost)
-//     is a running maximum over 32 windows at a time, the run ending at
-//     each window from a ballot of the untrusted ones; each direction's
-//     first break is the first set bit of a ballot over 32 flags.  A lane
-//     with a break joins the next list.
+//     packed copy is the fused hash kernel's pack_chunk (two shuffles and
+//     two ballots, K3; lane 0 spreading two ballots' bits into place took a
+//     third longer, PERF.md), whose N mask gives a window's validity as its
+//     distance from the last N; the anchor (the longest initially trusted
+//     run, ties leftmost) is a running maximum over 32 windows at a time,
+//     the run ending at each window from a ballot of the untrusted ones;
+//     each direction's first break is the first set bit of a ballot over 32
+//     flags.  A lane with a break joins the next list.
 //   walk_propose, one entry point of three launches:
 //     take (one thread): when the current list is used up the next one
 //       becomes current (a round begins; its lane count is kept); the group
@@ -1080,16 +1245,6 @@ constexpr int kStartBatch = 4;      // 32-base chunks walk_start loads at once
 // fields of ctl; the lane count of round i is at kCtlLanes + i
 constexpr int kCtlWhich = 0, kCtlPos = 1, kCtlCount = 2, kCtlGroupStart = 4,
               kCtlGroupSize = 5, kCtlRounds = 6, kCtlLanes = 8;
-
-// bit i of v to bit 2i
-__device__ __forceinline__ uint64_t spread_bits(uint32_t v) {
-  uint64_t x = v;
-  x = (x | (x << 16)) & 0x0000FFFF0000FFFFull;
-  x = (x | (x << 8)) & 0x00FF00FF00FF00FFull;
-  x = (x | (x << 4)) & 0x0F0F0F0F0F0F0F0Full;
-  x = (x | (x << 2)) & 0x3333333333333333ull;
-  return (x | (x << 1)) & 0x5555555555555555ull;
-}
 
 // index of the highest set bit of x != 0
 __device__ __forceinline__ int top_bit(uint32_t x) {
@@ -1181,13 +1336,9 @@ __global__ void walk_start_kernel(const int8_t* __restrict__ codes,
         const int i = c0 + t;
         const int code = codes_in[u];
         if (i < L) e[i] = 0;
-        const bool is_n = code >= 4;
-        const uint32_t b0 = __ballot_sync(kFullWarp, !is_n && (code & 1));
-        const uint32_t b1 = __ballot_sync(kFullWarp, !is_n && (code & 2));
-        const uint32_t nb = __ballot_sync(kFullWarp, is_n);
-        if (t == 0)
-          p[c0 >> 5] =
-              (spread_bits(__brev(b1)) << 1) | spread_bits(__brev(b0));
+        const Chunk ch = pack_chunk(code, t);
+        const uint32_t nb = ch.nmask;
+        if (t == 0) p[c0 >> 5] = ((uint64_t)ch.hi << 32) | ch.lo;
         const int last_n_i = nb & upto ? c0 + top_bit(nb & upto) : last_n;
         if (nb) last_n = c0 + top_bit(nb);
         // the window that ends at base i: valid with no N in its k bases
@@ -1481,6 +1632,31 @@ __global__ void empty_kernel() {}
 // blocks of a probe launch: a thread takes 4 windows a step
 inline int probe_grid(int64_t n) { return grid_for((n + 3) / 4, kThreads); }
 
+// The fused entry point in mode kMode: a warp a read, grid-stride beyond
+// kMaxBlocks blocks; the probe count fixed at compile time where it is the
+// default.  Refuses k outside 1..32 and num_hashes < 1.
+template <int kMode>
+int hash_launch(const void* codes, void* packed, uint32_t block_mask,
+                void* h1, void* word, void* keep, int64_t num_reads,
+                int64_t first_id, int L, int k, int num_hashes,
+                uint32_t threshold, void* stream) {
+  if (k < 1 || k > 32 || num_hashes < 1) return (int)cudaErrorInvalidValue;
+  if (num_reads <= 0 || L - k + 1 <= 0) return (int)cudaGetLastError();
+  const int blocks = grid_for(num_reads * 32, kThreads);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (num_hashes == kDefaultHashes)
+    hash_build_kernel<kMode, kDefaultHashes><<<blocks, kThreads, 0, s>>>(
+        (const int8_t*)codes, (uint32_t*)packed, block_mask, (uint32_t*)h1,
+        (uint32_t*)word, (uint8_t*)keep, num_reads, first_id, L, k,
+        num_hashes, threshold);
+  else
+    hash_build_kernel<kMode, 0><<<blocks, kThreads, 0, s>>>(
+        (const int8_t*)codes, (uint32_t*)packed, block_mask, (uint32_t*)h1,
+        (uint32_t*)word, (uint8_t*)keep, num_reads, first_id, L, k,
+        num_hashes, threshold);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1530,44 +1706,25 @@ static int set_smem(const void* kernel, int bytes) {
 // codes: int8 [num_reads, L], everything past a read's end code 4; packed:
 // the filter, zeroed or partly built; h1, word: int32 [num_reads, L-k+1] and
 // keep: bool of that shape, all three written in full.  first_id: the global
-// ordinal of read 0.  tile_rows: reads per block.
+// ordinal of read 0.  Any L: nothing is staged.
 int kbbq_hash_build(const void* codes, void* packed, uint32_t block_mask,
                     void* h1, void* word, void* keep, int64_t num_reads,
                     int64_t first_id, int L, int k, int num_hashes,
-                    uint32_t threshold, int tile_rows, void* stream) {
-  const int n = L - k + 1;
-  if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (tile_rows < 1) return (int)cudaErrorInvalidValue;
-  const int smem = hash_tile_bytes(L, n, tile_rows);
-  const int rc = set_smem((const void*)hash_build_kernel<kModeBuild>, smem);
-  if (rc != 0) return rc;
-  const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
-  hash_build_kernel<kModeBuild><<<(unsigned)blocks, kThreads, smem,
-                            (cudaStream_t)stream>>>(
-      (const int8_t*)codes, (uint32_t*)packed, block_mask, (uint32_t*)h1,
-      (uint32_t*)word, (uint8_t*)keep, num_reads, first_id, L, k, num_hashes,
-      threshold, tile_rows);
-  return (int)cudaGetLastError();
+                    uint32_t threshold, void* stream) {
+  return hash_launch<kModeBuild>(codes, packed, block_mask, h1, word, keep,
+                                 num_reads, first_id, L, k, num_hashes,
+                                 threshold, stream);
 }
 
 // The hash-only mode of the fused entry point: h1, word int32
 // [num_reads, L-k+1] written in full from the codes, nothing else read or
-// written (no filter, no keep plane, no ordinal).  tile_rows: reads per block.
+// written (no filter, no keep plane, no ordinal).
 int kbbq_hash_only(const void* codes, void* h1, void* word,
                    int64_t num_reads, int L, int k, int num_hashes,
-                   int tile_rows, void* stream) {
-  const int n = L - k + 1;
-  if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (tile_rows < 1) return (int)cudaErrorInvalidValue;
-  const int smem = hash_tile_bytes(L, n, tile_rows);
-  const int rc = set_smem((const void*)hash_build_kernel<kModeHashOnly>, smem);
-  if (rc != 0) return rc;
-  const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
-  hash_build_kernel<kModeHashOnly><<<(unsigned)blocks, kThreads, smem,
-                             (cudaStream_t)stream>>>(
-      (const int8_t*)codes, nullptr, 0u, (uint32_t*)h1, (uint32_t*)word,
-      nullptr, num_reads, 0, L, k, num_hashes, 0u, tile_rows);
-  return (int)cudaGetLastError();
+                   void* stream) {
+  return hash_launch<kModeHashOnly>(codes, nullptr, 0u, h1, word, nullptr,
+                                    num_reads, 0, L, k, num_hashes, 0u,
+                                    stream);
 }
 
 // The keep mode of the fused entry point (pass 1 of the hash-space-sharded
@@ -1575,21 +1732,10 @@ int kbbq_hash_only(const void* codes, void* h1, void* word,
 // as kbbq_hash_build writes them, and no filter touched.
 int kbbq_hash_keep(const void* codes, void* h1, void* word, void* keep,
                    int64_t num_reads, int64_t first_id, int L, int k,
-                   int num_hashes, uint32_t threshold, int tile_rows,
-                   void* stream) {
-  const int n = L - k + 1;
-  if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (tile_rows < 1) return (int)cudaErrorInvalidValue;
-  const int smem = hash_tile_bytes(L, n, tile_rows);
-  const int rc = set_smem((const void*)hash_build_kernel<kModeKeep>, smem);
-  if (rc != 0) return rc;
-  const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
-  hash_build_kernel<kModeKeep><<<(unsigned)blocks, kThreads, smem,
-                                 (cudaStream_t)stream>>>(
-      (const int8_t*)codes, nullptr, 0u, (uint32_t*)h1, (uint32_t*)word,
-      (uint8_t*)keep, num_reads, first_id, L, k, num_hashes, threshold,
-      tile_rows);
-  return (int)cudaGetLastError();
+                   int num_hashes, uint32_t threshold, void* stream) {
+  return hash_launch<kModeKeep>(codes, nullptr, 0u, h1, word, keep,
+                                num_reads, first_id, L, k, num_hashes,
+                                threshold, stream);
 }
 
 // h1, word: int32 [num_reads, n], the hash cache; thresholds: int32 [k+1],
@@ -1606,37 +1752,31 @@ int kbbq_bloom_probe_trust(const void* packed, uint32_t block_mask,
       threads % 32)
     return (int)cudaErrorInvalidValue;
   const int smem = trust_tile_bytes(n, k, tile_rows, threads);
-  const int rc = set_smem((const void*)bloom_probe_trust_kernel<false>, smem);
+  const int rc = set_smem((const void*)bloom_probe_trust_kernel, smem);
   if (rc != 0) return rc;
   const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
-  bloom_probe_trust_kernel<false><<<(unsigned)blocks, threads, smem,
-                                    (cudaStream_t)stream>>>(
-      (const uint32_t*)packed, block_mask, (const uint32_t*)h1, nullptr,
+  bloom_probe_trust_kernel<<<(unsigned)blocks, threads, smem,
+                             (cudaStream_t)stream>>>(
+      (const uint32_t*)packed, block_mask, (const uint32_t*)h1,
       (const uint32_t*)word, (const int32_t*)thresholds, (uint8_t*)out,
       num_reads, n, k, trust_threshold, tile_rows);
   return (int)cudaGetLastError();
 }
 
-// The rule-only mode: hits bool [num_reads, n], the answers of a word test
-// made elsewhere, in place of the filter; word int32 [num_reads, n] (0 marks
-// an invalid window); the rest as kbbq_bloom_probe_trust.
+// The rule-only entry point: hits bool [num_reads, n], the answers of a word
+// test made elsewhere, in place of the filter; word int32 [num_reads, n] (0
+// marks an invalid window); thresholds and out as kbbq_bloom_probe_trust.  A
+// warp a read, grid-stride beyond kMaxBlocks blocks; any n.
 int kbbq_trust_rule(const void* hits, const void* word,
                     const void* thresholds, void* out, int64_t num_reads,
-                    int n, int k, int trust_threshold, int tile_rows,
-                    int threads, void* stream) {
+                    int n, int k, int trust_threshold, void* stream) {
+  if (k < 1 || k > 32) return (int)cudaErrorInvalidValue;
   if (num_reads <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (k < 1 || k > 32 || tile_rows < 1 || threads < 32 || threads > 1024 ||
-      threads % 32)
-    return (int)cudaErrorInvalidValue;
-  const int smem = trust_tile_bytes(n, k, tile_rows, threads);
-  const int rc = set_smem((const void*)bloom_probe_trust_kernel<true>, smem);
-  if (rc != 0) return rc;
-  const int64_t blocks = (num_reads + tile_rows - 1) / tile_rows;
-  bloom_probe_trust_kernel<true><<<(unsigned)blocks, threads, smem,
-                                   (cudaStream_t)stream>>>(
-      nullptr, 0u, nullptr, (const uint8_t*)hits, (const uint32_t*)word,
+  trust_rule_kernel<<<grid_for(num_reads * 32, kThreads), kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const uint8_t*)hits, (const uint32_t*)word,
       (const int32_t*)thresholds, (uint8_t*)out, num_reads, n, k,
-      trust_threshold, tile_rows);
+      trust_threshold);
   return (int)cudaGetLastError();
 }
 
@@ -1739,9 +1879,6 @@ int kbbq_walk_resolve(void* pk, void* fl, void* err, void* cur, void* lists,
 // wrappers that choose tile_rows
 int kbbq_walk_tile_bytes(int L, int k, int tile_rows) {
   return walk_tile_bytes(L, L - k + 1, tile_rows);
-}
-int kbbq_hash_tile_bytes(int L, int k, int tile_rows) {
-  return hash_tile_bytes(L, L - k + 1, tile_rows);
 }
 int kbbq_trust_tile_bytes(int L, int k, int tile_rows, int threads) {
   return trust_tile_bytes(L - k + 1, k, tile_rows, threads);

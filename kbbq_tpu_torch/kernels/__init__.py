@@ -1,8 +1,9 @@
 """Build, ctypes binding and wrappers of ``csrc/kbbq_kernels.cu``.
 
-The four kernels (``bloom_probe`` with three entry points, the fused trust
-probe also in a rule-only mode; ``bloom_or_words`` with two, the fused one
-also in a keep mode and a hash-only mode; ``walk_errors``; ``walk_round``,
+The four kernels (``bloom_probe`` with four entry points, the fused trust
+probe and its rule-only counterpart ``trust_rule`` among them;
+``bloom_or_words`` with two, the fused one also in a keep mode and a
+hash-only mode; ``walk_errors``; ``walk_round``,
 the walk against a hash-space-sharded filter, with three: ``walk_start``,
 ``walk_propose`` and ``walk_resolve``) are CUDA C++ for sm_90a with a plain
 C interface.  ``build()`` compiles them with nvcc into
@@ -61,10 +62,10 @@ ENTRY_KERNEL = {"bloom_probe_hashed": "bloom_probe",
 # of the fused trust probe (in both a warp works on one read at a time),
 # settled by measuring on an H100 at 150-base reads (PERF.md); the rows are
 # halved for reads so long that a tile of this many would not fit a block's
-# shared memory
+# shared memory.  The fused hash build and the rule-only trust stage nothing:
+# a warp takes a read, at any length, in blocks of the .cu's own size.
 WALK_TILE_ROWS = 32
 WALK_THREADS = 128
-HASH_TILE_ROWS = 32
 TRUST_TILE_ROWS = 16
 TRUST_THREADS = 256
 MAX_SHARED_BYTES = 232448
@@ -138,10 +139,10 @@ def _bind(lib) -> None:
                                            i, i, p]
     lib.kbbq_bloom_or_words.argtypes = [p, u32, p, p, p, i64, p]
     lib.kbbq_hash_build.argtypes = [p, p, u32, p, p, p, i64, i64, i, i, i,
-                                    u32, i, p]
-    lib.kbbq_hash_only.argtypes = [p, p, p, i64, i, i, i, i, p]
-    lib.kbbq_hash_keep.argtypes = [p, p, p, p, i64, i64, i, i, i, u32, i, p]
-    lib.kbbq_trust_rule.argtypes = [p, p, p, p, i64, i, i, i, i, i, p]
+                                    u32, p]
+    lib.kbbq_hash_only.argtypes = [p, p, p, i64, i, i, i, p]
+    lib.kbbq_hash_keep.argtypes = [p, p, p, p, i64, i64, i, i, i, u32, p]
+    lib.kbbq_trust_rule.argtypes = [p, p, p, p, i64, i, i, i, p]
     lib.kbbq_walk_errors.argtypes = [p, p, p, u32, p, i64, i, i, i, i, i, i,
                                      p]
     lib.kbbq_walk_start.argtypes = [p, p, p, p, p, p, p, p, i64, i, i, p]
@@ -150,7 +151,6 @@ def _bind(lib) -> None:
     lib.kbbq_walk_resolve.argtypes = [p, p, p, p, p, p, i64, p, p, i, i, i,
                                       i, p]
     lib.kbbq_walk_tile_bytes.argtypes = [i, i, i]
-    lib.kbbq_hash_tile_bytes.argtypes = [i, i, i]
     lib.kbbq_trust_tile_bytes.argtypes = [i, i, i, i]
     lib.kbbq_empty_launch.argtypes = [p]
     for fn in (lib.kbbq_bloom_probe_hashed, lib.kbbq_bloom_probe_words,
@@ -159,8 +159,8 @@ def _bind(lib) -> None:
                lib.kbbq_hash_keep, lib.kbbq_hash_only, lib.kbbq_walk_errors,
                lib.kbbq_walk_start, lib.kbbq_walk_propose,
                lib.kbbq_walk_resolve,
-               lib.kbbq_walk_tile_bytes, lib.kbbq_hash_tile_bytes,
-               lib.kbbq_trust_tile_bytes, lib.kbbq_empty_launch):
+               lib.kbbq_walk_tile_bytes, lib.kbbq_trust_tile_bytes,
+               lib.kbbq_empty_launch):
         fn.restype = ctypes.c_int
 
 
@@ -315,11 +315,11 @@ def bloom_probe_trust(packed: torch.Tensor, h1: torch.Tensor,
 def trust_rule(hits: torch.Tensor, word: torch.Tensor,
                thresholds: torch.Tensor, k: int, trust_threshold: int,
                out: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel bloom_probe, the fused trust entry point in its rule-only
-    mode: the coverage rule of ``bloom_probe_trust`` on the answers of a
-    word test made elsewhere (the collective test of the hash-space-sharded
-    layout).  hits bool [N, n] (False where word == 0), word int32 [N, n]
-    (0: a window with an N), thresholds int32 [k+1].  Returns bool [N, n],
+    """Kernel bloom_probe, rule-only entry point: the coverage rule of
+    ``bloom_probe_trust`` on the answers of a word test made elsewhere (the
+    collective test of the hash-space-sharded layout), a warp a read.  hits
+    bool [N, n] (False where word == 0), word int32 [N, n] (0: a window
+    with an N), thresholds int32 [k+1]; any n.  Returns bool [N, n],
     written into `out` when given; N == 0 or n == 0 launches nothing."""
     dev = hits.device
     _check(hits, "hits", torch.bool, dev)
@@ -334,14 +334,9 @@ def trust_rule(hits: torch.Tensor, word: torch.Tensor,
     if N == 0 or n == 0:
         return out
     with torch.cuda.device(dev):
-        lib = library()
-        rows = _fit_tile_rows(
-            lambda L, k, r: lib.kbbq_trust_tile_bytes(L, k, r, TRUST_THREADS),
-            n + int(k) - 1, int(k), TRUST_TILE_ROWS)
-        rc = lib.kbbq_trust_rule(
+        rc = library().kbbq_trust_rule(
             hits.data_ptr(), word.data_ptr(), thresholds.data_ptr(),
-            out.data_ptr(), N, n, int(k), int(trust_threshold), rows,
-            TRUST_THREADS, _stream())
+            out.data_ptr(), N, n, int(k), int(trust_threshold), _stream())
     _raise_on(rc, "bloom_probe (trust rule)")
     _count("bloom_probe", "trust_rule")
     return out
@@ -383,8 +378,9 @@ def hash_build(codes: torch.Tensor, packed: torch.Tensor, first_id: int,
     Returns (h1, word, keep): int32 patterns [N, n] x2 and bool [N, n],
     n = L-k+1 (n <= 0: empty [N, 0] tensors and no launch); word == 0 marks
     a window with an N, whose h1 is the hash of the window with each N read
-    as base 0.  Every insert is a plain atomic here: the sampled windows
-    of pass 1 seldom repeat, and testing first measured slower (PERF.md)."""
+    as base 0.  Every insert is an atomic at once, its line marked
+    evict-last in L2: testing the word first measured slower (PERF.md).
+    A warp takes a read, at any length: nothing is staged."""
     dev = codes.device
     _check(codes, "codes", torch.int8, dev)
     _check(packed, "packed", torch.int32, dev)
@@ -403,13 +399,10 @@ def hash_build(codes: torch.Tensor, packed: torch.Tensor, first_id: int,
     if N == 0 or n == 0:
         return h1, word, keep
     with torch.cuda.device(dev):
-        lib = library()
-        rows = _fit_tile_rows(lib.kbbq_hash_tile_bytes, L, int(k),
-                              HASH_TILE_ROWS)
-        rc = lib.kbbq_hash_build(
+        rc = library().kbbq_hash_build(
             codes.data_ptr(), packed.data_ptr(), mask, h1.data_ptr(),
             word.data_ptr(), keep.data_ptr(), N, int(first_id), L, int(k),
-            int(num_hashes), int(threshold), rows, _stream())
+            int(num_hashes), int(threshold), _stream())
     _raise_on(rc, "bloom_or_words (hash_build)")
     _count("bloom_or_words", "hash_build")
     return h1, word, keep
@@ -438,13 +431,10 @@ def hash_keep(codes: torch.Tensor, first_id: int, k: int, num_hashes: int,
     if N == 0 or n == 0:
         return h1, word, keep
     with torch.cuda.device(dev):
-        lib = library()
-        rows = _fit_tile_rows(lib.kbbq_hash_tile_bytes, L, int(k),
-                              HASH_TILE_ROWS)
-        rc = lib.kbbq_hash_keep(
+        rc = library().kbbq_hash_keep(
             codes.data_ptr(), h1.data_ptr(), word.data_ptr(),
             keep.data_ptr(), N, int(first_id), L, int(k), int(num_hashes),
-            int(threshold), rows, _stream())
+            int(threshold), _stream())
     _raise_on(rc, "bloom_or_words (hash_keep)")
     _count("bloom_or_words", "hash_keep")
     return h1, word, keep
@@ -473,12 +463,9 @@ def hash_only(codes: torch.Tensor, k: int, num_hashes: int):
     if N == 0 or n == 0:
         return h1, word
     with torch.cuda.device(dev):
-        lib = library()
-        rows = _fit_tile_rows(lib.kbbq_hash_tile_bytes, L, int(k),
-                              HASH_TILE_ROWS)
-        rc = lib.kbbq_hash_only(codes.data_ptr(), h1.data_ptr(),
-                                word.data_ptr(), N, L, int(k),
-                                int(num_hashes), rows, _stream())
+        rc = library().kbbq_hash_only(codes.data_ptr(), h1.data_ptr(),
+                                      word.data_ptr(), N, L, int(k),
+                                      int(num_hashes), _stream())
     _raise_on(rc, "bloom_or_words (hash_only)")
     _count("bloom_or_words", "hash_only")
     return h1, word

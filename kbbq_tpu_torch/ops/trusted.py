@@ -13,8 +13,9 @@ and serves CPU tensors.
 
 ``trusted_from_hits`` is the same decision from a plane of hits made
 elsewhere (the collective word test of the hash-space-sharded layout,
-``parallel/sharded_bloom.py``): on the card the fused entry point's
-rule-only mode (``kernels.trust_rule``), on the CPU ``trusted_mask_batch``.
+``parallel/sharded_bloom.py``): on the card the ``bloom_probe`` kernel's
+rule-only entry point (``kernels.trust_rule``), on the CPU
+``trusted_mask_batch``.
 """
 
 from __future__ import annotations
@@ -126,7 +127,7 @@ def trusted_from_hits(hits: torch.Tensor, word: torch.Tensor,
     False where word == 0) and its cached `word` (int32 [N, n], 0 marking
     a window with an N); thresholds and trust_threshold as
     ``trusted_from_cache``.  CUDA tensors go through one launch of the
-    rule-only mode of the fused kernel entry point; CPU tensors through
+    rule-only kernel entry point; CPU tensors through
     ``trusted_mask_batch``, `chunk_rows` rows at a time."""
     T = k if trust_threshold is None else trust_threshold
     if hits.is_cuda:

@@ -22,7 +22,7 @@ With the sharded layout each rank holds 1/D of each filter
   pass 1  hash cache and keep plane (the fused kernel's keep mode), the kept
           windows routed to filter A's owners
   pass 2  the collective word test against A, the trust rule on its hits
-          (the fused trust kernel's rule-only mode), the trusted windows
+          (the probe kernel's rule-only entry point), the trusted windows
           routed to filter B's owners
   pass 3  the collective word test against B for the initial trust, then
           per row chunk (as many on every rank) the round-based walk, whose

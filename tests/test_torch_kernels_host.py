@@ -7,10 +7,11 @@ __syncthreads and the warp functions).  The tests load that library with the
 port's own ctypes binding, hand it CPU tensors, and hold every entry point
 against its plain PyTorch version: tiles, ragged last tiles, base pointers
 that are not 16-byte aligned, k = 32 and k < 17, reads with N, the fused
-trust probe with T < k and tiles that had to be halved; the keep mode of
-the fused build, the rule-only mode of the trust probe, and the round-based
-walk (walk_round) driven in rounds as the hash-space-sharded layout drives
-it.  They say
+trust probe with T < k and tiles that had to be halved; the three modes of
+the fused hash kernel (a warp per read: reads of every length against 32,
+Ns at chunk edges, a read of 30,000 bases), the rule-only
+trust entry point, and the round-based walk (walk_round) driven in rounds
+as the hash-space-sharded layout drives it.  They say
 nothing about the card (chip_smoke.py does) and skip where there is no g++.
 Tolerance: exact equality.
 """
@@ -51,13 +52,15 @@ def _split_top(text):
 
 
 def _host_source(cuda_source: str) -> str:
-    """kernel<<<grid, threads, shared, stream>>>(args) -> LAUNCH(kernel,
-    grid, threads, args); the shared-memory declaration is the header's."""
+    """kernel<<<grid, threads, shared, stream>>>(args) -> LAUNCH((kernel),
+    grid, threads, args), the kernel in parentheses because a template
+    instance may hold commas; the shared-memory declaration is the
+    header's."""
     def launch(m):
         grid, threads = _split_top(m.group(2))[:2]
         tail = ")" if m.group(3) else ", "
-        return f"LAUNCH({m.group(1)}, {grid}, {threads}{tail}"
-    src = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(\s*(\))?", launch,
+        return f"LAUNCH(({m.group(1)}), {grid}, {threads}{tail}"
+    src = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(\s*(\))?", launch,
                  cuda_source, flags=re.S)
     return src.replace("extern __shared__ uint4 smem4[];", "")
 
@@ -100,24 +103,48 @@ def _reads(rng, N, L, genome_len=4000, err=0.02, n_rate=0.01):
 
 
 HASH_CASES = [
-    # N, L, k, first_id, tile_rows, row offset of the base pointer, threshold
-    (50, 60, 16, 0, 32, 0, 0x3BBBBBBA),
-    (33, 150, 32, 5, 32, 1, 0x3BBBBBBA),
-    (7, 40, 8, (1 << 31) + 3, 3, 1, 0x80000000),
-    (65, 90, 17, (1 << 32) - 30, 16, 3, 0xFFFFFFFF),
-    (20, 32, 32, 0, 1, 0, 0),
-    (9, 45, 31, 1 << 40, 4, 2, 0x10000000),
-    (40, 33, 1, 0, 32, 0, 0x70000000),
-    (5, 20, 32, 0, 32, 0, 5),                         # L < k: no launch
+    # N, L, k, first_id, row offset of the base pointer, threshold, and
+    # whether Ns are planted at the first and last base of 32-base chunks
+    (50, 60, 16, 0, 0, 0x3BBBBBBA, False),
+    (33, 150, 32, 5, 1, 0x3BBBBBBA, False),
+    (7, 40, 8, (1 << 31) + 3, 1, 0x80000000, False),
+    (65, 90, 17, (1 << 32) - 30, 3, 0xFFFFFFFF, False),
+    (20, 32, 32, 0, 0, 0, False),
+    (9, 45, 31, 1 << 40, 2, 0x10000000, False),
+    (40, 33, 1, 0, 0, 0x70000000, False),
+    (5, 20, 32, 0, 0, 5, False),                      # L < k: no launch
+    (12, 64, 32, 0, 1, 0x3BBBBBBA, True),             # L = 2·32, n = 33
+    (12, 97, 31, 3, 2, 0x3BBBBBBA, True),             # L = 3·32 + 1
+    (10, 128, 1, (1 << 32) + 9, 3, 0x70000000, True),  # k = 1, n = 4·32
+    (2, 30_000, 32, 7, 1, 0x3BBBBBBA, True),          # a long read
 ]
 
 
-@pytest.mark.parametrize("case", HASH_CASES, ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}")
+def _hash_reads(case, seed):
+    """The codes of a HASH_CASES entry, `off` rows into their tensor: reads
+    with N (rows 3-6 corner rows where there are more than 8), and with
+    `edges` an N at bases 0, 31, 32 and 63 of every other row and at the
+    last base of every third."""
+    N, L, k, _, off, _, edges = case
+    rng = np.random.default_rng(seed)
+    _, codes = _reads(rng, N + off, L, genome_len=max(4000, 2 * L),
+                      n_rate=0.03)
+    if edges:
+        for b in (0, 31, 32, 63):
+            if b < L:
+                codes[::2, b] = 4
+        codes[::3, L - 1] = 4
+    return torch.from_numpy(codes)[off:]
+
+
+def _hash_id(c):
+    return f"N{c[0]}L{c[1]}k{c[2]}"
+
+
+@pytest.mark.parametrize("case", HASH_CASES, ids=_hash_id)
 def test_hash_build_logic_matches_plain(lib, case):
-    N, L, k, first_id, rows, off, thr = case
-    rng = np.random.default_rng(N * L + k)
-    _, codes = _reads(rng, N + off, L, n_rate=0.03)
-    c = torch.from_numpy(codes)[off:]
+    N, L, k, first_id, off, thr, _ = case
+    c = _hash_reads(case, N * L + k)
     n = max(L - k + 1, 0)
     ids = torch.arange(first_id, first_id + N, dtype=torch.int64)
     want = hash_cache_chunk(c, ids, k, 7, thr)
@@ -129,7 +156,7 @@ def test_hash_build_logic_matches_plain(lib, case):
     rc = lib.kbbq_hash_build(c.data_ptr(), packed.data_ptr(),
                              packed.numel() - 1, h1.data_ptr(),
                              word.data_ptr(), keep.data_ptr(), N, first_id,
-                             L, k, 7, thr, rows, None)
+                             L, k, 7, thr, None)
     assert rc == 0
     if n == 0:
         assert not packed.any()
@@ -138,29 +165,43 @@ def test_hash_build_logic_matches_plain(lib, case):
     assert torch.equal(word, want[1])
     assert torch.equal(keep.view(torch.uint8), want[2].view(torch.uint8))
     assert torch.equal(packed, want_f)
+    if N > 8:
+        assert (word == 0).any() and (word != 0).any()
+    # the kernel instance of a probe count other than the default 7
+    want = hash_cache_chunk(c, ids, k, 3, thr)
+    packed.zero_()
+    assert lib.kbbq_hash_build(c.data_ptr(), packed.data_ptr(),
+                               packed.numel() - 1, h1.data_ptr(),
+                               word.data_ptr(), keep.data_ptr(), N, first_id,
+                               L, k, 3, thr, None) == 0
+    assert torch.equal(h1, want[0]) and torch.equal(word, want[1])
+    assert torch.equal(keep.view(torch.uint8), want[2].view(torch.uint8))
+    assert torch.equal(packed, tbloom.bloom_build_words_plain(*want, 16))
 
 
-@pytest.mark.parametrize("case", HASH_CASES, ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}")
+@pytest.mark.parametrize("case", HASH_CASES, ids=_hash_id)
 def test_hash_only_mode_matches_plain(lib, case):
     """The hash-only mode of the fused entry point (passes 2 and 3 of the
     windowed engine): h1 and word of every window equal the plain hash
-    pass's, on ragged last tiles, k = 32 and k < 17, reads with N and base
-    pointers 1-3 rows into the codes.  Its C entry point takes no filter and
-    no keep plane, so there is nothing of either it could touch; the
-    (h1, word) planes are the fused build's, whatever the filter held."""
-    N, L, k, first_id, rows, off, thr = case
-    rng = np.random.default_rng(N * L + k + 1)
-    _, codes = _reads(rng, N + off, L, n_rate=0.03)
-    c = torch.from_numpy(codes)[off:]
+    pass's, on k = 32, 31, 17, k < 17 and k = 1, reads of every length
+    against 32 (a multiple, one more, shorter than k, 30,000 bases), reads
+    with N (at chunk edges too, and all N) and base pointers 1-3 rows into
+    the codes.  Its C entry point
+    takes no filter and no keep plane, so there is nothing of either it
+    could touch; the (h1, word) planes are the fused build's, whatever the
+    filter held.  The probe counts 3 and 9 take the kernel instance of a
+    count known only at run time, 7 the unrolled one."""
+    N, L, k, first_id, off, thr, _ = case
+    c = _hash_reads(case, N * L + k + 1)
     n = max(L - k + 1, 0)
     want_h1, want_word, _ = hash_cache_chunk(
         c, torch.arange(first_id, first_id + N, dtype=torch.int64), k, 7,
         thr)
-    assert len(lib.kbbq_hash_only.argtypes) == 9       # codes, h1, word, ...
+    assert len(lib.kbbq_hash_only.argtypes) == 8       # codes, h1, word, ...
     h1 = torch.full((N, n), 77, dtype=torch.int32)
     word = h1.clone()
     rc = lib.kbbq_hash_only(c.data_ptr(), h1.data_ptr(), word.data_ptr(), N,
-                            L, k, 7, rows, None)
+                            L, k, 7, None)
     assert rc == 0
     assert torch.equal(h1, want_h1) and torch.equal(word, want_word)
     p1, pw = hash_windows_plain(c, k, 7, chunk_rows=7)
@@ -174,21 +215,26 @@ def test_hash_only_mode_matches_plain(lib, case):
         assert lib.kbbq_hash_build(c.data_ptr(), packed.data_ptr(),
                                    packed.numel() - 1, b1.data_ptr(),
                                    bw.data_ptr(), bk.data_ptr(), N, first_id,
-                                   L, k, 7, thr, rows, None) == 0
+                                   L, k, 7, thr, None) == 0
         assert torch.equal(b1, h1) and torch.equal(bw, word)
+        # other probe counts: the instance of a count known at run time
+        for nh in (3, 9):
+            assert lib.kbbq_hash_only(c.data_ptr(), h1.data_ptr(),
+                                      word.data_ptr(), N, L, k, nh,
+                                      None) == 0
+            p1, pw = hash_windows_plain(c, k, nh)
+            assert torch.equal(h1, p1) and torch.equal(word, pw)
 
 
-@pytest.mark.parametrize("case", HASH_CASES, ids=lambda c: f"N{c[0]}L{c[1]}k{c[2]}")
+@pytest.mark.parametrize("case", HASH_CASES, ids=_hash_id)
 def test_hash_keep_mode_matches_plain(lib, case):
     """The keep mode of the fused entry point (pass 1 of the
     hash-space-sharded layout): h1, word and keep of every window equal the
     plain hash pass's (and ``ops.hash_cache.hash_keep``'s on the CPU), with
     no filter to touch."""
     from kbbq_tpu_torch.ops.hash_cache import hash_keep
-    N, L, k, first_id, rows, off, thr = case
-    rng = np.random.default_rng(N * L + k + 2)
-    _, codes = _reads(rng, N + off, L, n_rate=0.03)
-    c = torch.from_numpy(codes)[off:]
+    N, L, k, first_id, off, thr, _ = case
+    c = _hash_reads(case, N * L + k + 2)
     n = max(L - k + 1, 0)
     want = hash_cache_chunk(
         c, torch.arange(first_id, first_id + N, dtype=torch.int64), k, 7,
@@ -196,15 +242,23 @@ def test_hash_keep_mode_matches_plain(lib, case):
     h1 = torch.full((N, n), 77, dtype=torch.int32)
     word = h1.clone()
     keep = torch.full((N, n), 7, dtype=torch.uint8)
-    assert len(lib.kbbq_hash_keep.argtypes) == 12      # no filter argument
+    assert len(lib.kbbq_hash_keep.argtypes) == 11      # no filter argument
     rc = lib.kbbq_hash_keep(c.data_ptr(), h1.data_ptr(), word.data_ptr(),
-                            keep.data_ptr(), N, first_id, L, k, 7, thr, rows,
-                            None)
+                            keep.data_ptr(), N, first_id, L, k, 7, thr, None)
     assert rc == 0
     assert torch.equal(h1, want[0]) and torch.equal(word, want[1])
     assert torch.equal(keep, want[2].to(torch.uint8))
     got = hash_keep(c, first_id, k, 7, thr, chunk_rows=5)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the kernel instance of a probe count other than the default 7
+    want = hash_cache_chunk(
+        c, torch.arange(first_id, first_id + N, dtype=torch.int64), k, 3,
+        thr)
+    assert lib.kbbq_hash_keep(c.data_ptr(), h1.data_ptr(), word.data_ptr(),
+                              keep.data_ptr(), N, first_id, L, k, 3, thr,
+                              None) == 0
+    assert torch.equal(h1, want[0]) and torch.equal(word, want[1])
+    assert torch.equal(keep, want[2].to(torch.uint8))
 
 
 @pytest.mark.parametrize("n", [1, 255, 3000, 10000])
@@ -287,7 +341,8 @@ def test_bloom_probe_incongruent_pointers_take_the_narrow_paths(lib):
 
 
 TRUST_CASES = [
-    # N, L, k, T (None: k), tile_rows, threads, row offset of the base
+    # N, L, k, T (None: k), tile_rows, threads (of the fused probe; the
+    # rule-only entry point takes neither), row offset of the base
     # pointers, share of the error-free reads' windows that filter A holds
     (70, 36, 8, None, 32, 128, 0, 0.5),       # narrow: k = 8, L = 36
     (70, 36, 8, 5, 32, 128, 1, 0.5),          # T < k
@@ -299,6 +354,10 @@ TRUST_CASES = [
     (12, 300, 16, 12, 4, 96, 1, 0.4),         # n > 256: the masks' loop
     (25, 40, 1, None, 32, 128, 0, 0.5),       # k = 1
     (6, 20, 32, None, 32, 128, 0, 0.5),       # L < k: no launch
+    (20, 95, 32, None, 8, 128, 1, 0.5),       # n = 2·32
+    (20, 96, 32, 24, 8, 128, 0, 0.5),         # n = 2·32 + 1, T < k
+    (16, 62, 31, 20, 16, 64, 2, 0.7),         # k = 31, n = 32, T < k
+    (3, 3000, 32, None, 1, 64, 1, 0.5),       # a long read
 ]
 
 
@@ -366,8 +425,9 @@ def test_trust_rule_mode_matches_plain(lib, case):
                       torch.arange(k + 1).clamp(min=1)).to(torch.int32)
     out = torch.full((N, n), 7, dtype=torch.uint8)
     TT = k if T is None else T
+    assert len(lib.kbbq_trust_rule.argtypes) == 9      # no tile, no threads
     rc = lib.kbbq_trust_rule(hits.data_ptr(), word.data_ptr(), t.data_ptr(),
-                             out.data_ptr(), N, n, k, TT, rows, threads, None)
+                             out.data_ptr(), N, n, k, TT, None)
     assert rc == 0
     if n == 0:
         return
@@ -628,7 +688,6 @@ def test_tiles_that_do_not_fit_are_refused(lib):
     rows = kernels._fit_tile_rows(lib.kbbq_walk_tile_bytes, 150, 32, 1024)
     assert lib.kbbq_walk_tile_bytes(150, 32, rows) <= \
         kernels.MAX_SHARED_BYTES < lib.kbbq_walk_tile_bytes(150, 32, 2 * rows)
-    assert kernels._fit_tile_rows(lib.kbbq_hash_tile_bytes, 150, 32, 32) == 32
     with pytest.raises(ValueError):
         kernels._fit_tile_rows(lib.kbbq_walk_tile_bytes, 400_000, 32, 32)
     # the fused trust probe: 32 reads of 150 bases fit, 1024 do not and are
@@ -646,3 +705,14 @@ def test_tiles_that_do_not_fit_are_refused(lib):
     assert trust_bytes(150, 32, rows) <= kernels.MAX_SHARED_BYTES \
         < trust_bytes(150, 32, 2 * rows)
     assert kernels._fit_tile_rows(trust_bytes, 10_000, 32, 32) < 32
+    # the fused hash kernel and the rule-only trust stage nothing, so only
+    # their arguments can be refused: k outside 1..32, no probe
+    assert lib.kbbq_hash_only(z.data_ptr(), z.data_ptr(), z.data_ptr(), 4,
+                              150, 33, 7, None) != 0
+    assert lib.kbbq_hash_keep(z.data_ptr(), z.data_ptr(), z.data_ptr(),
+                              z.data_ptr(), 4, 0, 150, 0, 7, 5, None) != 0
+    assert lib.kbbq_hash_build(z.data_ptr(), z.data_ptr(), 15, z.data_ptr(),
+                               z.data_ptr(), z.data_ptr(), 4, 0, 150, 32, 0,
+                               5, None) != 0
+    assert lib.kbbq_trust_rule(z.data_ptr(), z.data_ptr(), z.data_ptr(),
+                               z.data_ptr(), 4, 119, 33, 33, None) != 0
