@@ -1,0 +1,26 @@
+"""pytest settings of the benchmark's own tests (``bqsr_bench/tests``).
+
+Tests marked ``card`` need a CUDA card; they find out in the ``card``
+fixture, never while a module is imported, and skip without one."""
+
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (skips without one)")
+
+
+@pytest.fixture
+def card():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: this test runs on the card only")
+    return torch.device("cuda")
