@@ -230,7 +230,12 @@ def parse_bam_bytes_indexed(raw: bytes):
 def read_bam_bytes(path: str) -> bytes:
     """The decompressed bytes of a BAM file: BGZF, plain gzip or raw."""
     with open(path, "rb") as f:
-        data = f.read()
+        return inflate_bam_bytes(f.read())
+
+
+def inflate_bam_bytes(data: bytes) -> bytes:
+    """The decompressed bytes of a BAM file's contents `data`: BGZF, plain
+    gzip or raw."""
     if bgzf.is_bgzf(data[:18]):
         return bgzf.decompress(data)
     if data[:2] == b"\x1f\x8b":

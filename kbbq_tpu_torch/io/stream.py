@@ -28,6 +28,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
+from ..utils.trace import OFF
 from .fastq import FastqData, extract_padded_arrays, parse_fastq_bytes
 
 DEFAULT_CHUNK_READS = 1 << 17       # 131,072 reads a chunk (~40 MB at 150 bp)
@@ -179,25 +180,35 @@ def chunk_to_batch_arrays(fq: FastqData, max_len: int, rg: int,
     return codes, quals, mask, rgs, seconds, ids
 
 
-def prefetch_iter(it: Iterable, depth: int = 2) -> Iterator:
+def prefetch_iter(it: Iterable, depth: int = 2, trace=OFF) -> Iterator:
     """Run `it` in a daemon thread, buffering up to `depth` items; an
     exception in the thread is raised in the consumer.  A consumer that
     stops early leaves the thread blocked on the full queue until the
-    process ends (it holds at most `depth` items)."""
+    process ends (it holds at most `depth` items).  On `trace`
+    (``utils/trace.py``): a ``stream.read`` span on the thread around the
+    making of each item and around the last call, which finds the end,
+    its parent the consumer's span where the iteration began; and a
+    ``stream.prefetch_wait`` span around each of the consumer's waits on
+    the queue."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     end = object()
+    parent = trace.current()
+    it = iter(it)
 
     def worker():
         try:
-            for item in it:
+            item = None
+            while item is not end:
+                with trace.span("stream.read", parent=parent):
+                    item = next(it, end)
                 q.put(item)
-            q.put(end)
         except BaseException as e:  # handed to the consumer, raised there
             q.put(e)
 
     threading.Thread(target=worker, daemon=True).start()
     while True:
-        item = q.get()
+        with trace.span("stream.prefetch_wait"):
+            item = q.get()
         if item is end:
             return
         if isinstance(item, BaseException):

@@ -295,7 +295,8 @@ def _spawn(fn, devices, device_type, init, hosts, args) -> list:
 
 def slowest(per_rank: list, timings: dict | None) -> None:
     """Into `timings`: per stage the slowest rank's seconds (and the
-    largest ``*_peak_bytes``) of the ranks' own ``StageClock`` dicts."""
+    largest ``*_peak_bytes``) of the ranks' own tracers' dicts (numbers
+    only: their spans and counters stay in each rank's dict)."""
     if timings is None:
         return
     for t in per_rank:

@@ -281,10 +281,11 @@ def _save_filter(eng, rank, ckpt, name: str, filt) -> None:
         ckpt.mark_pass(name)
 
 
-def _run_passes(eng, rank, ckpt, mark, timings: dict) -> np.ndarray:
+def _run_passes(eng, rank, ckpt, trace, timings: dict) -> np.ndarray:
     """Passes 1-3 under the multi-host checkpoint protocol, then the Q'
-    table (rank 0's delta math, broadcast); the sharded layout's shard
-    sizes go to `timings` (``shard_words_a`` / ``_b``)."""
+    table (rank 0's delta math, broadcast), each a stage of `trace`; the
+    sharded layout's shard sizes go to `timings` (``shard_words_a`` /
+    ``_b``)."""
     from ..oracle.gatk import build_recal_table
     from .merge import broadcast_table
 
@@ -294,6 +295,9 @@ def _run_passes(eng, rank, ckpt, mark, timings: dict) -> np.ndarray:
                                     "pass1"),
                                    (names[1], eng.run_pass2, "filt_b",
                                     "pass2")):
+        if stage == "pass2":
+            _maybe_crash("pass2", rank)
+        trace.stage(stage)
         if _all_marked(rank, ckpt, name):
             setattr(eng, attr, _load_filter(eng, rank, ckpt, name))
         else:
@@ -303,10 +307,8 @@ def _run_passes(eng, rank, ckpt, mark, timings: dict) -> np.ndarray:
         if eng.sharded:
             timings["shard_words" + attr[-2:]] = int(
                 getattr(eng, attr).words.numel())
-        mark(stage)
-        if stage == "pass1":
-            _maybe_crash("pass2", rank)
     eng.filt_a = None
+    trace.stage("pass3")
     if _all_marked(rank, ckpt, "covariates"):
         eng.tables = ckpt.load_covariates()
     else:
@@ -314,11 +316,9 @@ def _run_passes(eng, rank, ckpt, mark, timings: dict) -> np.ndarray:
         if ckpt and rank.rank == 0:
             ckpt.save_covariates(eng.tables)
     eng.filt_b = None
-    mark("pass3")
-    recal = broadcast_table(rank, build_recal_table(eng.tables)
-                            if rank.rank == 0 else None, eng.num_rg, eng.L)
-    mark("deltas")
-    return recal
+    trace.stage("deltas")
+    return broadcast_table(rank, build_recal_table(eng.tables)
+                           if rank.rank == 0 else None, eng.num_rg, eng.L)
 
 
 @dataclasses.dataclass
@@ -357,48 +357,55 @@ def _source(job: _Job, rank):
 def _host_rank(rank, job: _Job):
     """One rank of a multi-host run -> (its stage timings, windows it
     wrote: the host's first rank, else 0)."""
+    from ..pipeline.stream_resident import StreamResidentEngine
+    from ..state.checkpoint import Checkpoint
+    from ..utils.trace import tracer
+
+    timings: dict = {}
+    with tracer(timings, rank.device) as trace:
+        trace.stage("setup")
+        src = _source(job, rank)
+        eng = StreamResidentEngine(src, job.config, rank.device, rank=rank,
+                                   layout=job.layout, trace=trace)
+        ckpt = (Checkpoint(job.checkpoint_dir)
+                if job.checkpoint_dir and job.apply_report is None else None)
+        if job.apply_report is not None:       # no collective runs
+            from ..gatk_report import (read_gatk_report,
+                                       recal_table_from_report)
+            trace.stage("pass4")
+            recal = recal_table_from_report(
+                read_gatk_report(job.apply_report), job.rg_names, eng.L)
+        else:
+            recal = _run_passes(eng, rank, ckpt, trace, timings)
+            trace.stage("pass4")
+            if job.report_out is not None and rank.rank == 0:
+                from ..gatk_report import write_gatk_report
+                write_gatk_report(eng.tables, job.rg_names, job.report_out)
+        windows = _write_host_windows(job, rank, eng, recal, src, ckpt)
+    return timings, windows
+
+
+def _write_host_windows(job: _Job, rank, eng, recal, src, ckpt) -> int:
+    """Pass 4 of a multi-host rank: the host's first rank writes its
+    host's part of the output (-> windows written), the others send it
+    their rows (-> 0)."""
     from ..io.bam_stream import BamStreamWriter
     from ..io.cram_write import CramStreamWriter
     from ..pipeline.cram_stream import write_cram_windows
-    from ..pipeline.resident import StageClock
-    from ..pipeline.stream_resident import (StreamResidentEngine,
-                                            write_bam_windows)
-    from ..state.checkpoint import Checkpoint
-
-    timings: dict = {}
-    clock = StageClock(timings, rank.device)
-    src = _source(job, rank)
-    eng = StreamResidentEngine(src, job.config, rank.device, rank=rank,
-                               layout=job.layout)
-    ckpt = (Checkpoint(job.checkpoint_dir)
-            if job.checkpoint_dir and job.apply_report is None else None)
-    clock.mark("setup")
-    if job.apply_report is not None:       # no collective runs
-        from ..gatk_report import read_gatk_report, recal_table_from_report
-        recal = recal_table_from_report(read_gatk_report(job.apply_report),
-                                        job.rg_names, eng.L)
-    else:
-        recal = _run_passes(eng, rank, ckpt, clock.mark, timings)
-        if job.report_out is not None and rank.rank == 0:
-            from ..gatk_report import write_gatk_report
-            write_gatk_report(eng.tables, job.rg_names, job.report_out)
+    from ..pipeline.stream_resident import write_bam_windows
     last = rank.host == rank.hosts - 1
     if rank.local_rank:                  # the host's first rank writes
         for _ in eng.gathered(recal, every=True):
             pass
-        windows = 0
-    elif job.kind == "fastq":
-        windows = _write_fastq(eng, recal, job, rank, ckpt)
-    elif job.kind == "bam":
-        windows = write_bam_windows(eng, recal, src, BamStreamWriter(
+        return 0
+    if job.kind == "fastq":
+        return _write_fastq(eng, recal, job, rank, ckpt)
+    if job.kind == "bam":
+        return write_bam_windows(eng, recal, src, BamStreamWriter(
             job.out, *job.header, write_header=rank.host == 0,
             write_eof=last), job.set_oq)
-    else:
-        windows = write_cram_windows(eng, recal, src, CramStreamWriter(
-            job.out, *job.header, write_header=rank.host == 0,
-            write_eof=last))
-    clock.mark("pass4")
-    return timings, windows
+    return write_cram_windows(eng, recal, src, CramStreamWriter(
+        job.out, *job.header, write_header=rank.host == 0, write_eof=last))
 
 
 def _write_fastq(eng, recal, job: _Job, rank, ckpt) -> int:
@@ -539,10 +546,9 @@ def recalibrate_fastq_multihost(in_paths, out_paths, config,
     this host's reads and windows, ``process_id``, ``num_processes`` and
     ``devices`` (the group's ranks).
     """
-    import time
-
     from ..io.stream import DEFAULT_CHUNK_READS, scan_fastq_files
     from ..state.checkpoint import stream_fingerprint
+    from ..utils.trace import tracer
 
     device_type, info, local = _setup(device, info, devices)
     H, pid = info["num_processes"], info["process_id"]
@@ -553,9 +559,10 @@ def recalibrate_fastq_multihost(in_paths, out_paths, config,
         raise ValueError("multi-host mode needs one output path per input "
                          "file")
     chunk = int(chunk_reads or DEFAULT_CHUNK_READS)
-    t0 = time.time()
-    scan = scan_fastq_files(in_paths, config.k, chunk)
-    t_scan = time.time() - t0
+    with tracer(timings, device_type) as trace:
+        trace.stage("scan")
+        scan = scan_fastq_files(in_paths, config.k, chunk)
+        trace.stage(None)
     shard = partition_inputs(in_paths, scan.per_file_reads, pid, H)
     layout = _layout(bloom_layout, config, scan.total_bases,
                      scan.total_kmers(config.k), H, local)
@@ -568,8 +575,6 @@ def recalibrate_fastq_multihost(in_paths, out_paths, config,
                list(out_paths), config, layout, checkpoint_dir,
                [str(p) for p in in_paths], report_out, apply_report)
     windows = _launch(job, local, device_type, info, timings)
-    if timings is not None:
-        timings["scan"] = round(t_scan, 3)
     return _stats(info, local, layout, scan.num_reads, scan.total_bases,
                   len(in_paths), shard.total_reads, windows)
 
@@ -620,21 +625,21 @@ def recalibrate_bam_multihost(in_path: str, out_path: str, config,
     records are the single host's.  Pass 4 always runs whole.  Other
     arguments and the result (with ``part``) as
     ``recalibrate_fastq_multihost``."""
-    import time
-
     from ..io.bam_stream import (DEFAULT_CHUNK_RECORDS, bgzf_member_index,
                                  voffset_for)
     from ..pipeline.bam import _registry_names
+    from ..utils.trace import tracer
 
     _check_output(out_path, "bam")
     device_type, info, local = _setup(device, info, devices)
     H, pid = info["num_processes"], info["process_id"]
     chunk_records = int(chunk_records or DEFAULT_CHUNK_RECORDS)
-    t0 = time.time()
-    header_text, refs, metas, registry, n, bases, tk, max_len = \
-        scan_bam_multihost(in_path, config.k, chunk_records)
-    members, total_u = bgzf_member_index(in_path)
-    t_scan = time.time() - t0
+    with tracer(timings, device_type) as trace:
+        trace.stage("scan")
+        header_text, refs, metas, registry, n, bases, tk, max_len = \
+            scan_bam_multihost(in_path, config.k, chunk_records)
+        members, total_u = bgzf_member_index(in_path)
+        trace.stage(None)
     lo, hi = partition_bam_chunks(metas, H)[pid]
     at = metas[lo]["stream_off"] if lo < len(metas) else total_u
     span = (*voffset_for(members, total_u, at),
@@ -650,8 +655,6 @@ def recalibrate_bam_multihost(in_path: str, out_path: str, config,
                layout, checkpoint_dir, _registry_names(registry), report_out,
                apply_report, (header_text, refs), bool(set_oq))
     windows = _launch(job, local, device_type, info, timings)
-    if timings is not None:
-        timings["scan"] = round(t_scan, 3)
     return {**_stats(info, local, layout, n, bases, max(1, len(registry)),
                      mine, windows), "part": part}
 
@@ -676,18 +679,18 @@ def recalibrate_cram_multihost(in_path: str, out_path: str, config,
     refuses is re-encoded, its record counter counting that part's
     re-encoded records only; an output not named ``.cram`` is refused.
     Other arguments and the result as ``recalibrate_bam_multihost``."""
-    import time
-
     from ..pipeline.bam import _registry_names
     from ..pipeline.cram_stream import scan_cram_meta
+    from ..utils.trace import tracer
 
     _check_output(out_path, "cram")
     device_type, info, local = _setup(device, info, devices)
     H, pid = info["num_processes"], info["process_id"]
-    t0 = time.time()
-    metas, n, bases, tk, max_len, registry, rg_names, header_text = \
-        scan_cram_meta(in_path, config.k, fasta_ref)
-    t_scan = time.time() - t0
+    with tracer(timings, device_type) as trace:
+        trace.stage("scan")
+        metas, n, bases, tk, max_len, registry, rg_names, header_text = \
+            scan_cram_meta(in_path, config.k, fasta_ref)
+        trace.stage(None)
     lo, hi = partition_bam_chunks(metas, H)[pid]
     span = (lo, hi, metas[lo]["ordinal"] if lo < len(metas) else n)
     mine = sum(m["n_primary"] for m in metas[lo:hi])
@@ -700,8 +703,6 @@ def recalibrate_cram_multihost(in_path: str, out_path: str, config,
                layout, checkpoint_dir, _registry_names(registry), report_out,
                apply_report, (header_text,))
     windows = _launch(job, local, device_type, info, timings)
-    if timings is not None:
-        timings["scan"] = round(t_scan, 3)
     return {**_stats(info, local, layout, n, bases, max(1, len(registry)),
                      mine, windows), "part": part}
 

@@ -36,7 +36,6 @@ ranks: OR and integer adds commute.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -116,56 +115,66 @@ def resident_rank(rank, shared: SharedArrays, plan: Plan, config,
                   chunk_rows: int | None):
     """One rank's share of the resident path -> (its stage timings, the
     merged CovariateTables on rank 0, else None)."""
+    from ..utils.trace import tracer
+
+    timings: dict = {}
+    with tracer(timings, rank.device) as trace:
+        tables = _resident_rank_passes(rank, shared, plan, config,
+                                       chunk_rows, trace, timings)
+    return timings, tables if rank.rank == 0 else None
+
+
+def _resident_rank_passes(rank, shared: SharedArrays, plan: Plan, config,
+                          chunk_rows: int | None, trace, timings: dict):
+    """The body of ``resident_rank``, its stages opened on `trace` ->
+    the merged CovariateTables."""
     from ..oracle.covariate import CovariateTables
     from ..oracle.gatk import build_recal_table
-    from ..pipeline.resident import (DEFAULT_CHUNK_ROWS, StageClock,
+    from ..pipeline.resident import (DEFAULT_CHUNK_ROWS,
                                      apply_table_on_device,
                                      arrays_to_device)
     from .merge import COV_NAMES, broadcast_table, sum_merge
 
     dev = rank.device
-    timings: dict = {}
-    mark = StageClock(timings, dev).mark
+    trace.stage("setup")
     k = config.k
     rows = int(chunk_rows or DEFAULT_CHUNK_ROWS)
     s, e = row_range(plan.num_reads, rank.world, rank.rank)
     threshold = int(alpha_threshold(plan.alpha))
     t_host = coverage_thresholds(plan.alpha, k)
-    mark("setup")
 
+    trace.stage("h2d")
     codes, quals, mask, rgs, seconds = arrays_to_device(
         shared_rows(shared, s, e), dev)
     t_table = torch.from_numpy(t_host.astype(np.int32)).to(dev)
-    mark("h2d")
 
     if plan.layout == "sharded":
         cov = _sharded_passes_1_to_3(rank, plan, config, codes, quals, mask,
                                      rgs, seconds, s, threshold, t_table,
-                                     rows, mark, timings)
+                                     rows, trace, timings)
     else:
         cov = _replicated_passes_1_to_3(rank, plan, config, codes, quals,
                                         mask, rgs, seconds, s, threshold,
-                                        t_table, rows, mark)
+                                        t_table, rows, trace)
     sum_merge(rank, cov)
     tables = CovariateTables(plan.num_rg, plan.max_len,
                              *(cov[n].cpu().numpy() for n in COV_NAMES))
-    mark("pass3")
 
+    trace.stage("deltas")
     recal = broadcast_table(
         rank, build_recal_table(tables) if rank.rank == 0 else None,
         plan.num_rg, plan.max_len)
-    mark("deltas")
 
     # ---- pass 4: the local gather into the caller's rows
+    trace.stage("pass4")
     shared.write_rows("out", s, apply_table_on_device(
         recal, codes, quals, mask, rgs, seconds, rows))
-    mark("pass4")
-    return timings, tables if rank.rank == 0 else None
+    return tables
 
 
 def _replicated_passes_1_to_3(rank, plan: Plan, config, codes, quals, mask,
                               rgs, seconds, s: int, threshold: int, t_table,
-                              rows: int, mark) -> dict:
+                              rows: int, trace) -> dict:
     """Passes 1-3 of the replicated layout on the rank's rows -> its
     covariate state (not yet summed over the ranks)."""
     from ..ops.bloom import bloom_build_words, bloom_query_words
@@ -178,20 +187,21 @@ def _replicated_passes_1_to_3(rank, plan: Plan, config, codes, quals, mask,
     k, h = config.k, config.num_hashes
     n_rows = codes.shape[0]
     # ---- pass 1: hash cache of the rank's rows, merged filter A
+    trace.stage("pass1")
     h1, word, flag, filt = hash_cache_build(codes, s, k, h, threshold,
                                             plan.log2_ma, chunk_rows=rows)
     filt_a = or_merge(rank, filt)
     del filt
-    mark("pass1")
 
     # ---- pass 2: trust against the merged A, merged filter B
+    trace.stage("pass2")
     trusted_from_cache(filt_a, h1, word, t_table, k, config.trust_threshold,
                        out=flag)
     del filt_a
     filt_b = or_merge(rank, bloom_build_words(h1, word, flag, plan.log2_mb))
-    mark("pass2")
 
     # ---- pass 3: walks + histogram of the rank's rows
+    trace.stage("pass3")
     cov = new_covariate_state(plan.num_rg, plan.max_len, codes.device)
     tr0 = bloom_query_words(filt_b, h1, word)
     for cs in range(0, n_rows, rows):
@@ -205,7 +215,7 @@ def _replicated_passes_1_to_3(rank, plan: Plan, config, codes, quals, mask,
 
 def _sharded_passes_1_to_3(rank, plan: Plan, config, codes, quals, mask,
                            rgs, seconds, s: int, threshold: int, t_table,
-                           rows: int, mark, timings: dict) -> dict:
+                           rows: int, trace, timings: dict) -> dict:
     """Passes 1-3 of the hash-space-sharded layout on the rank's rows ->
     its covariate state (not yet summed over the ranks); the shards' word
     counts go to `timings` (``shard_words_a``, ``shard_words_b``)."""
@@ -216,14 +226,15 @@ def _sharded_passes_1_to_3(rank, plan: Plan, config, codes, quals, mask,
 
     k, h = config.k, config.num_hashes
     # ---- pass 1: hash cache and keep plane, kept windows to A's owners
+    trace.stage("pass1")
     h1, word, flag = hash_keep(codes, s, k, h, threshold, chunk_rows=rows)
     filt_a = ShardedFilter(rank, plan.log2_ma)
     filt_a.insert(h1, word, flag)
     timings["shard_words_a"] = int(filt_a.words.numel())
-    mark("pass1")
 
     # ---- pass 2: collective test against A, the rule, trusted windows to
     # B's owners
+    trace.stage("pass2")
     hits = filt_a.test(h1, word)
     del filt_a
     trusted_from_hits(hits, word, t_table, k, config.trust_threshold,
@@ -232,10 +243,10 @@ def _sharded_passes_1_to_3(rank, plan: Plan, config, codes, quals, mask,
     filt_b = ShardedFilter(rank, plan.log2_mb)
     filt_b.insert(h1, word, flag)
     timings["shard_words_b"] = int(filt_b.words.numel())
-    mark("pass2")
 
     # ---- pass 3: collective initial trust, the round walk per walk block,
     # the histogram per row chunk
+    trace.stage("pass3")
     cov = new_covariate_state(plan.num_rg, plan.max_len, codes.device)
     tr0 = filt_b.test(h1, word)
     del h1, word, flag
@@ -261,13 +272,15 @@ def run_ranks(body, arrays: ReadArrays, devices: int, device_type: str,
     """Share `arrays`, run ``body(rank, shared, *args)`` on `devices` ranks
     (it returns (its timings, tables or None)), and return the output rows;
     the slowest rank's stages, each rank's own (``by_rank``), the launch's
-    own figures and ``share`` (s to write the shared files) go to
+    own figures and the ``share`` stage (writing the shared files) go to
     `timings`, rank 0's tables to ``oracle.gatk``'s capture
     (report_out)."""
     from ..oracle.gatk import note_tables
-    t0 = time.time()
-    shared = share_arrays(arrays)
-    t_share = time.time() - t0
+    from ..utils.trace import tracer
+    with tracer(timings, device_type) as trace:
+        trace.stage("share")
+        shared = share_arrays(arrays)
+        trace.stage(None)
     try:
         run_t: dict = {}
         res = launch(body, devices, device_type, shared, *args,
@@ -278,7 +291,6 @@ def run_ranks(body, arrays: ReadArrays, devices: int, device_type: str,
     if res[0][1] is not None:
         note_tables(res[0][1])
     if timings is not None:
-        timings["share"] = round(t_share, 3)
         slowest([r[0] for r in res], timings)
         timings.update(run_t)
         timings["by_rank"] = [r[0] for r in res]

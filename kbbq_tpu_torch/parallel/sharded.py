@@ -30,7 +30,6 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
-import time
 
 import numpy as np
 
@@ -71,26 +70,27 @@ def windowed_rank(rank, shared, config, start_ordinal: int, checkpoint_dir,
     caller's output.  The sharded layout's filters are checkpointed as
     ``rows_a_sharded`` / ``rows_b_sharded`` (the reference's names on this
     route)."""
-    from ..pipeline.resident import StageClock
     from ..pipeline.stream_resident import (ArraysWindowSource,
                                             StreamResidentEngine)
     from ..state.checkpoint import Checkpoint
+    from ..utils.trace import tracer
 
     timings: dict = {}
-    clock = StageClock(timings, rank.device)
-    arrays = shared_rows(shared, 0, None)
-    ckpt = Checkpoint(checkpoint_dir) if checkpoint_dir else None
-    src = ArraysWindowSource(arrays, window_rows, start_ordinal)
-    names = ("rows_a_sharded", "rows_b_sharded") if layout == "sharded" \
-        else ("rows_a", "rows_b")
-    eng = StreamResidentEngine(src, config, rank.device,
-                               chunk_rows=chunk_rows, rank=rank,
-                               layout=layout, filter_names=names)
-    clock.mark("setup")
-    recal = eng.run_passes_1_to_3(ckpt, clock.mark)
-    for ordinal, nq, _ in eng.gathered(recal):
-        shared.write_rows("out", ordinal - start_ordinal, nq)
-    clock.mark("pass4")
+    with tracer(timings, rank.device) as trace:
+        trace.stage("setup")
+        arrays = shared_rows(shared, 0, None)
+        ckpt = Checkpoint(checkpoint_dir) if checkpoint_dir else None
+        src = ArraysWindowSource(arrays, window_rows, start_ordinal)
+        names = ("rows_a_sharded", "rows_b_sharded") \
+            if layout == "sharded" else ("rows_a", "rows_b")
+        eng = StreamResidentEngine(src, config, rank.device,
+                                   chunk_rows=chunk_rows, rank=rank,
+                                   layout=layout, filter_names=names,
+                                   trace=trace)
+        recal = eng.run_passes_1_to_3(ckpt)
+        trace.stage("pass4")
+        for ordinal, nq, _ in eng.gathered(recal):
+            shared.write_rows("out", ordinal - start_ordinal, nq)
     return timings, eng.tables if rank.rank == 0 else None
 
 
@@ -209,21 +209,21 @@ class _Relay:
 
 def _rank_of_run(rank, run, kw: dict):
     """One rank of a streamed route: ``run(**kw)`` (``fastq_windowed_run``
-    or ``bam_windowed_run``) with the rank's device and its own stage
-    clock -> (timings, stats)."""
-    from ..pipeline.resident import StageClock
+    or ``bam_windowed_run``) with the rank's device and its own tracer
+    -> (timings, stats)."""
+    from ..utils.trace import tracer
     timings: dict = {}
-    stats = run(clock=StageClock(timings, rank.device), dev=rank.device,
-                rank=rank, **kw)
+    with tracer(timings, rank.device) as trace:
+        trace.stage("setup")
+        stats = run(trace=trace, dev=rank.device, rank=rank, **kw)
     return timings, stats
 
 
 def _run_streamed(run, kw: dict, relay: _Relay, devices: int,
-                  device_type: str, timings: dict | None,
-                  t_scan: float) -> dict:
-    """Launch `run` on the ranks and copy the relayed sinks; the caller's
-    scan seconds, the slowest rank's stages and the launch's figures into
-    `timings`; rank 0's stats."""
+                  device_type: str, timings: dict | None) -> dict:
+    """Launch `run` on the ranks and copy the relayed sinks; the slowest
+    rank's stages and the launch's figures into `timings`; rank 0's
+    stats."""
     run_t: dict = {}
     try:
         res = launch(_rank_of_run, devices, device_type, run, kw,
@@ -232,7 +232,6 @@ def _run_streamed(run, kw: dict, relay: _Relay, devices: int,
     finally:
         relay.close()
     if timings is not None:
-        timings["scan"] = round(t_scan, 3)
         slowest([r[0] for r in res], timings)
         timings.update(run_t)
     return res[0][1]
@@ -250,22 +249,25 @@ def recalibrate_fastq_sharded(in_paths, out_paths, config, devices: int,
     the windowed engine on its windows, rank 0 writes the output (the
     bytes of one device), the report and the checkpoints.  Arguments as
     ``pipeline.stream_resident.recalibrate_fastq_stream_resident``;
-    `timings` also gets ``spawn``, ``merge``, ``merge_bytes``, ``world``,
-    ``backend`` and ``launches_by_rank``."""
+    `timings` also gets the caller's ``scan`` stage, ``spawn``,
+    ``merge``, ``merge_bytes``, ``world``, ``backend`` and
+    ``launches_by_rank``."""
     from .. import resolve_device
     from ..io.stream import DEFAULT_CHUNK_READS, scan_fastq_files
     from ..pipeline.stream_resident import (DEFAULT_HOST_CACHE_BYTES,
                                             check_fastq_checkpoint,
                                             fastq_windowed_run)
+    from ..utils.trace import tracer
     dev = resolve_device(device)
     check_devices(devices, dev.type)
     check_batch(config, devices)
     if isinstance(in_paths, (str, bytes)):
         in_paths = [in_paths]
     chunk_reads = int(chunk_reads or DEFAULT_CHUNK_READS)
-    t0 = time.time()
-    scan = scan_fastq_files(in_paths, config.k, chunk_reads)
-    t_scan = time.time() - t0
+    with tracer(timings, dev) as trace:
+        trace.stage("scan")
+        scan = scan_fastq_files(in_paths, config.k, chunk_reads)
+        trace.stage(None)
     layout = resolve_layout(bloom_layout, config, scan.total_bases,
                             scan.total_kmers(config.k), devices)
     check_fastq_checkpoint(checkpoint_dir, config, in_paths, scan,
@@ -279,7 +281,7 @@ def recalibrate_fastq_sharded(in_paths, out_paths, config, devices: int,
               if host_cache_bytes is None else host_cache_bytes,
               device_cache_bytes=device_cache_bytes, layout=layout)
     return _run_streamed(fastq_windowed_run, kw, relay, devices, dev.type,
-                         timings, t_scan)
+                         timings)
 
 
 def recalibrate_bam_sharded(in_path: str, out_path, config, devices: int,
@@ -298,13 +300,15 @@ def recalibrate_bam_sharded(in_path: str, out_path, config, devices: int,
     from ..pipeline.stream_resident import (DEFAULT_HOST_CACHE_BYTES,
                                             bam_windowed_run,
                                             check_bam_checkpoint)
+    from ..utils.trace import tracer
     dev = resolve_device(device)
     check_devices(devices, dev.type)
     check_batch(config, devices)
     chunk_records = int(chunk_records or DEFAULT_CHUNK_RECORDS)
-    t0 = time.time()
-    scan = scan_bam(in_path, config.k, chunk_records)
-    t_scan = time.time() - t0
+    with tracer(timings, dev) as trace:
+        trace.stage("scan")
+        scan = scan_bam(in_path, config.k, chunk_records)
+        trace.stage(None)
     layout = resolve_layout(bloom_layout, config, scan[1], scan[2], devices)
     check_bam_checkpoint(checkpoint_dir, config, scan, use_oq)
     relay = _Relay(out_path)
@@ -316,7 +320,7 @@ def recalibrate_bam_sharded(in_path: str, out_path, config, devices: int,
               if host_cache_bytes is None else host_cache_bytes,
               device_cache_bytes=device_cache_bytes, layout=layout)
     return _run_streamed(bam_windowed_run, kw, relay, devices, dev.type,
-                         timings, t_scan)
+                         timings)
 
 
 __all__ = ["REPLICATED_BLOOM_BUDGET", "recalibrate_bam_sharded",

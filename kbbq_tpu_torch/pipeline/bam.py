@@ -33,17 +33,17 @@ caller's process.
 from __future__ import annotations
 
 import struct
-import time
 
 import numpy as np
 
 from .. import resolve_device
 from ..io import bgzf
 from ..io.bam import (BamFile, bam_header_bytes, index_bam_bytes,
-                      machine_order_read, read_bam_bytes, record_from_body,
-                      rewrite_quals, serialize_bam)
+                      inflate_bam_bytes, machine_order_read,
+                      record_from_body, rewrite_quals, serialize_bam)
 from ..io.batcher import ReadArrays
 from ..io.native_lib import bam_offsets
+from ..utils.trace import tracer
 from .recalibrate import RecalConfig, _run_or_apply
 
 
@@ -214,97 +214,112 @@ def recalibrate_bam(in_path: str, out_path, config: RecalConfig,
     first appearance over primary records).  device=None means the CUDA
     device (raises without one).  `timings` gets the pipeline's stages and
     the host's: ``read`` (file read and inflate), ``decode`` (index, scan
-    and decode), ``rewrite`` and ``write`` (compress and write).  devices,
-    bloom_layout: as in ``run_pipeline`` (the host stages stay in this
-    process).
+    and decode), ``release`` (the decoded arrays' frees; not on SAM),
+    ``rewrite`` and ``write`` (compress and write), and their
+    spans: ``bam.load``, ``bgzf.inflate`` (counter ``bam.raw_in_bytes``,
+    the decompressed bytes), ``bam.index``, ``bam.scan``, ``bam.decode``,
+    ``bgzf.deflate`` (counter ``bam.raw_out_bytes``) and ``bam.sink``.
+    devices, bloom_layout: as in ``run_pipeline`` (the host stages stay in
+    this process).
     """
     dev = resolve_device(device)
     is_sam = str(in_path).endswith((".sam", ".sam.gz"))
     fmt = _output_format(out_path, "sam" if is_sam else "bam")
-    mark = _stage_marker(timings)
     run_kw = dict(device=dev, timings=timings, checkpoint_dir=checkpoint_dir,
                   devices=devices, bloom_layout=bloom_layout)
-    if is_sam:
-        bf, primary, arrays, lens, registry = _read_sam_arrays(in_path,
-                                                               use_oq)
-        mark("read")
-        new_quals = _run_or_apply(arrays, config, _registry_names(registry),
-                                  report_out, apply_report, **run_kw)
-        mark(None)
-        for i, rec in enumerate(primary):
-            rewrite_quals(rec, new_quals[i][:int(lens[i])], set_oq=set_oq)
-        mark("rewrite")
-        _write_alignment_output(bf, out_path, fmt, primary, arrays.rgs,
-                                registry)
-        mark("write")
-        return {"num_reads": len(primary), "total_bases": int(lens.sum()),
-                "read_groups": len(registry)}
+    with tracer(timings, dev) as trace:
+        trace.stage("read")
+        if is_sam:
+            bf, primary, arrays, lens, registry = _read_sam_arrays(in_path,
+                                                                   use_oq)
+            new_quals = _run_or_apply(arrays, config,
+                                      _registry_names(registry), report_out,
+                                      apply_report, **run_kw)
+            trace.stage("rewrite")
+            for i, rec in enumerate(primary):
+                rewrite_quals(rec, new_quals[i][:int(lens[i])],
+                              set_oq=set_oq)
+            trace.stage("write")
+            _write_alignment_output(bf, out_path, fmt, primary, arrays.rgs,
+                                    registry)
+            return {"num_reads": len(primary),
+                    "total_bases": int(lens.sum()),
+                    "read_groups": len(registry)}
 
-    raw = read_bam_bytes(in_path)
-    mark("read")
-    return _recalibrate_records(*index_bam_bytes(raw), out_path, fmt, config,
-                                use_oq, set_oq, report_out, apply_report,
-                                run_kw, mark)
-
-
-def _stage_marker(timings: dict | None):
-    """mark(name): the seconds since the last mark into timings[name] (when
-    timings is given); mark(None) restarts the clock only."""
-    stamps = [time.time()]
-
-    def mark(name):
-        now = time.time()
-        if timings is not None and name is not None:
-            timings[name] = round(now - stamps[0], 3)
-        stamps[0] = now
-    return mark
+        with trace.span("bam.load"):
+            with open(in_path, "rb") as f:
+                data = f.read()
+        with trace.span("bgzf.inflate"):
+            raw = inflate_bam_bytes(data)
+        del data
+        trace.count("bam.raw_in_bytes", len(raw))
+        trace.stage("decode")
+        with trace.span("bam.index"):
+            indexed = index_bam_bytes(raw)
+        return _recalibrate_records(*indexed, out_path, fmt, config, use_oq,
+                                    set_oq, report_out, apply_report, run_kw,
+                                    trace)
 
 
 def _recalibrate_records(header_text, refs, buf, offs, sizes, out_path,
                          fmt: str, config, use_oq: bool, set_oq: bool,
-                         report_out, apply_report, run_kw: dict, mark,
+                         report_out, apply_report, run_kw: dict, trace,
                          cram: bool = False) -> dict:
     """The whole-file route from a buffer of back-to-back BAM records (each
-    after its block_size; offs / sizes their bodies): scan, whole-buffer
-    decode (``decode`` stage), ``_run_or_apply``, QUAL rewrite
-    (``rewrite``) and the output as `fmt` (``write``).  `cram`: the
-    records came from a CRAM, whose qualities the JAX package reads as
-    int8 (``_wrapped_quals_to_zero``)."""
+    after its block_size; offs / sizes their bodies), inside the
+    ``decode`` stage of `trace`: scan (``bam.scan``), whole-buffer decode
+    (``bam.decode``), ``_run_or_apply``, the decoded arrays' release
+    (``release`` stage), QUAL rewrite (``rewrite`` stage) and the output
+    as `fmt` (``write`` stage).  `cram`: the records came
+    from a CRAM, whose qualities the JAX package reads as int8
+    (``_wrapped_quals_to_zero``)."""
     from ..io.bam_vec import (decode_machine_chunk, rewrite_quals_chunk,
                               scan_chunk)
-    _, _, _, max_len, keys = scan_chunk(buf, offs, sizes, config.k)
+    with trace.span("bam.scan"):
+        _, _, _, max_len, keys = scan_chunk(buf, offs, sizes, config.k)
     registry = {key: i for i, key in enumerate(keys)}
-    codes, quals, mask, rgs, seconds, lens, prim = decode_machine_chunk(
-        buf, offs, sizes, max_len, registry, use_oq=use_oq)
-    if cram:
-        _wrapped_quals_to_zero(buf, offs, sizes, prim, lens, quals, use_oq)
+    with trace.span("bam.decode"):
+        codes, quals, mask, rgs, seconds, lens, prim = decode_machine_chunk(
+            buf, offs, sizes, max_len, registry, use_oq=use_oq)
+        if cram:
+            _wrapped_quals_to_zero(buf, offs, sizes, prim, lens, quals,
+                                   use_oq)
     arrays = ReadArrays(codes, quals, mask, rgs, seconds)
-    mark("decode")
     new_quals = _run_or_apply(arrays, config, _registry_names(registry),
                               report_out, apply_report, **run_kw)
+    # the decoded arrays' frees: a stage of their own, outside the codec's
+    trace.stage("release")
     del arrays, codes, quals, mask
-    mark(None)
+    trace.stage("rewrite")
     records = rewrite_quals_chunk(buf, offs, sizes, prim, lens, new_quals,
                                   set_oq=set_oq)
     del new_quals
-    mark("rewrite")
+    trace.stage("write")
     _write_records(header_text, refs, records, prim, rgs, registry, out_path,
-                   fmt)
-    mark("write")
+                   fmt, trace)
     return {"num_reads": int(prim.size), "total_bases": int(lens.sum()),
             "read_groups": len(registry)}
 
 
 def _write_records(header_text, refs, records, prim, rgs, registry, out_path,
-                   fmt: str) -> None:
+                   fmt: str, trace) -> None:
     """Write a buffer of back-to-back records (block_size prefixes
-    included) as `fmt`: BAM as one BGZF stream of header and records; SAM
-    and CRAM through the record model (prim: the primary records' indices,
-    rgs their dense read-group ids, for the CRAM writer)."""
+    included) as `fmt`: BAM as one BGZF stream of header and records
+    (`trace`'s spans ``bgzf.deflate``, counter ``bam.raw_out_bytes``, and
+    ``bam.sink``); SAM and CRAM through the record model (prim: the
+    primary records' indices, rgs their dense read-group ids, for the CRAM
+    writer)."""
     if fmt == "bam":
-        head = np.frombuffer(bam_header_bytes(header_text, refs), np.uint8)
-        _write_bytes(bgzf.compress(np.concatenate(
-            [head, np.frombuffer(records, np.uint8)])), out_path)
+        with trace.span("bgzf.deflate"):
+            raw = np.concatenate(
+                [np.frombuffer(bam_header_bytes(header_text, refs),
+                               np.uint8),
+                 np.frombuffer(records, np.uint8)])
+            data = bgzf.compress(raw)
+        trace.count("bam.raw_out_bytes", raw.size)
+        del raw
+        with trace.span("bam.sink"):
+            _write_bytes(data, out_path)
         return
     recs = _records_of(records)
     _write_alignment_output(BamFile(header_text, refs, recs), out_path, fmt,
@@ -413,15 +428,16 @@ def recalibrate_cram(in_path: str, out_path, config: RecalConfig,
 
     dev = resolve_device(device)
     fmt = _output_format(out_path, "bam")
-    mark = _stage_marker(timings)
-    bf, _ = read_cram(in_path, fasta_ref=fasta_ref)
-    buf, offs, sizes = _records_buffer(bf.records)
-    header_text, refs = bf.header_text, bf.refs
-    del bf
-    mark("read")
-    return _recalibrate_records(
-        header_text, refs, buf, offs, sizes, out_path, fmt, config, use_oq,
-        set_oq, report_out, apply_report,
-        dict(device=dev, timings=timings, checkpoint_dir=checkpoint_dir,
-             devices=devices, bloom_layout=bloom_layout),
-        mark, cram=True)
+    with tracer(timings, dev) as trace:
+        trace.stage("read")
+        bf, _ = read_cram(in_path, fasta_ref=fasta_ref)
+        buf, offs, sizes = _records_buffer(bf.records)
+        header_text, refs = bf.header_text, bf.refs
+        del bf
+        trace.stage("decode")
+        return _recalibrate_records(
+            header_text, refs, buf, offs, sizes, out_path, fmt, config,
+            use_oq, set_oq, report_out, apply_report,
+            dict(device=dev, timings=timings, checkpoint_dir=checkpoint_dir,
+                 devices=devices, bloom_layout=bloom_layout),
+            trace, cram=True)

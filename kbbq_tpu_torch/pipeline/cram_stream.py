@@ -36,7 +36,7 @@ from ..io.cram_vec import _ragged_flat_index, decode_slice_vec, scan_slice_vec
 from ..io.cram_write import CramStreamWriter, rewrite_container_quals
 from ..io.fasta import read_fasta
 from ..io.stream import prefetch_iter
-from .resident import StageClock
+from ..utils.trace import tracer
 from .stream_resident import (DEFAULT_HOST_CACHE_BYTES, StreamResidentEngine,
                               _HostChunkCache)
 
@@ -357,20 +357,33 @@ def recalibrate_cram_stream_resident(
     on a card, peak device bytes of scan, setup, pass1-4, deltas) and
     device as in ``recalibrate_bam_streaming``.
     """
-    from .bam import _registry_names
-
     if set_oq:
         raise ValueError(
             "--set-oq with streaming CRAM is unsupported; the "
             "whole-file CRAM path handles it")
     dev = resolve_device(device)
-    clock = StageClock(timings, dev)
+    with tracer(timings, dev) as trace:
+        return _cram_windowed_run(in_path, out_path, config, use_oq,
+                                  fasta_ref, checkpoint_dir, report_out,
+                                  apply_report, dev, host_cache_bytes,
+                                  device_cache_bytes, trace)
+
+
+def _cram_windowed_run(in_path, out_path, config, use_oq, fasta_ref,
+                       checkpoint_dir, report_out, apply_report, dev,
+                       host_cache_bytes, device_cache_bytes, trace) -> dict:
+    """The body of ``recalibrate_cram_stream_resident``, its stages opened
+    on `trace`."""
+    from .bam import _registry_names
+
+    trace.stage("scan")
     n, bases, tk, max_len, registry, rg_names, header_text = scan_cram(
         in_path, config.k, fasta_ref)
-    clock.mark("scan")
+    trace.stage("setup")
     src = CramWindowSource(in_path, fasta_ref, registry, rg_names, max_len,
                            n, bases, tk, use_oq, host_cache_bytes)
-    eng = StreamResidentEngine(src, config, dev, device_cache_bytes)
+    eng = StreamResidentEngine(src, config, dev, device_cache_bytes,
+                               trace=trace)
     ckpt = None
     if checkpoint_dir:
         # the JAX package's CRAM fingerprint: each package resumes the other's
@@ -385,14 +398,15 @@ def recalibrate_cram_stream_resident(
             "ext_cap": effective_ext_cap(config), "use_oq": use_oq,
             "num_reads": n, "total_bases": bases, "cram": True})
     names = _registry_names(registry)
-    clock.mark("setup")
 
     if apply_report is not None:
         from ..gatk_report import read_gatk_report, recal_table_from_report
+        trace.stage("pass4")
         recal = recal_table_from_report(read_gatk_report(apply_report),
                                         names, eng.L)
     else:
-        recal = eng.run_passes_1_to_3(ckpt, clock.mark)
+        recal = eng.run_passes_1_to_3(ckpt)
+        trace.stage("pass4")
         if report_out is not None:
             from ..gatk_report import write_gatk_report
             write_gatk_report(eng.tables, names, report_out)
@@ -400,7 +414,6 @@ def recalibrate_cram_stream_resident(
     # ---- pass 4: gather on the card, rebuild + write in order on one thread
     windows = write_cram_windows(eng, recal, src,
                                  CramStreamWriter(out_path, header_text))
-    clock.mark("pass4")
     return {"num_reads": n, "total_bases": bases, "read_groups": eng.num_rg,
             "streamed": True, "engine": "resident-window", "format": "cram",
             "windows": windows}

@@ -25,6 +25,7 @@ from ..constants import (
     LIGHTER_ALPHA_NUMERATOR,
 )
 from ..io.batcher import ReadArrays
+from ..utils.trace import OFF, tracer
 
 
 @dataclasses.dataclass
@@ -151,22 +152,27 @@ def run_pipeline(arrays: ReadArrays, config: RecalConfig,
     """
     from .. import resolve_device
     dev = resolve_device(device)
-    if devices is not None and devices > 1:
-        return _run_devices(arrays, config, devices, bloom_layout, dev,
-                            timings, chunk_rows, checkpoint_dir,
-                            start_ordinal)
-    if arrays.num_reads == 0:
-        return np.zeros((0, arrays.max_len), np.int8)
-    if checkpoint_dir is None and start_ordinal == 0 and \
-            fits_resident(arrays, dev, config, chunk_rows):
-        from .resident import recalibrate_arrays_resident
-        return recalibrate_arrays_resident(arrays, config, timings=timings,
-                                           device=dev, chunk_rows=chunk_rows)
-    from .stream_resident import recalibrate_arrays_windowed
-    return recalibrate_arrays_windowed(
-        arrays, config, start_ordinal=start_ordinal,
-        checkpoint_dir=checkpoint_dir, device=dev, timings=timings,
-        chunk_rows=chunk_rows)
+    with tracer(timings, dev) as trace:
+        # the route's choice (the card's free memory) is a stage of its own
+        trace.stage("route")
+        if devices is not None and devices > 1:
+            trace.stage(None)        # the ranks' stages come from the ranks
+            return _run_devices(arrays, config, devices, bloom_layout, dev,
+                                timings, chunk_rows, checkpoint_dir,
+                                start_ordinal)
+        if arrays.num_reads == 0:
+            return np.zeros((0, arrays.max_len), np.int8)
+        if checkpoint_dir is None and start_ordinal == 0 and \
+                fits_resident(arrays, dev, config, chunk_rows):
+            from .resident import recalibrate_arrays_resident
+            return recalibrate_arrays_resident(
+                arrays, config, timings=timings, device=dev,
+                chunk_rows=chunk_rows)
+        from .stream_resident import recalibrate_arrays_windowed
+        return recalibrate_arrays_windowed(
+            arrays, config, start_ordinal=start_ordinal,
+            checkpoint_dir=checkpoint_dir, device=dev, timings=timings,
+            chunk_rows=chunk_rows)
 
 
 def _run_devices(arrays, config, devices: int, bloom_layout: str, dev,
@@ -214,14 +220,20 @@ def apply_table_arrays(arrays: ReadArrays, recal_table: np.ndarray,
 def _run_or_apply(arrays, config, rg_names, report_out, apply_report,
                   **run_kwargs):
     """Engine dispatch of the report-aware entry points: apply_report -> pass 4
-    only, from a parsed GATKReport; report_out -> the full pipeline, and
-    the report of its covariate tables; else the plain pipeline."""
+    only, from a parsed GATKReport (the ``pass4`` stage of the tracer of
+    ``run_kwargs["timings"]``); report_out -> the full pipeline, and the
+    report of its covariate tables; else the plain pipeline."""
     if apply_report is not None:
+        from .. import resolve_device
         from ..gatk_report import read_gatk_report, recal_table_from_report
-        table = recal_table_from_report(
-            read_gatk_report(apply_report), rg_names, arrays.max_len)
-        return apply_table_arrays(arrays, table,
-                                  device=run_kwargs.get("device"))
+        dev = resolve_device(run_kwargs.get("device"))
+        with tracer(run_kwargs.get("timings"), dev) as trace:
+            trace.stage("pass4")
+            table = recal_table_from_report(
+                read_gatk_report(apply_report), rg_names, arrays.max_len)
+            out = apply_table_arrays(arrays, table, device=dev)
+            trace.stage(None)
+            return out
     if report_out is not None:
         from ..gatk_report import write_gatk_report
         from ..oracle.gatk import captured_tables
@@ -232,45 +244,66 @@ def _run_or_apply(arrays, config, rg_names, report_out, apply_report,
     return run_pipeline(arrays, config, **run_kwargs)
 
 
-def _load_fastq_arrays(in_paths, interleaved: bool):
+def _load_fastq_arrays(in_paths, interleaved: bool, trace=OFF):
     """Load FASTQ inputs into one padded ReadArrays (each input file is
-    its own read group, DECISIONS.md D8): (fqs, mask_list, arrays)."""
-    from ..io.fastq import extract_padded_arrays, read_fastq
+    its own read group, DECISIONS.md D8): (fqs, mask_list, arrays).  On
+    `trace`: the spans ``fastq.load`` (counter ``fastq.in_bytes``, the
+    files' sizes), ``fastq.index``, ``fastq.extract`` and
+    ``fastq.pairing``."""
+    import os
 
-    fqs = [read_fastq(p) for p in in_paths]
-    parts = [extract_padded_arrays(fq) for fq in fqs]
-    max_len = max((p[0].shape[1] for p in parts if p[0].shape[0]),
-                  default=1)
-    codes_l, quals_l, mask_l, rg_l, sec_l = [], [], [], [], []
-    for rg, (fq, (codes, quals, mask, lens)) in enumerate(zip(fqs, parts)):
-        pad = max_len - codes.shape[1]
-        if pad:
-            codes = np.pad(codes, ((0, 0), (0, pad)), constant_values=4)
-            quals = np.pad(quals, ((0, 0), (0, pad)))
-            mask = np.pad(mask, ((0, 0), (0, pad)))
-        codes_l.append(codes)
-        quals_l.append(quals)
-        mask_l.append(mask)
-        rg_l.append(np.full(fq.num_reads, rg, np.int32))
+    from ..io.fastq import (_load_bytes, extract_padded_arrays,
+                            parse_fastq_bytes)
+
+    fqs = []
+    for p in in_paths:
+        with trace.span("fastq.load"):
+            buf = _load_bytes(p)
+        trace.count("fastq.in_bytes", os.path.getsize(p))
+        with trace.span("fastq.index"):
+            fqs.append(parse_fastq_bytes(buf))
+        del buf
+    with trace.span("fastq.pairing"):
         if interleaved:
             # D11: interleaved pairing — odd ordinals are second-in-pair
-            sec_l.append(np.arange(fq.num_reads) % 2 == 1)
+            sec_l = [np.arange(fq.num_reads) % 2 == 1 for fq in fqs]
         else:
-            sec_l.append(fq.seconds_mask())
-    if len(fqs) == 1:
-        arrays = ReadArrays(codes_l[0], quals_l[0], mask_l[0], rg_l[0],
-                            sec_l[0])
-    else:
-        arrays = ReadArrays(np.concatenate(codes_l), np.concatenate(quals_l),
-                            np.concatenate(mask_l), np.concatenate(rg_l),
-                            np.concatenate(sec_l))
+            sec_l = [fq.seconds_mask() for fq in fqs]
+    with trace.span("fastq.extract"):
+        parts = [extract_padded_arrays(fq) for fq in fqs]
+        max_len = max((p[0].shape[1] for p in parts if p[0].shape[0]),
+                      default=1)
+        codes_l, quals_l, mask_l, rg_l = [], [], [], []
+        for rg, (fq, (codes, quals, mask, lens)) in enumerate(
+                zip(fqs, parts)):
+            pad = max_len - codes.shape[1]
+            if pad:
+                codes = np.pad(codes, ((0, 0), (0, pad)), constant_values=4)
+                quals = np.pad(quals, ((0, 0), (0, pad)))
+                mask = np.pad(mask, ((0, 0), (0, pad)))
+            codes_l.append(codes)
+            quals_l.append(quals)
+            mask_l.append(mask)
+            rg_l.append(np.full(fq.num_reads, rg, np.int32))
+        del parts
+        if len(fqs) == 1:
+            arrays = ReadArrays(codes_l[0], quals_l[0], mask_l[0], rg_l[0],
+                                sec_l[0])
+        else:
+            arrays = ReadArrays(
+                np.concatenate(codes_l), np.concatenate(quals_l),
+                np.concatenate(mask_l), np.concatenate(rg_l),
+                np.concatenate(sec_l))
     return fqs, mask_l, arrays
 
 
-def _write_fastq_outputs(fqs, mask_l, new_quals, out_paths) -> None:
+def _write_fastq_outputs(fqs, mask_l, new_quals, out_paths,
+                         trace=OFF) -> None:
     """Route per-input qual rows to out_paths (matching list, one
-    concatenated sink path, or a writable)."""
-    from ..io.fastq import open_fastq_sink, write_fastq_with_quals
+    concatenated sink path, or a writable).  On `trace`: the spans
+    ``fastq.render`` (counter ``fastq.out_bytes``, the text rendered) and
+    ``fastq.sink``."""
+    from ..io.fastq import _write_out, open_fastq_sink, render_fastq_with_quals
 
     # A single path (or file object) with multiple inputs is ONE
     # concatenated sink: open it once so later inputs append rather than
@@ -288,8 +321,13 @@ def _write_fastq_outputs(fqs, mask_l, new_quals, out_paths) -> None:
         s = 0
         for fq, mask, out in zip(fqs, mask_l, out_paths):
             e = s + fq.num_reads
-            write_fastq_with_quals(fq, new_quals[s:e], mask[:fq.num_reads],
-                                   out)
+            with trace.span("fastq.render"):
+                text = render_fastq_with_quals(fq, new_quals[s:e],
+                                               mask[:fq.num_reads])
+            trace.count("fastq.out_bytes", len(text))
+            with trace.span("fastq.sink"):
+                _write_out(text, out)
+            del text
             s = e
     finally:
         if opened is not None:
@@ -313,7 +351,8 @@ def recalibrate_fastq(in_paths, out_paths, config: RecalConfig,
     writable (outputs concatenated in input order).  Plain or gzip input,
     plain or BGZF (``.gz``) output.  device=None means the CUDA device
     (raises without one).  `timings`, when given, also gets ``read`` and
-    ``write`` (host IO, s).
+    ``write`` (host IO, s), and their spans (``_load_fastq_arrays``,
+    ``_write_fastq_outputs``).
 
     report_out: also write the computed covariates as a GATKReport.
     apply_report: SKIP passes 1-3 and recalibrate from a previously
@@ -323,24 +362,22 @@ def recalibrate_fastq(in_paths, out_paths, config: RecalConfig,
     the first one not saved (``run_pipeline``).  devices, bloom_layout: as
     in ``run_pipeline`` (apply_report runs pass 4 alone, on one device).
     """
-    import time
-
     from .. import resolve_device
     dev = resolve_device(device)
     if isinstance(in_paths, (str, bytes)):
         in_paths = [in_paths]
-    t0 = time.time()
-    fqs, mask_l, arrays = _load_fastq_arrays(in_paths, interleaved)
-    t1 = time.time()
-    new_quals = _run_or_apply(arrays, config, [str(p) for p in in_paths],
-                              report_out, apply_report, device=dev,
-                              timings=timings, checkpoint_dir=checkpoint_dir,
-                              devices=devices, bloom_layout=bloom_layout)
-    t2 = time.time()
-    _write_fastq_outputs(fqs, mask_l, new_quals, out_paths)
-    if timings is not None:
-        timings["read"] = round(t1 - t0, 3)
-        timings["write"] = round(time.time() - t2, 3)
-    return {"num_reads": arrays.num_reads,
-            "total_bases": int(arrays.mask.sum()),
-            "read_groups": len(fqs)}
+    with tracer(timings, dev) as trace:
+        trace.stage("read")
+        fqs, mask_l, arrays = _load_fastq_arrays(in_paths, interleaved,
+                                                 trace)
+        new_quals = _run_or_apply(
+            arrays, config, [str(p) for p in in_paths], report_out,
+            apply_report, device=dev, timings=timings,
+            checkpoint_dir=checkpoint_dir, devices=devices,
+            bloom_layout=bloom_layout)
+        trace.stage("write")
+        _write_fastq_outputs(fqs, mask_l, new_quals, out_paths, trace)
+        # the mask is each read's first len_i columns: its sum is the lengths'
+        return {"num_reads": arrays.num_reads,
+                "total_bases": int(sum(int(fq.lengths.sum()) for fq in fqs)),
+                "read_groups": len(fqs)}

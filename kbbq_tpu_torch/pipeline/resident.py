@@ -24,8 +24,6 @@ bit.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -43,24 +41,32 @@ from ..oracle.gatk import build_recal_table
 from ..oracle.kmers import alpha_threshold
 from ..oracle.lighter import coverage_thresholds
 from ..oracle.pipeline import bloom_params_for
+from ..utils.trace import OFF, tracer
 
 # rows per chunk of passes 2-4
 DEFAULT_CHUNK_ROWS = 65536
 
 
-def arrays_to_device(arrays: ReadArrays, dev):
+def arrays_to_device(arrays: ReadArrays, dev, trace=OFF):
     """(codes, quals, mask, rgs, seconds) of `arrays` as tensors on `dev`,
-    everything past a read's end set to code 4."""
-    mask = torch.from_numpy(np.ascontiguousarray(arrays.mask)).to(dev)
-    codes = torch.from_numpy(np.ascontiguousarray(arrays.codes)).to(dev)
+    everything past a read's end set to code 4.  The copies are `trace`'s
+    ``h2d.copy`` spans (device time) and ``h2d_bytes``."""
+    mask = np.ascontiguousarray(arrays.mask)
+    codes = np.ascontiguousarray(arrays.codes)
+    with trace.span("h2d.copy", device=True):
+        mask_d = torch.from_numpy(mask).to(dev)
+        codes_d = torch.from_numpy(codes).to(dev)
     # everything past a read's end is code 4, whatever the caller left there
-    codes = torch.where(mask, codes, torch.full_like(codes, 4))
-    quals = torch.from_numpy(np.ascontiguousarray(arrays.quals)).to(dev)
-    rgs = torch.from_numpy(
-        np.ascontiguousarray(arrays.rgs, dtype=np.int64)).to(dev)
-    seconds = torch.from_numpy(
-        np.ascontiguousarray(arrays.seconds, dtype=bool)).to(dev)
-    return codes, quals, mask, rgs, seconds
+    codes_d = torch.where(mask_d, codes_d, torch.full_like(codes_d, 4))
+    rest = (np.ascontiguousarray(arrays.quals),
+            np.ascontiguousarray(arrays.rgs, dtype=np.int64),
+            np.ascontiguousarray(arrays.seconds, dtype=bool))
+    with trace.span("h2d.copy", device=True):
+        quals_d, rgs_d, seconds_d = (torch.from_numpy(a).to(dev)
+                                     for a in rest)
+    trace.count("h2d_bytes",
+                mask.nbytes + codes.nbytes + sum(a.nbytes for a in rest))
+    return codes_d, quals_d, mask_d, rgs_d, seconds_d
 
 
 def apply_table_tensor(recal, codes, quals, mask, rgs, seconds,
@@ -79,38 +85,20 @@ def apply_table_tensor(recal, codes, quals, mask, rgs, seconds,
 
 
 def apply_table_on_device(recal, codes, quals, mask, rgs, seconds,
-                          rows: int) -> np.ndarray:
-    """``apply_table_tensor``, its result copied to the host."""
-    return apply_table_tensor(recal, codes, quals, mask, rgs, seconds,
-                              rows).cpu().numpy()
+                          rows: int, trace=OFF) -> np.ndarray:
+    """``apply_table_tensor``, its result copied to the host (`trace`'s
+    ``d2h.copy`` span and ``d2h_bytes``)."""
+    out = apply_table_tensor(recal, codes, quals, mask, rgs, seconds, rows)
+    return to_host(out, trace).numpy()
 
 
-class StageClock:
-    """Per-stage wall times into `timings` (None: records nothing and
-    never synchronises).  ``mark(name)`` closes the stage that began at the
-    last mark: on a CUDA device it synchronises first and also records the
-    peak of allocated device memory while the stage ran
-    (``<name>_peak_bytes``)."""
-
-    def __init__(self, timings: dict | None, dev):
-        self.timings = timings
-        self.cuda = dev.type == "cuda"
-        self.dev = dev
-        self.last = time.time()
-        if timings is not None and self.cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
-
-    def mark(self, name: str) -> None:
-        if self.timings is None:
-            return
-        if self.cuda:
-            torch.cuda.synchronize(self.dev)
-            self.timings[name + "_peak_bytes"] = \
-                torch.cuda.max_memory_allocated(self.dev)
-            torch.cuda.reset_peak_memory_stats(self.dev)
-        now = time.time()
-        self.timings[name] = round(now - self.last, 3)
-        self.last = now
+def to_host(t: torch.Tensor, trace=OFF) -> torch.Tensor:
+    """`t` copied to the host: `trace`'s ``d2h.copy`` span (device time)
+    and ``d2h_bytes``."""
+    with trace.span("d2h.copy", device=True):
+        host = t.cpu()
+    trace.count("d2h_bytes", t.nbytes)
+    return host
 
 
 def recalibrate_arrays_resident(arrays: ReadArrays, config,
@@ -125,14 +113,22 @@ def recalibrate_arrays_resident(arrays: ReadArrays, config,
     are recorded into it (setup, h2d, pass1, pass2, pass3, deltas, pass4),
     each closed by a device synchronise, and on a CUDA device beside each
     the peak of allocated device memory while it ran
-    (``<stage>_peak_bytes``); without it nothing synchronises but the
-    transfers back to the host.  `chunk_rows` (default DEFAULT_CHUNK_ROWS)
+    (``<stage>_peak_bytes``), and the spans and counters of
+    ``utils/trace.py``; without it nothing synchronises but the transfers
+    back to the host.  `chunk_rows` (default DEFAULT_CHUNK_ROWS)
     is the number of rows per chunk; the result does not depend on it, and
     ``config.batch_size`` is not read here.
     """
     dev = resolve_device(device)
-    _mark = StageClock(timings, dev).mark
+    with tracer(timings, dev) as trace:
+        return _resident_passes(arrays, config, dev, chunk_rows, trace)
 
+
+def _resident_passes(arrays: ReadArrays, config, dev, chunk_rows, trace
+                     ) -> np.ndarray:
+    """The body of ``recalibrate_arrays_resident``, its stages opened on
+    `trace` and the last closed before it returns."""
+    trace.stage("setup")
     k, h = config.k, config.num_hashes
     N, L = arrays.num_reads, arrays.max_len
     rows = int(chunk_rows or DEFAULT_CHUNK_ROWS)
@@ -151,27 +147,27 @@ def recalibrate_arrays_resident(arrays: ReadArrays, config,
         check_layout_capacity(p, 33, "single-device resident",
                               "lower the bits per key or split the input")
     la, lb = params_a.log2_m, params_b.log2_m
-    _mark("setup")
 
-    codes, quals, mask, rgs, seconds = arrays_to_device(arrays, dev)
+    trace.stage("h2d")
+    codes, quals, mask, rgs, seconds = arrays_to_device(arrays, dev, trace)
     t_table = torch.from_numpy(t_host.astype(np.int32)).to(dev)
-    _mark("h2d")
 
     chunks = [(s, min(N, s + rows)) for s in range(0, N, rows)]
 
     # ---- pass 1: hash cache + filter A (`flag` holds the keep bits)
+    trace.stage("pass1")
     h1, word, flag, filt_a = hash_cache_build(codes, 0, k, h, threshold, la,
                                               chunk_rows=rows)
-    _mark("pass1")
 
     # ---- pass 2: trusted windows (written over the keep plane) + filter B
+    trace.stage("pass2")
     trusted_from_cache(filt_a, h1, word, t_table, k, config.trust_threshold,
                        out=flag)
     filt_b = bloom_build_words(h1, word, flag, lb)
     del filt_a
-    _mark("pass2")
 
     # ---- pass 3: walks + covariate histogram
+    trace.stage("pass3")
     cov = new_covariate_state(num_rg, L, dev)
     tr0 = bloom_query_words(filt_b, h1, word)
     for s, e in chunks:
@@ -181,15 +177,15 @@ def recalibrate_arrays_resident(arrays: ReadArrays, config,
                               rgs[s:e], seconds[s:e], err)
     del tr0, h1, word, flag, filt_b
     tables = CovariateTables(
-        num_rg, L, *(cov[name].cpu().numpy() for name in
+        num_rg, L, *(to_host(cov[name], trace).numpy() for name in
                      ("cyc_total", "cyc_errors", "din_total", "din_errors")))
-    _mark("pass3")
 
+    trace.stage("deltas")
     recal_host = build_recal_table(tables)
-    _mark("deltas")
 
     # ---- pass 4: gather
+    trace.stage("pass4")
     res = apply_table_on_device(recal_host, codes, quals, mask, rgs, seconds,
-                                rows)
-    _mark("pass4")
+                                rows, trace)
+    trace.stage(None)
     return res

@@ -78,9 +78,9 @@ from ..oracle.kmers import alpha_threshold
 from ..oracle.lighter import coverage_thresholds
 from ..oracle.pipeline import bloom_params_for
 from ..state.convert import bloom_from_numpy, bloom_to_numpy
-from .resident import (DEFAULT_CHUNK_ROWS, StageClock,
-                       apply_table_on_device, apply_table_tensor,
-                       arrays_to_device)
+from ..utils.trace import OFF, tracer
+from .resident import (DEFAULT_CHUNK_ROWS, apply_table_on_device,
+                       apply_table_tensor, arrays_to_device, to_host)
 
 # decoded FASTQ chunks kept on the host across passes, at most (the JAX
 # package's figure); a larger input re-reads its files every pass
@@ -127,11 +127,14 @@ class FastqWindowSource:
     index, FastqData) with arrays = ``chunk_to_batch_arrays``'s.  `files`:
     the (file index, global ordinal of its first read) of the files to
     cover, by default every file in order; on several hosts, a host's own
-    files at their canonical ordinals (``parallel/multihost.py``)."""
+    files at their canonical ordinals (``parallel/multihost.py``).  The
+    read-ahead thread's spans go to `trace` (``io/stream.py::
+    prefetch_iter``)."""
 
     def __init__(self, in_paths, scan, interleaved: bool, chunk_reads: int,
                  host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES,
-                 files=None):
+                 files=None, trace=OFF):
+        self.trace = trace
         self.in_paths = list(in_paths)
         self.scan = scan
         self.interleaved = interleaved
@@ -164,7 +167,8 @@ class FastqWindowSource:
                     yield fi, ordinal, fq
                     ordinal += fq.num_reads
 
-        for fi, ordinal, fq in prefetch_iter(parsed(), depth=2):
+        for fi, ordinal, fq in prefetch_iter(parsed(), depth=2,
+                                             trace=self.trace):
             arrs = chunk_to_batch_arrays(fq, self.max_len, fi, ordinal,
                                          self.interleaved)
             item = (ordinal, arrs, fi, fq)
@@ -291,13 +295,16 @@ class StreamResidentEngine:
     `source` gives num_rg, num_reads, max_len, total_bases,
     total_kmers(k) and a re-iterable windows() of items whose first two
     fields are the window's ordinal and host arrays (codes, quals, mask,
-    rgs, seconds, ...); the rest is the source's own, for pass 4."""
+    rgs, seconds, ...); the rest is the source's own, for pass 4.  The
+    copies to and from the card are spans of `trace` (``h2d.copy``,
+    ``d2h.copy``)."""
 
     def __init__(self, source, config, dev, device_cache_bytes=None,
                  chunk_rows: int | None = None, rank=None,
                  layout: str = "replicated",
-                 filter_names=("rows_a", "rows_b")):
+                 filter_names=("rows_a", "rows_b"), trace=OFF):
         self.source = source
+        self.trace = trace
         # a rank of a process group (``parallel/mesh.py``): it stages every
         # L-th window (L = its host's ranks) and merges over the group at
         # every pass boundary, or with the "sharded" layout holds its shard
@@ -368,7 +375,8 @@ class StreamResidentEngine:
                 mine += 1
             else:
                 ordinal, arrs = item[0], item[1][:5]
-                w = arrays_to_device(ReadArrays(*arrs), self.dev)
+                w = arrays_to_device(ReadArrays(*arrs), self.dev,
+                                     self.trace)
                 if self._cache_on:
                     self._dev_cache.append((ordinal, w))
             yield ordinal, w, item
@@ -481,16 +489,18 @@ class StreamResidentEngine:
             sum_merge(self.rank, cov)
         self.tables = CovariateTables(
             self.num_rg, self.L,
-            *(cov[name].cpu().numpy() for name in
+            *(to_host(cov[name], self.trace).numpy() for name in
               ("cyc_total", "cyc_errors", "din_total", "din_errors")))
 
-    def run_passes_1_to_3(self, ckpt, mark) -> np.ndarray:
+    def run_passes_1_to_3(self, ckpt) -> np.ndarray:
         """Passes 1-3 (each loaded from `ckpt` where it holds the pass),
-        then the Q' table; `mark` closes each stage.  Of a group's ranks
-        every one loads, rank 0 alone saves (the merged state, in the
-        one-device files) and computes the table, which it broadcasts."""
+        then the Q' table, each a stage of the engine's tracer.  Of a
+        group's ranks every one loads, rank 0 alone saves (the merged
+        state, in the one-device files) and computes the table, which it
+        broadcasts."""
         saves = ckpt if self.rank is None or self.rank.rank == 0 else None
         name_a, name_b = self.filter_names
+        self.trace.stage("pass1")
         rows = ckpt.load_array(name_a) if ckpt else None
         if rows is not None:
             self.filt_a = self._load_filter(rows)
@@ -498,7 +508,7 @@ class StreamResidentEngine:
             self.run_pass1()
             if ckpt:
                 self._save_filter(saves, name_a, self.filt_a)
-        mark("pass1")
+        self.trace.stage("pass2")
         rows = ckpt.load_array(name_b) if ckpt else None
         if rows is not None:
             self.filt_b = self._load_filter(rows)
@@ -507,7 +517,7 @@ class StreamResidentEngine:
             if ckpt:
                 self._save_filter(saves, name_b, self.filt_b)
         self.filt_a = None
-        mark("pass2")
+        self.trace.stage("pass3")
         loaded = ckpt.load_covariates() if ckpt else None
         if loaded is not None:
             self.tables = loaded
@@ -516,7 +526,7 @@ class StreamResidentEngine:
             if saves:
                 saves.save_covariates(self.tables)
         self.filt_b = None
-        mark("pass3")
+        self.trace.stage("deltas")
         if self.rank is None:
             recal = build_recal_table(self.tables)
         else:
@@ -524,7 +534,6 @@ class StreamResidentEngine:
             recal = broadcast_table(
                 self.rank, build_recal_table(self.tables)
                 if self.rank.rank == 0 else None, self.num_rg, self.L)
-        mark("deltas")
         return recal
 
     def _load_filter(self, rows: np.ndarray):
@@ -554,8 +563,8 @@ class StreamResidentEngine:
         recal_dev = torch.from_numpy(np.ascontiguousarray(recal)).to(self.dev)
         if not every or self.rank is None:
             for ordinal, w, item in self._windows(host):
-                yield ordinal, apply_table_on_device(recal_dev, *w,
-                                                     self.rows), item
+                yield ordinal, apply_table_on_device(
+                    recal_dev, *w, self.rows, self.trace), item
             return
         import torch.distributed as dist
         me, local = self.rank.local_rank, self.rank.local_world
@@ -571,7 +580,7 @@ class StreamResidentEngine:
                 nq = torch.empty((item[1][0].shape[0], self.L),
                                  dtype=torch.int8, device=self.dev)
                 dist.recv(nq, leader + i % local)
-            yield ordinal, nq.cpu().numpy(), item
+            yield ordinal, to_host(nq, self.trace).numpy(), item
 
 
 def recalibrate_arrays_windowed(arrays: ReadArrays, config,
@@ -590,22 +599,25 @@ def recalibrate_arrays_windowed(arrays: ReadArrays, config,
     from ..state.checkpoint import Checkpoint, run_fingerprint
 
     dev = resolve_device(device)
-    clock = StageClock(timings, dev)
-    ckpt = None
-    if checkpoint_dir:
-        ckpt = Checkpoint(checkpoint_dir)
-        ckpt.check_fingerprint(run_fingerprint(config, arrays))
-    src = ArraysWindowSource(arrays, max(int(config.batch_size),
-                                         DEFAULT_CHUNK_READS), start_ordinal)
-    eng = StreamResidentEngine(src, config, dev, chunk_rows=chunk_rows)
-    clock.mark("setup")
-    recal = eng.run_passes_1_to_3(ckpt, clock.mark)
-    out = np.empty((arrays.num_reads, arrays.max_len), dtype=np.int8)
-    for ordinal, nq, _ in eng.gathered(recal):
-        s = ordinal - start_ordinal
-        out[s:s + nq.shape[0]] = nq
-    clock.mark("pass4")
-    return out
+    with tracer(timings, dev) as trace:
+        trace.stage("setup")
+        ckpt = None
+        if checkpoint_dir:
+            ckpt = Checkpoint(checkpoint_dir)
+            ckpt.check_fingerprint(run_fingerprint(config, arrays))
+        src = ArraysWindowSource(arrays, max(int(config.batch_size),
+                                             DEFAULT_CHUNK_READS),
+                                 start_ordinal)
+        eng = StreamResidentEngine(src, config, dev, chunk_rows=chunk_rows,
+                                   trace=trace)
+        recal = eng.run_passes_1_to_3(ckpt)
+        trace.stage("pass4")
+        out = np.empty((arrays.num_reads, arrays.max_len), dtype=np.int8)
+        for ordinal, nq, _ in eng.gathered(recal):
+            s = ordinal - start_ordinal
+            out[s:s + nq.shape[0]] = nq
+        trace.stage(None)
+        return out
 
 
 def _open_sinks(out_paths, in_paths, done_chunks: int, p4):
@@ -668,21 +680,26 @@ def recalibrate_fastq_stream_resident(
     re-read the files every pass); device_cache_bytes: the budget under
     which every window's tensors stay on the card from pass 1 to pass 4
     (default: half its free memory).  `timings` gets per-stage seconds
-    and, on a card, peak device bytes (scan, setup, pass1-4, deltas).
-    device=None means the CUDA device (raises without one).
+    and, on a card, peak device bytes (scan, setup, pass1-4, deltas), and
+    the spans of ``utils/trace.py``: the copies, ``stream.read`` on the
+    read-ahead thread, ``stream.render`` on the writer thread, and the
+    main thread's waits on them (``stream.prefetch_wait``,
+    ``stream.writer_wait``).  device=None means the CUDA device (raises
+    without one).
     """
     dev = resolve_device(device)
-    clock = StageClock(timings, dev)
     if isinstance(in_paths, (str, bytes)):
         in_paths = [in_paths]
-    scan = scan_fastq_files(in_paths, config.k, chunk_reads)
-    clock.mark("scan")
-    check_fastq_checkpoint(checkpoint_dir, config, in_paths, scan,
-                           chunk_reads, interleaved)
-    return fastq_windowed_run(
-        in_paths, out_paths, config, scan, checkpoint_dir, interleaved,
-        chunk_reads, clock, report_out, apply_report, dev, host_cache_bytes,
-        device_cache_bytes)
+    with tracer(timings, dev) as trace:
+        trace.stage("scan")
+        scan = scan_fastq_files(in_paths, config.k, chunk_reads)
+        trace.stage("setup")
+        check_fastq_checkpoint(checkpoint_dir, config, in_paths, scan,
+                               chunk_reads, interleaved)
+        return fastq_windowed_run(
+            in_paths, out_paths, config, scan, checkpoint_dir, interleaved,
+            chunk_reads, trace, report_out, apply_report, dev,
+            host_cache_bytes, device_cache_bytes)
 
 
 def check_fastq_checkpoint(checkpoint_dir, config, in_paths, scan,
@@ -701,32 +718,33 @@ def check_fastq_checkpoint(checkpoint_dir, config, in_paths, scan,
 
 
 def fastq_windowed_run(in_paths, out_paths, config, scan, checkpoint_dir,
-                       interleaved: bool, chunk_reads: int, clock,
+                       interleaved: bool, chunk_reads: int, trace,
                        report_out, apply_report, dev, host_cache_bytes: int,
                        device_cache_bytes, rank=None,
                        layout: str = "replicated") -> dict:
     """The passes of ``recalibrate_fastq_stream_resident`` after its scan
-    and fingerprint check.  As a rank of a group (`rank`), the passes run
-    on the rank's windows with the filters' `layout`, and rank 0 alone
-    writes the report, the checkpoints and the output, every window in
-    order."""
+    and fingerprint check, inside the ``setup`` stage of `trace`.  As a
+    rank of a group (`rank`), the passes run on the rank's windows with
+    the filters' `layout`, and rank 0 alone writes the report, the
+    checkpoints and the output, every window in order."""
     from ..state.checkpoint import Checkpoint
     world = rank.world if rank is not None else 1
     writes = rank is None or rank.rank == 0
     src = FastqWindowSource(in_paths, scan, interleaved, chunk_reads,
-                            host_cache_bytes // world)
+                            host_cache_bytes // world, trace=trace)
     eng = StreamResidentEngine(src, config, dev, device_cache_bytes,
-                               rank=rank, layout=layout)
+                               rank=rank, layout=layout, trace=trace)
     ckpt = Checkpoint(checkpoint_dir) if checkpoint_dir else None
     rg_names = [str(p) for p in in_paths]
-    clock.mark("setup")
 
     if apply_report is not None:
         from ..gatk_report import read_gatk_report, recal_table_from_report
+        trace.stage("pass4")
         recal = recal_table_from_report(read_gatk_report(apply_report),
                                         rg_names, eng.L)
     else:
-        recal = eng.run_passes_1_to_3(ckpt, clock.mark)
+        recal = eng.run_passes_1_to_3(ckpt)
+        trace.stage("pass4")
         if report_out is not None and writes:
             from ..gatk_report import write_gatk_report
             write_gatk_report(eng.tables, rg_names, report_out)
@@ -736,7 +754,6 @@ def fastq_windowed_run(in_paths, out_paths, config, scan, checkpoint_dir,
     if not writes:
         for _ in eng.gathered(recal, every=True):
             pass
-        clock.mark("pass4")
         return stats
 
     # ---- pass 4: gather on the card, render + write in order on one thread
@@ -748,6 +765,11 @@ def fastq_windowed_run(in_paths, out_paths, config, scan, checkpoint_dir,
     done_chunks = int(p4["chunks"]) if resumable and p4 else 0
     sinks, opened, single_sink = _open_sinks(out_paths, in_paths,
                                              done_chunks, p4)
+
+    def render(fq, nq, mask, sink, parent):
+        with trace.span("stream.render", parent=parent):
+            sink.write(render_fastq_with_quals(fq, nq, mask))
+
     writer = ThreadPoolExecutor(1)
     pending: list = []
     chunk_idx = 0
@@ -767,20 +789,21 @@ def fastq_windowed_run(in_paths, out_paths, config, scan, checkpoint_dir,
                 ckpt.save_meta(meta)
             else:
                 if len(pending) >= 2:    # at most two windows wait to be written
-                    pending.pop(0).result()
-                pending.append(writer.submit(
-                    lambda f=fq, q=nq, m=arrs[2], s=sink:
-                    s.write(render_fastq_with_quals(f, q, m))))
+                    with trace.span("stream.writer_wait"):
+                        pending.pop(0).result()
+                pending.append(writer.submit(render, fq, nq, arrs[2], sink,
+                                             trace.current()))
             chunk_idx += 1
     finally:
         try:
-            for f in pending:     # every queued write, before the sinks close
-                f.result()
+            # every queued write, before the sinks close
+            with trace.span("stream.writer_wait"):
+                for f in pending:
+                    f.result()
         finally:
             writer.shutdown(wait=True)
             for f in opened:
                 f.close()
-    clock.mark("pass4")
     return {**stats, "chunks": chunk_idx}
 
 
@@ -810,15 +833,16 @@ def recalibrate_bam_stream_resident(
     from .bam import scan_bam
 
     dev = resolve_device(device)
-    clock = StageClock(timings, dev)
     chunk_records = int(chunk_records or DEFAULT_CHUNK_RECORDS)
-    scan = scan_bam(in_path, config.k, chunk_records)
-    clock.mark("scan")
-    check_bam_checkpoint(checkpoint_dir, config, scan, use_oq)
-    return bam_windowed_run(in_path, out_path, config, scan, use_oq, set_oq,
-                            checkpoint_dir, chunk_records, clock, report_out,
-                            apply_report, dev, host_cache_bytes,
-                            device_cache_bytes)
+    with tracer(timings, dev) as trace:
+        trace.stage("scan")
+        scan = scan_bam(in_path, config.k, chunk_records)
+        trace.stage("setup")
+        check_bam_checkpoint(checkpoint_dir, config, scan, use_oq)
+        return bam_windowed_run(in_path, out_path, config, scan, use_oq,
+                                set_oq, checkpoint_dir, chunk_records, trace,
+                                report_out, apply_report, dev,
+                                host_cache_bytes, device_cache_bytes)
 
 
 def check_bam_checkpoint(checkpoint_dir, config, scan, use_oq: bool) -> None:
@@ -838,15 +862,16 @@ def check_bam_checkpoint(checkpoint_dir, config, scan, use_oq: bool) -> None:
 
 
 def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
-                     set_oq: bool, checkpoint_dir, chunk_records: int, clock,
+                     set_oq: bool, checkpoint_dir, chunk_records: int, trace,
                      report_out, apply_report, dev, host_cache_bytes: int,
                      device_cache_bytes, rank=None,
                      layout: str = "replicated") -> dict:
     """The passes of ``recalibrate_bam_stream_resident`` after its scan
-    (`scan`: ``scan_bam``'s tuple) and fingerprint check.  As a rank of a
-    group (`rank`), the passes run on the rank's windows with the filters'
-    `layout`, and rank 0 alone writes the report, the checkpoints and the
-    output, every chunk in order."""
+    (`scan`: ``scan_bam``'s tuple) and fingerprint check, inside the
+    ``setup`` stage of `trace`.  As a rank of a group (`rank`), the passes
+    run on the rank's windows with the filters' `layout`, and rank 0 alone
+    writes the report, the checkpoints and the output, every chunk in
+    order."""
     from ..io.bam_stream import BamStreamWriter, open_bam_stream
     from ..state.checkpoint import Checkpoint
     from .bam import _registry_names
@@ -857,17 +882,18 @@ def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
     src = BamWindowSource(in_path, registry, max_len, n, bases, tk, use_oq,
                           chunk_records, host_cache_bytes // world)
     eng = StreamResidentEngine(src, config, dev, device_cache_bytes,
-                               rank=rank, layout=layout)
+                               rank=rank, layout=layout, trace=trace)
     ckpt = Checkpoint(checkpoint_dir) if checkpoint_dir else None
     rg_names = _registry_names(registry)
-    clock.mark("setup")
 
     if apply_report is not None:
         from ..gatk_report import read_gatk_report, recal_table_from_report
+        trace.stage("pass4")
         recal = recal_table_from_report(read_gatk_report(apply_report),
                                         rg_names, eng.L)
     else:
-        recal = eng.run_passes_1_to_3(ckpt, clock.mark)
+        recal = eng.run_passes_1_to_3(ckpt)
+        trace.stage("pass4")
         if report_out is not None and writes:
             from ..gatk_report import write_gatk_report
             write_gatk_report(eng.tables, rg_names, report_out)
@@ -876,7 +902,6 @@ def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
     if not writes:
         for _ in eng.gathered(recal, every=True):
             pass
-        clock.mark("pass4")
         return stats
 
     # ---- pass 4: gather on the card, rewrite + write in order on one thread
@@ -884,7 +909,6 @@ def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
     reader.f.close()
     writer = BamStreamWriter(out_path, header_text, refs)
     windows = write_bam_windows(eng, recal, src, writer, set_oq)
-    clock.mark("pass4")
     return {**stats, "windows": windows}
 
 

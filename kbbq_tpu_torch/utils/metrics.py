@@ -1,58 +1,14 @@
-"""Throughput metrics + structured logging.
+"""Measurement helpers of the port's scripts.
 
-Counterpart of ``kbbq_tpu/utils/metrics.py``: every pass reports wall time
-and reads/s through a structured logger that emits either human lines or
-JSON records (the same lines and records as the JAX package's).
-``profile_trace`` is the same function in PyTorch's idiom: a
-``torch.profiler`` trace of the host and, on a card, of the device,
-exported as a Chrome trace.  ``peak_rss_bytes`` reads the process's peak
-resident set.
+``profile_trace`` is the JAX package's ``kbbq_tpu/utils/metrics.py::
+profile_trace`` in PyTorch's idiom: a ``torch.profiler`` trace of the host
+and, on a card, of the device, exported as a Chrome trace, in which the
+stages and spans of a traced job (``utils/trace.py``) are ``kbbq.<name>``
+ranges.  ``smi_line`` reads the card's name and power limit,
+``peak_rss_bytes`` the process's peak resident set.
 """
 
 from __future__ import annotations
-
-import json
-import sys
-import time
-
-
-class Metrics:
-    def __init__(self, stream=None, as_json: bool = False):
-        self.stream = stream or sys.stderr
-        self.as_json = as_json
-        self.records: list[dict] = []
-
-    def event(self, name: str, **fields) -> None:
-        rec = {"ts": round(time.time(), 3), "event": name, **fields}
-        self.records.append(rec)
-        if self.as_json:
-            self.stream.write(json.dumps(rec) + "\n")
-        else:
-            kv = " ".join(f"{k}={v}" for k, v in fields.items())
-            self.stream.write(
-                f"[kbbq-tpu {time.strftime('%H:%M:%S')}] {name} {kv}\n")
-        self.stream.flush()
-
-    def pass_timer(self, name: str, num_reads: int):
-        return _PassTimer(self, name, num_reads)
-
-
-class _PassTimer:
-    def __init__(self, metrics: Metrics, name: str, num_reads: int):
-        self.metrics = metrics
-        self.name = name
-        self.num_reads = num_reads
-
-    def __enter__(self):
-        self.t0 = time.time()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.time() - self.t0
-        self.metrics.event(
-            self.name, wall_s=round(dt, 3),
-            reads_per_s=round(self.num_reads / max(dt, 1e-9), 1))
-        return False
 
 
 def smi_line() -> str:
@@ -85,18 +41,20 @@ def profile_trace(path: str):
     """Context manager: a ``torch.profiler`` trace of the block it wraps,
     written to `path` as a Chrome trace (``chrome://tracing``, Perfetto).
     It records the host's operators, and the card's kernels too where a
-    card is available."""
+    card is available, on every thread (``profile_all_threads``: the
+    ranges of the streamed route's read-ahead and writer threads)."""
     import contextlib
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
 
     @contextlib.contextmanager
     def cm():
-        with profile(activities=activities) as prof:
+        with profile(activities=activities, experimental_config=
+                     _ExperimentalConfig(profile_all_threads=True)) as prof:
             yield prof
         prof.export_chrome_trace(str(path))
 

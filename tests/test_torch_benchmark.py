@@ -2,8 +2,9 @@
 JAX package: ``benchmark_bam`` + ``write_tsv`` give the same TSV bytes on
 the fixtures of tests/test_benchmark.py (BAM and CRAM, a recalibrated
 FASTQ scored by name, CIGARs of every op), ``read_vcf_sites`` the same
-sites, ``plot_benchmark`` its figure, ``Metrics`` the same lines and
-records; ``make_arrays_chunked`` replays scripts/chr20.py's draws.
+sites, ``plot_benchmark`` its figure; ``make_arrays_chunked`` replays
+scripts/chr20.py's draws; ``profile_trace`` and ``peak_rss_bytes`` on the
+CPU.
 Tolerance: exact equality.
 """
 
@@ -20,7 +21,6 @@ from kbbq_tpu import benchmark as jbench
 from kbbq_tpu.io.bam import BamFile, build_record, read_bam, serialize_bam
 from kbbq_tpu.io.cram_write import write_cram as j_write_cram
 from kbbq_tpu.oracle.kmers import decode_seq
-from kbbq_tpu.utils import metrics as jmetrics
 
 from kbbq_tpu_torch import benchmark as tbench
 from kbbq_tpu_torch.utils import metrics as tmetrics
@@ -228,37 +228,23 @@ def test_plot_writes_the_figure(tmp_path):
         plot_benchmark(str(bad), str(tmp_path / "never.png"))
 
 
-@pytest.mark.parametrize("as_json", [False, True])
-def test_metrics_lines_and_records_equal_the_jax_packages(monkeypatch,
-                                                          as_json):
-    monkeypatch.setattr(time, "time", lambda: CLOCK)
-    monkeypatch.setattr(time, "strftime", lambda fmt, *a: "12:34:56")
-    out = []
-    for mod in (jmetrics, tmetrics):
-        s = io.StringIO()
-        m = mod.Metrics(stream=s, as_json=as_json)
-        m.event("scan", reads=10, note="x")
-        with m.pass_timer("pass1", 1000):
-            pass
-        out.append((s.getvalue(), m.records))
-    assert out[1] == out[0]
-    text, records = out[1]
-    assert records[0] == {"ts": CLOCK, "event": "scan", "reads": 10,
-                          "note": "x"}
-    if as_json:
-        assert [json.loads(ln) for ln in text.splitlines()] == records
-    else:
-        assert text.splitlines()[0] == \
-            "[kbbq-tpu 12:34:56] scan reads=10 note=x"
-
-
 def test_profile_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
+    """The trace holds the host's operators and a traced job's stages and
+    spans as ``kbbq.`` ranges."""
     import torch
+    from kbbq_tpu_torch.utils.trace import tracer
     path = tmp_path / "trace.json"
+    timings: dict = {}
     with tmetrics.profile_trace(str(path)):
-        torch.arange(1000).sum()
+        with tracer(timings, "cpu") as trace:
+            trace.stage("pass1")
+            with trace.span("h2d.copy"):
+                torch.arange(1000).sum()
     trace = json.loads(path.read_text())
     assert trace["traceEvents"]
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"kbbq.pass1", "kbbq.h2d.copy"} <= names
+    assert [r["name"] for r in timings["spans"]] == ["pass1", "h2d.copy"]
 
 
 def test_peak_rss_bytes_reads_this_process(monkeypatch):

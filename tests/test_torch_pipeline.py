@@ -76,8 +76,8 @@ def test_timings_and_stage_names(synth):
     got = run_pipeline(arrays, RecalConfig(k=16, coverage=25.0), device="cpu",
                        timings=tm)
     assert np.array_equal(got, want)
-    assert list(tm) == ["setup", "h2d", "pass1", "pass2", "pass3", "deltas",
-                        "pass4"]
+    assert list(tm) == ["route", "setup", "h2d", "pass1", "pass2", "pass3",
+                        "deltas", "pass4", "counters", "spans"]
 
 
 def test_tiny_fastq_matches_golden_bytes(tmp_path):
