@@ -1,8 +1,8 @@
 // Host IO codec of kbbq_tpu_torch: multithreaded BGZF, the FASTQ record
 // scanner, padded-array decode and quality write-back, and the BAM record
-// index, machine-order decode, QUAL write-back and OQ append.  A C ABI loaded
-// with ctypes (kbbq_tpu_torch/io/native_lib.py builds it with g++ at first
-// use).
+// index, fixed fields, aux walk, machine-order decode, QUAL write-back and
+// OQ append.  A C ABI loaded with ctypes (kbbq_tpu_torch/io/native_lib.py
+// builds it with g++ at first use).
 //
 // Counterpart of these functions of kbbq_tpu/io/native/kbbq_io.cc, with the
 // same arithmetic (so the same bytes): kbbq_bgzf_size, kbbq_bgzf_decompress,
@@ -13,7 +13,11 @@
 // of the record that failed) on malformed input instead of a bare -1, and
 // kbbq_rans_uncompress refuses a frequency table that sums past 4096.
 // kbbq_bam_write_quals and kbbq_bam_append_oq are the port's own: they do
-// what loops of kbbq_tpu/io/bam_vec.py::rewrite_quals_chunk do in NumPy.  The
+// what loops of kbbq_tpu/io/bam_vec.py::rewrite_quals_chunk do in NumPy.
+// kbbq_bam_fields and kbbq_bam_aux_scan are the port's own too: the walk over
+// each record's fixed fields and aux chain that io/bam_vec.py's
+// bam_fields_plain and aux_scan_plain do in NumPy, and the read-group values
+// that rg_ids_plain finds by gathering and comparing rows.  The
 // reference's host pass 4, host histogram and tunnel packing functions are
 // not part of the port.
 
@@ -21,7 +25,9 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <string_view>
 #include <thread>
+#include <unordered_map>
 #include <vector>
 
 #include <zlib.h>
@@ -94,6 +100,23 @@ void run_threads(int threads, F work) {
   std::vector<std::thread> ths;
   for (int t = 0; t < threads; t++) ths.emplace_back(work, t);
   for (auto& th : ths) th.join();
+}
+
+// Threads of a walk over n BAM records in contiguous ranges: one for a
+// small chunk, where starting threads would cost more than the walk.
+int bam_threads(int64_t n, int32_t nthreads) {
+  if (nthreads < 1 || n < 4096) return 1;
+  return (int)std::min<int64_t>(nthreads, n / 1024);
+}
+
+// Value size of a fixed-width aux type (SAM spec 4.2.4), 0 for any other.
+int aux_fixed(uint8_t type) {
+  switch (type) {
+    case 'A': case 'c': case 'C': return 1;
+    case 's': case 'S': return 2;
+    case 'i': case 'I': case 'f': return 4;
+    default: return 0;
+  }
 }
 
 }  // namespace
@@ -405,6 +428,141 @@ void kbbq_bam_append_oq(const uint8_t* wbuf, const uint8_t* orig,
       tag[3 + L] = 0;
     }
   });
+}
+
+// Fixed fields of the record bodies at offs, as 9 rows of n int64 in out:
+// refID, pos, l_read_name, n_cigar_op, flag, l_seq (the int32 fields
+// sign-extended), then the offsets of SEQ, QUAL and the aux data
+// (off + 32 + l_read_name + 4 * n_cigar_op, + floor((l_seq + 1) / 2),
+// + l_seq).  Reads buf[offs[i] .. offs[i] + 20); one contiguous range of
+// records per thread.
+void kbbq_bam_fields(const uint8_t* buf, const int64_t* offs, int64_t n,
+                     int64_t* out, int32_t nthreads) {
+  const int T = bam_threads(n, nthreads);
+  run_threads(T, [&](int t) {
+    for (int64_t i = n * t / T, e = n * (t + 1) / T; i < e; i++) {
+      const uint8_t* r = buf + offs[i];
+      int32_t refid, pos, l_seq;
+      uint16_t n_cig, flag;
+      memcpy(&refid, r, 4);
+      memcpy(&pos, r + 4, 4);
+      memcpy(&n_cig, r + 12, 2);
+      memcpy(&flag, r + 14, 2);
+      memcpy(&l_seq, r + 16, 4);
+      const int64_t seq = offs[i] + 32 + r[8] + 4 * (int64_t)n_cig;
+      // >> 1 of a signed value floors (arithmetic shift): a negative l_seq
+      // gives NumPy's (l_seq + 1) // 2
+      const int64_t qual = seq + (((int64_t)l_seq + 1) >> 1);
+      const int64_t row[9] = {refid, pos, r[8], n_cig, flag, l_seq,
+                              seq, qual, qual + l_seq};
+      for (int f = 0; f < 9; f++) out[f * n + i] = row[f];
+    }
+  });
+}
+
+// Walk the aux chain of each record, aux_off[i] .. rec_end[i], tag by tag.
+// tags holds ntags two-byte tags; vs / ve ([ntags, n]) get the value span
+// of each tag's first Z value (start, offset of its NUL), -1 where there is
+// none.  odd[i] = 1 where the chain cannot be walked: an unknown type, a Z
+// or H value with no NUL inside the record, a B array whose subtype is not
+// fixed-width or whose header or values overrun, a tag that overruns, a
+// non-empty trailing gap under 4 bytes, or a chain still going after 4,096
+// tags.  A record's walk stops once every tag is found (so the tags asked
+// for decide which records are odd).
+//
+// With rg_slot >= 0 (the index of RG in tags), rg_index[i] gets the index
+// of record i's RG value among the distinct values of the records that
+// are not odd, in order of first appearance (-1: odd, or no RG), and
+// rg_first[j] the first record holding value j; returns the number of
+// distinct values (rg_first holds n).  One contiguous range of records per
+// thread; the ranges' values are merged in record order.
+int64_t kbbq_bam_aux_scan(const uint8_t* buf, const int64_t* aux_off,
+                          const int64_t* rec_end, int64_t n,
+                          const uint8_t* tags, int32_t ntags, int64_t* vs,
+                          int64_t* ve, uint8_t* odd, int32_t rg_slot,
+                          int32_t* rg_index, int64_t* rg_first,
+                          int32_t nthreads) {
+  const int T = bam_threads(n, nthreads);
+  // per thread: its distinct RG values' first records, in order
+  std::vector<std::vector<int64_t>> firsts(T);
+  run_threads(T, [&](int t) {
+    std::unordered_map<std::string_view, int32_t> seen;
+    for (int64_t i = n * t / T, e = n * (t + 1) / T; i < e; i++) {
+      for (int k = 0; k < ntags; k++) vs[k * n + i] = ve[k * n + i] = -1;
+      int64_t cur = aux_off[i];
+      const int64_t end = rec_end[i];
+      // the smallest tag is 4 bytes (tag, type, a 1-byte value)
+      bool active = cur + 4 <= end, bad = !active && cur != end;
+      int left = ntags;
+      for (int step = 0; active && step < 4096; step++) {
+        const uint8_t t0 = buf[cur], t1 = buf[cur + 1], ty = buf[cur + 2];
+        const int64_t v = cur + 3;
+        int64_t nxt;
+        if (const int size = aux_fixed(ty)) {
+          nxt = v + size;
+        } else if (ty == 'Z' || ty == 'H') {
+          const void* z = memchr(buf + v, 0, (size_t)(end - v));
+          if (z == nullptr) { bad = true; break; }
+          nxt = (const uint8_t*)z - buf + 1;
+          for (int k = 0; ty == 'Z' && k < ntags; k++) {
+            if (tags[2 * k] == t0 && tags[2 * k + 1] == t1 &&
+                vs[k * n + i] < 0) {
+              vs[k * n + i] = v;
+              ve[k * n + i] = nxt - 1;
+              left--;
+            }
+          }
+        } else if (ty == 'B') {
+          if (v + 5 > end) { bad = true; break; }
+          const int size = aux_fixed(buf[v]);
+          if (size == 0) { bad = true; break; }
+          uint32_t count;
+          memcpy(&count, buf + v + 1, 4);
+          nxt = v + 5 + (int64_t)size * count;
+        } else {
+          bad = true;
+          break;
+        }
+        if (nxt > end) { bad = true; break; }
+        active = nxt + 4 <= end && left > 0;
+        if (nxt + 4 > end && nxt != end) bad = true;
+        cur = nxt;
+      }
+      bad = bad || active;   // still going after 4,096 tags
+      odd[i] = bad;
+      if (rg_slot < 0) continue;
+      const int64_t s = vs[rg_slot * n + i];
+      if (bad || s < 0) {
+        rg_index[i] = -1;
+        continue;
+      }
+      const std::string_view val((const char*)buf + s,
+                                 (size_t)(ve[rg_slot * n + i] - s));
+      auto it = seen.try_emplace(val, (int32_t)firsts[t].size()).first;
+      if (it->second == (int32_t)firsts[t].size()) firsts[t].push_back(i);
+      rg_index[i] = it->second;
+    }
+  });
+  if (rg_slot < 0) return 0;
+  // each range's local indices -> indices in the order of first appearance
+  std::unordered_map<std::string_view, int32_t> global;
+  std::vector<std::vector<int32_t>> remap(T);
+  int64_t d = 0;
+  for (int t = 0; t < T; t++) {
+    for (const int64_t i : firsts[t]) {
+      const int64_t s = vs[rg_slot * n + i];
+      const std::string_view val((const char*)buf + s,
+                                 (size_t)(ve[rg_slot * n + i] - s));
+      auto it = global.try_emplace(val, (int32_t)d).first;
+      if (it->second == d) rg_first[d++] = i;
+      remap[t].push_back(it->second);
+    }
+  }
+  run_threads(T, [&](int t) {
+    for (int64_t i = n * t / T, e = n * (t + 1) / T; i < e; i++)
+      if (rg_index[i] >= 0) rg_index[i] = remap[t][rg_index[i]];
+  });
+  return d;
 }
 
 // ------------------------------------------------- rANS 4x8 (CRAM M4)

@@ -1,15 +1,17 @@
 """Whole-chunk vectorised BAM record decoding and quality rewrite.
 
 Counterpart of ``kbbq_tpu/io/bam_vec.py``: a chunk of records (or a whole
-file) is decoded with NumPy field math over the raw record buffer, never
-with an object per record:
+file) is decoded over the raw record buffer, never with an object per
+record:
 
-- fixed-offset fields (flag, l_seq, ...) from one gather of each record's
-  first 20 bytes, read through a little-endian record dtype;
-- the variable-length aux chain walked VECTORISED across all records at
-  once (one NumPy step per tag position, not per record) to locate RG and
-  OQ tags; a Z value holding the bytes "RGZ" is never misread as a tag,
-  because the walk respects field boundaries;
+- fixed-offset fields (flag, l_seq, ...) and the section offsets of every
+  record by the native codec (``kbbq_bam_fields``: one read of each
+  record's first 20 bytes, one thread per range of records);
+- the variable-length aux chain walked record by record by the native
+  codec (``kbbq_bam_aux_scan``) to locate RG and OQ tags, a Z value's end
+  found inside its record; a Z value holding the bytes "RGZ" is never
+  misread as a tag, because the walk respects field boundaries.  The same
+  walk numbers the distinct RG values in order of first appearance;
 - sequences and qualities per read-length group by the native codec
   (``kbbq_bam_decode``: nibble table and machine-order flip in one
   threaded pass);
@@ -29,6 +31,7 @@ import struct
 
 import numpy as np
 
+from ..utils.trace import OFF
 from . import native_lib
 from .bam import BAMError, machine_order_read, record_from_body, rewrite_quals
 
@@ -67,13 +70,24 @@ _HEAD = np.dtype([("refid", "<i4"), ("pos", "<i4"), ("l_rn", "u1"),
                   ("flag", "<u2"), ("l_seq", "<i4")])
 
 
+# bam_fields' keys, in the order of the native codec's rows
+_FIELDS = ("refid", "pos", "l_rn", "n_cig", "flag", "l_seq", "seq_off",
+           "qual_off", "aux_off")
+
+
 def bam_fields(buf: np.ndarray, offs: np.ndarray) -> dict:
-    """Fixed-offset record fields + derived section offsets (all int64).
+    """Fixed-offset record fields + derived section offsets (all int64),
+    by the native codec.
 
     Layout per SAM spec §4.2: refID, pos, l_read_name, mapq, bin,
     n_cigar_op, flag, l_seq, next_refID, next_pos, tlen, read_name,
     cigar, seq (4-bit packed), qual, aux.
     """
+    return dict(zip(_FIELDS, native_lib.bam_fields(buf, offs)))
+
+
+def bam_fields_plain(buf: np.ndarray, offs: np.ndarray) -> dict:
+    """NumPy version of ``bam_fields``: the same values."""
     offs = np.asarray(offs, np.int64)
     head = np.ascontiguousarray(
         buf[offs[:, None] + np.arange(_HEAD.itemsize)]).view(_HEAD)[:, 0]
@@ -92,6 +106,28 @@ def primary_rows(flag: np.ndarray, l_seq: np.ndarray) -> np.ndarray:
 
 def aux_scan(buf: np.ndarray, aux_off: np.ndarray, rec_end: np.ndarray,
              tags: tuple = ("RG", "OQ")) -> tuple[dict, np.ndarray]:
+    """Walk every record's aux chain, by the native codec: the result of
+    ``aux_scan_plain``."""
+    found, odd, _, _ = aux_walk(buf, aux_off, rec_end, tags)
+    return found, odd
+
+
+def aux_walk(buf: np.ndarray, aux_off: np.ndarray, rec_end: np.ndarray,
+             tags: tuple):
+    """``aux_scan``'s (found, odd), then where RG is among the tags the
+    read-group values from the same walk: (rg_index, rg_first), each good
+    record's index among the distinct RG values in order of first
+    appearance (-1: odd or no RG tag) and the first record of each value
+    (its span in found["RG"]); else (None, None)."""
+    vs, ve, odd, idx, first = native_lib.bam_aux_scan(buf, aux_off,
+                                                      rec_end, tags)
+    found = {t: (vs[k], ve[k]) for k, t in enumerate(tags)}
+    return found, odd, idx, first
+
+
+def aux_scan_plain(buf: np.ndarray, aux_off: np.ndarray,
+                   rec_end: np.ndarray, tags: tuple = ("RG", "OQ")
+                   ) -> tuple[dict, np.ndarray]:
     """Walk every record's aux chain in lockstep (vectorised over records).
 
     Returns ({tag: (val_start, val_end) int64 arrays, -1 where absent},
@@ -228,10 +264,27 @@ def _name(row: np.ndarray) -> str:
     return bytes(row[row != 0]).decode()
 
 
+def _span_name(buf: np.ndarray, s, e) -> str:
+    return bytes(buf[int(s):int(e)]).decode()
+
+
 def rg_ids(buf: np.ndarray, vs: np.ndarray, ve: np.ndarray,
+           rg_index: np.ndarray, rg_first: np.ndarray,
            registry: dict) -> np.ndarray:
-    """Dense RG index per record from aux value spans, mapped through
-    the scan-built {name: id} registry (missing tag -> "")."""
+    """Dense RG index per record from ``aux_walk``'s read-group values
+    (rg_index for the records wanted, rg_first and the RG spans vs, ve of
+    the whole walk), mapped through the scan-built {name: id} registry
+    (missing tag -> "")."""
+    lut = [registry[_span_name(buf, vs[r], ve[r])] for r in rg_first]
+    if (rg_index < 0).any():
+        lut.append(registry[""])        # index -1: the last entry
+    return np.asarray(lut, np.int32)[rg_index]
+
+
+def rg_ids_plain(buf: np.ndarray, vs: np.ndarray, ve: np.ndarray,
+                 registry: dict) -> np.ndarray:
+    """NumPy version of ``rg_ids`` from the RG spans of the records
+    wanted: the same ids."""
     uniq, _, inv = _unique_rows(_gather_short(buf, vs, ve))
     # decode each unique row once (a handful per file)
     lut = np.asarray([registry[_name(row)] for row in uniq], np.int32)
@@ -275,7 +328,8 @@ def decode_group_plain(buf, seq_off, qual_off, rev, L: int, use_oq: bool,
 
 def decode_machine_chunk(buf: np.ndarray, offs: np.ndarray,
                          sizes: np.ndarray, max_len: int,
-                         registry: dict | None, use_oq: bool = False):
+                         registry: dict | None, use_oq: bool = False,
+                         trace=OFF):
     """(codes, quals, mask, rgs, seconds, lens, prim_rows) for the chunk's
     PRIMARY records, machine order, padded to max_len.
 
@@ -283,6 +337,8 @@ def decode_machine_chunk(buf: np.ndarray, offs: np.ndarray,
     reverse-complemented with reversed quals (DECISIONS.md D8), quals
     clipped to [0, 93], --use-oq takes quals from the OQ:Z: tag (error
     if absent).  registry maps RG-tag name -> dense id ("" = untagged).
+    `trace` (``utils/trace.py``) counts the primary records the aux walk
+    refused, which take the per-record route (``bam.walk_refused``).
     """
     f = bam_fields(buf, offs)
     flag, l_seq = f["flag"], f["l_seq"]
@@ -308,11 +364,13 @@ def decode_machine_chunk(buf: np.ndarray, offs: np.ndarray,
     rev = (p_flag & 0x10) != 0
 
     want = ("RG", "OQ") if use_oq else ("RG",)
-    found, odd = aux_scan(buf, f["aux_off"][prim_rows], p_end, want)
+    found, odd, rg_index, rg_first = aux_walk(buf, f["aux_off"][prim_rows],
+                                              p_end, want)
     good = np.flatnonzero(~odd)
+    trace.count("bam.walk_refused", n - good.size)
     if registry is not None and good.size:
         vs, ve = found["RG"]
-        rgs[good] = rg_ids(buf, vs[good], ve[good], registry)
+        rgs[good] = rg_ids(buf, vs, ve, rg_index[good], rg_first, registry)
 
     oq_vs = oq_ve = None
     if use_oq:
@@ -513,9 +571,10 @@ def scan_chunk(buf: np.ndarray, offs: np.ndarray, sizes: np.ndarray,
     """Metadata for one chunk: (n_primary, bases, kmers, max_len,
     rg_keys_in_first_appearance_order) — the vectorised twin of the
     per-record scan loop.  Appearance order is exact even when some
-    records need the per-record route: each unique good RG name
-    contributes a first-seen event at its first row, each odd row its
-    own event, and the merged event order decides registration order.
+    records need the per-record route: each distinct good RG value (and
+    a missing tag, as "") contributes a first-seen event at its first
+    row, each odd row its own event, and the merged event order decides
+    registration order.
     """
     f = bam_fields(buf, offs)
     flag, l_seq = f["flag"], f["l_seq"]
@@ -524,15 +583,15 @@ def scan_chunk(buf: np.ndarray, offs: np.ndarray, sizes: np.ndarray,
         return 0, 0, 0, 1, []
     pl = l_seq[prim]
     p_end = offs[prim] + sizes[prim]
-    found, odd = aux_scan(buf, f["aux_off"][prim], p_end, ("RG",))
+    found, odd, rg_index, rg_first = aux_walk(buf, f["aux_off"][prim], p_end,
+                                              ("RG",))
     vs, ve = found["RG"]
-    events = []  # (first prim-row with this name, name)
-    good_idx = np.flatnonzero(~odd)
-    if good_idx.size:
-        uniq, first, _ = _unique_rows(_gather_short(buf, vs[good_idx],
-                                                    ve[good_idx]))
-        for g in range(uniq.shape[0]):
-            events.append((int(good_idx[first[g]]), _name(uniq[g])))
+    # (first prim-row with this name, name); a good row without the tag
+    # reads as ""
+    events = [(int(r), _span_name(buf, vs[r], ve[r])) for r in rg_first]
+    untagged = np.flatnonzero((rg_index < 0) & ~odd)
+    if untagged.size:
+        events.append((int(untagged[0]), ""))
     for i in np.flatnonzero(odd):
         rec = record_from_body(bytearray(bytes(
             buf[offs[prim[i]]:p_end[i]])))

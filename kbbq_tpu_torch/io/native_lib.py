@@ -90,6 +90,11 @@ def _bind(lib) -> None:
     lib.kbbq_bam_write_quals.restype = None
     lib.kbbq_bam_append_oq.argtypes = [p, p, p, p, p, p, p, p, i64, i32]
     lib.kbbq_bam_append_oq.restype = None
+    lib.kbbq_bam_fields.argtypes = [p, p, i64, p, i32]
+    lib.kbbq_bam_fields.restype = None
+    lib.kbbq_bam_aux_scan.argtypes = [p, p, p, i64, p, i32, p, p, p, i32, p,
+                                      p, i32]
+    lib.kbbq_bam_aux_scan.restype = i64
     lib.kbbq_rans_uncompress.argtypes = [p, i64, p, i64]
     lib.kbbq_rans_uncompress.restype = i32
     lib.kbbq_rans_compress.argtypes = [p, i64, i32, p, i64]
@@ -332,6 +337,51 @@ def bam_append_oq(wbuf: np.ndarray, orig: np.ndarray, offs, sizes, qual_off,
                                  dst.ctypes.data, out.ctypes.data, n,
                                  default_threads())
     return out
+
+
+def bam_fields(buf, offs) -> np.ndarray:
+    """int64 [9, n]: refID, pos, l_read_name, n_cigar_op, flag, l_seq and
+    the offsets of SEQ, QUAL and the aux data of each record body at
+    `offs` (reads its first 20 bytes)."""
+    src, of = _u8(buf), _i64(offs)
+    _check_spans(of, 20, src.size, "fixed fields")
+    out = np.empty((9, of.size), np.int64)
+    library().kbbq_bam_fields(src.ctypes.data, of.ctypes.data, of.size,
+                              out.ctypes.data, default_threads())
+    return out
+
+
+def bam_aux_scan(buf, aux_off, rec_end, tags):
+    """Walk each record's aux chain from aux_off[i] to rec_end[i] ->
+    (vs, ve, odd, rg_index, rg_first): int64 [len(tags), n] value spans of
+    each tag's first Z value (start, offset of its NUL; -1 where absent),
+    bool [n] records whose chain cannot be walked, and where RG is among
+    the tags int32 [n] each good record's index among the distinct RG
+    values in order of first appearance (-1: odd or no RG) and int64 the
+    first record of each value (else both None)."""
+    src, ao, re = _u8(buf), _i64(aux_off), _i64(rec_end)
+    n = ao.size
+    codes = b"".join(t.encode("ascii") for t in tags)
+    if re.size != n or len(codes) != 2 * len(tags):
+        raise ValueError("need one end per record and two-byte tags")
+    if n and (int(ao.min()) < 0 or int(re.min()) < 0
+              or int(re.max()) > src.size):
+        raise ValueError("a record's aux fields fall outside the buffer")
+    k = len(tags)
+    tg = np.frombuffer(codes, np.uint8)
+    vs, ve = np.empty((k, n), np.int64), np.empty((k, n), np.int64)
+    odd = np.empty(n, np.uint8)
+    rg = "RG" in tags
+    idx = np.empty(n if rg else 0, np.int32)
+    first = np.empty(n if rg else 0, np.int64)
+    d = library().kbbq_bam_aux_scan(
+        src.ctypes.data, ao.ctypes.data, re.ctypes.data, n, tg.ctypes.data,
+        k, vs.ctypes.data, ve.ctypes.data, odd.ctypes.data,
+        tags.index("RG") if rg else -1, idx.ctypes.data, first.ctypes.data,
+        default_threads())
+    if not rg:
+        return vs, ve, odd.view(bool), None, None
+    return vs, ve, odd.view(bool), idx, first[:d].copy()
 
 
 def rans_uncompress(blob, n_out: int) -> bytes:

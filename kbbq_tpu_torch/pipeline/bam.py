@@ -217,8 +217,9 @@ def recalibrate_bam(in_path: str, out_path, config: RecalConfig,
     and decode), ``release`` (the decoded arrays' frees; not on SAM),
     ``rewrite`` and ``write`` (compress and write), and their
     spans: ``bam.load``, ``bgzf.inflate`` (counter ``bam.raw_in_bytes``,
-    the decompressed bytes), ``bam.index``, ``bam.scan``, ``bam.decode``,
-    ``bgzf.deflate`` (counter ``bam.raw_out_bytes``) and ``bam.sink``.
+    the decompressed bytes), ``bam.index``, ``bam.scan``, ``bam.decode``
+    (counter ``bam.walk_refused``), ``bgzf.deflate`` (counter
+    ``bam.raw_out_bytes``) and ``bam.sink``.
     devices, bloom_layout: as in ``run_pipeline`` (the host stages stay in
     this process).
     """
@@ -268,7 +269,8 @@ def _recalibrate_records(header_text, refs, buf, offs, sizes, out_path,
     """The whole-file route from a buffer of back-to-back BAM records (each
     after its block_size; offs / sizes their bodies), inside the
     ``decode`` stage of `trace`: scan (``bam.scan``), whole-buffer decode
-    (``bam.decode``), ``_run_or_apply``, the decoded arrays' release
+    (``bam.decode``; counter ``bam.walk_refused``, the primary records the
+    aux walk refused), ``_run_or_apply``, the decoded arrays' release
     (``release`` stage), QUAL rewrite (``rewrite`` stage) and the output
     as `fmt` (``write`` stage).  `cram`: the records came
     from a CRAM, whose qualities the JAX package reads as int8
@@ -280,7 +282,7 @@ def _recalibrate_records(header_text, refs, buf, offs, sizes, out_path,
     registry = {key: i for i, key in enumerate(keys)}
     with trace.span("bam.decode"):
         codes, quals, mask, rgs, seconds, lens, prim = decode_machine_chunk(
-            buf, offs, sizes, max_len, registry, use_oq=use_oq)
+            buf, offs, sizes, max_len, registry, use_oq=use_oq, trace=trace)
         if cram:
             _wrapped_quals_to_zero(buf, offs, sizes, prim, lens, quals,
                                    use_oq)

@@ -217,15 +217,18 @@ class BamWindowSource:
     into its BGZF member, records, global ordinal of the first primary) of
     a run of whole chunks to cover instead of the file (a host's range on
     several hosts, ``parallel/multihost.py``); `num_reads` is then the
-    span's primaries."""
+    span's primaries.  `trace` (``utils/trace.py``) counts the records
+    the first pass's decode sends down the per-record route
+    (``bam.walk_refused``)."""
 
     def __init__(self, path: str, registry: dict, max_len: int,
                  num_reads: int, total_bases: int, total_kmers_: int,
                  use_oq: bool, chunk_records: int,
                  host_cache_bytes: int = DEFAULT_HOST_CACHE_BYTES,
-                 span=None):
+                 span=None, trace=OFF):
         self.path = path
         self.span = span
+        self.trace = trace
         self.registry = registry
         self.num_rg = max(1, len(registry))
         self.max_len = max_len
@@ -255,9 +258,12 @@ class BamWindowSource:
         else:
             chunks = iter_bam_raw_chunks_range(self.path, *self.span[:3],
                                                self.chunk_records)
+        # a chunk decoded again on a later pass is not counted again
+        trace, self.trace = self.trace, OFF
         for buf, offs, sizes in prefetch_iter(chunks, depth=2):
             dec = decode_machine_chunk(buf, offs, sizes, self.max_len,
-                                       self.registry, use_oq=self.use_oq)
+                                       self.registry, use_oq=self.use_oq,
+                                       trace=trace)
             item = (buf, offs, sizes, dec)
             self._cache.add(item, buf.nbytes + sum(a.nbytes for a in dec))
             yield item
@@ -880,7 +886,8 @@ def bam_windowed_run(in_path: str, out_path, config, scan, use_oq: bool,
     writes = rank is None or rank.rank == 0
     n, bases, tk, max_len, registry = scan
     src = BamWindowSource(in_path, registry, max_len, n, bases, tk, use_oq,
-                          chunk_records, host_cache_bytes // world)
+                          chunk_records, host_cache_bytes // world,
+                          trace=trace)
     eng = StreamResidentEngine(src, config, dev, device_cache_bytes,
                                rank=rank, layout=layout, trace=trace)
     ckpt = Checkpoint(checkpoint_dir) if checkpoint_dir else None

@@ -1,7 +1,8 @@
 """The port's host IO codec (csrc/kbbq_io.cc through io/native_lib.py)
 against its NumPy versions and the JAX package: the FASTQ record scan, the
 padded-array decode and the quality write-back, BGZF in both directions,
-and the .gz outputs of the entry points.  The codec builds here with g++.
+the .gz outputs of the entry points, the BAM record index, fixed fields,
+aux walk, decode and rewrite, and rANS.  The codec builds here with g++.
 Tolerance: exact equality.
 """
 
@@ -504,6 +505,187 @@ def test_bam_bindings_refuse_offsets_outside_the_buffer():
                                    np.zeros((1, 5), np.int8))
     with pytest.raises(ValueError, match="outside"):
         native_lib.bam_append_oq(buf, buf, [4], [61], [0], [-1])
+
+
+@pytest.mark.parametrize("threads", [1, 5])
+@pytest.mark.parametrize("n", [0, 7, 6000])
+def test_bam_fields_match_plain(n, threads, monkeypatch):
+    """Random bodies (so negative refIDs, positions and l_seq, odd and even
+    lengths): every field and offset of the NumPy version, as int64."""
+    from kbbq_tpu_torch.io import bam_vec
+    monkeypatch.setattr(native_lib, "default_threads", lambda: threads)
+    data, offs, _ = _bam_stream(n + 1, n=n)
+    buf = np.frombuffer(data, np.uint8)
+    got = bam_vec.bam_fields(buf, offs)
+    want = bam_vec.bam_fields_plain(buf, offs)
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].dtype == np.int64 and got[key].shape == (n,)
+        assert np.array_equal(got[key], want[key]), key
+    if n:
+        assert (got["l_seq"] < 0).any() and (got["refid"] < 0).any()
+
+
+def _b_array(sub: bytes, count: int, size: int = 1) -> bytes:
+    return (b"B" + sub + count.to_bytes(4, "little")
+            + bytes(range(1, size * count + 1)))
+
+
+# aux regions that exercise each rule of the walk (RG / OQ values are Z)
+AUX_CASES = {
+    "rg_then_oq": b"RGZgrpA\0OQZ+,-.\0",
+    "oq_then_rg": b"OQZ+,-.\0RGZgrpB\0",
+    "repeated": b"RGZfirst\0RGZsecond\0OQZ!!\0OQZ##\0",
+    "rgz_inside_a_value": b"XXZRGZfake\0RGZgrpA\0",
+    "h_values": b"RGH0A1B\0OQH2C\0RGZgrpC\0XHH\0",
+    "fixed_types": (b"XAAz" b"Xcc\x01" b"XCC\x02" b"Xss\x03\x00"
+                    b"XSS\x04\x00" b"Xii\x05\x00\x00\x00" b"XII\0\0\0\0"
+                    b"Xff\0\0\x80?" b"RGZgrpA\0"),
+    "b_arrays": (b"ZA" + _b_array(b"A", 2) + b"Zc" + _b_array(b"c", 3)
+                 + b"ZC" + _b_array(b"C", 1) + b"Zs" + _b_array(b"s", 2, 2)
+                 + b"ZS" + _b_array(b"S", 1, 2) + b"Zi" + _b_array(b"i", 2, 4)
+                 + b"ZI" + _b_array(b"I", 1, 4) + b"Zf" + _b_array(b"f", 0, 4)
+                 + b"OQZ&'\0RGZgrpB\0"),
+    "b_unknown_subtype": b"ZZ" + _b_array(b"Z", 1) + b"RGZgrpA\0",
+    "b_header_overrun": b"RGZgrpA\0ZZBc\x01\x00",
+    "b_values_overrun": b"ZZ" + _b_array(b"i", 1 << 30, 0),
+    "unknown_type": b"XYQabc\0RGZgrpA\0",
+    "unterminated_z": b"OQZ!!\0RGZgrp",
+    "overrun": b"RGZgrpC\0XYi\x01\x02",
+    "gap1": b"RGZgrpA\0" + b"x",
+    "gap2": b"OQZ!\0" + b"xy",
+    "gap3": b"RGZgrpB\0OQZ!\0" + b"xyz",
+    "gap_only": b"xy",
+    "empty": b"",
+    "empty_rg": b"RGZ\0OQZ\0",
+    "no_tags_wanted": b"XAAzXcc\x01",
+    "chain_4096": b"XAAz" * 4095 + b"RGZgrpC\0",
+    "chain_4097": b"XAAz" * 4096 + b"RGZgrpC\0",
+}
+
+
+def _aux_buffer(names, seed):
+    """Records of a short prefix (NUL bytes included) and the aux region of
+    each case in `names`, back to back -> (buf, aux_off, rec_end).  A
+    record whose Z value has no NUL is put last, where no NUL follows."""
+    rng = np.random.default_rng(seed)
+    names = sorted(names, key=lambda nm: nm == "unterminated_z")
+    out, aux_off, rec_end = bytearray(), [], []
+    for nm in names:
+        out += bytes(rng.integers(0, 3, int(rng.integers(1, 6)),
+                                  dtype=np.uint8))
+        aux_off.append(len(out))
+        out += AUX_CASES[nm]
+        rec_end.append(len(out))
+    return (np.frombuffer(bytes(out), np.uint8), np.asarray(aux_off),
+            np.asarray(rec_end))
+
+
+def _walk_names(buf, found, idx, first):
+    """Each record's RG value by the native walk's indices ("" for -1)."""
+    from kbbq_tpu_torch.io.bam_vec import _span_name
+    vs, ve = found["RG"]
+    names = [_span_name(buf, vs[r], ve[r]) for r in first] + [""]
+    return [names[i] for i in idx]
+
+
+@pytest.mark.parametrize("threads", [1, 5])
+@pytest.mark.parametrize("tags", [("RG",), ("OQ",), ("RG", "OQ")],
+                         ids=["RG", "OQ", "RG+OQ"])
+@pytest.mark.parametrize("layout", ["each_once", "mixed"])
+def test_aux_scan_matches_plain(layout, tags, threads, monkeypatch):
+    """Every case of AUX_CASES, once each and shuffled over 9,000 records
+    (so several ranges of threads): the same spans and the same records
+    refused as the NumPy walk; RG values numbered in order of first
+    appearance over the good records, each record's name as
+    ``_unique_rows(_gather_short(...))`` gives it."""
+    from kbbq_tpu_torch.io import bam_vec
+    monkeypatch.setattr(native_lib, "default_threads", lambda: threads)
+    names = sorted(AUX_CASES)
+    if layout == "mixed":
+        rng = np.random.default_rng(len(tags) + threads)
+        names = list(rng.choice(names, 9000))
+    buf, aux_off, rec_end = _aux_buffer(names, len(tags))
+    got, odd = bam_vec.aux_scan(buf, aux_off, rec_end, tags)
+    want, want_odd = bam_vec.aux_scan_plain(buf, aux_off, rec_end, tags)
+    assert np.array_equal(odd, want_odd)
+    for t in tags:
+        for a, b in zip(got[t], want[t]):
+            assert np.array_equal(a, b), t
+    assert odd.any() and not odd.all()
+    if "RG" not in tags:
+        return
+    found, odd2, idx, first = bam_vec.aux_walk(buf, aux_off, rec_end, tags)
+    assert np.array_equal(odd2, odd)
+    good = np.flatnonzero(~odd)
+    assert (idx[odd] == -1).all()
+    vs, ve = found["RG"]
+    uniq, _, inv = bam_vec._unique_rows(
+        bam_vec._gather_short(buf, vs[good], ve[good]))
+    assert _walk_names(buf, found, idx[good], first) == \
+        [bam_vec._name(uniq[i]) for i in inv]
+    # first rows: increasing, and each the first good record of its value
+    assert (np.diff(first) > 0).all()
+    for j, r in enumerate(first):
+        assert not odd[r] and idx[r] == j and (idx[:r] != j).all()
+
+
+@pytest.mark.parametrize("threads", [1, 3, 7])
+@pytest.mark.parametrize("missing", [0.0, 0.2])
+def test_rg_ids_match_plain_with_many_names(missing, threads, monkeypatch):
+    """40 read groups (more than _unique_rows splits off by compares), some
+    records without the tag and some refused: the ids of ``rg_ids_plain``
+    for the good records, and the same registry keys in order of first
+    appearance."""
+    from kbbq_tpu_torch.io import bam_vec
+    monkeypatch.setattr(native_lib, "default_threads", lambda: threads)
+    rng = np.random.default_rng(threads)
+    n = 12000
+    pick = rng.integers(0, 40, n)
+    out, aux_off, rec_end = bytearray(), [], []
+    for i in range(n):
+        out += b"\x00\x07"
+        aux_off.append(len(out))
+        if rng.random() < 0.01:
+            out += b"RGZx\0" + b"?"               # a gap: refused
+        elif rng.random() >= missing:
+            out += b"XAAz" + b"RGZgroup_%d\0" % pick[i]
+        else:
+            out += b"OQZ!!\0"
+        rec_end.append(len(out))
+    buf = np.frombuffer(bytes(out), np.uint8)
+    found, odd, idx, first = bam_vec.aux_walk(buf, aux_off, rec_end,
+                                              ("RG", "OQ"))
+    good = np.flatnonzero(~odd)
+    assert 0 < good.size < n and len(first) == 40
+    vs, ve = found["RG"]
+    order = [bam_vec._span_name(buf, vs[r], ve[r]) for r in first]
+    registry = {nm: i for i, nm in enumerate(reversed(order + [""]))}
+    got = bam_vec.rg_ids(buf, vs, ve, idx[good], first, registry)
+    want = bam_vec.rg_ids_plain(buf, vs[good], ve[good], registry)
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+    seen = []
+    for i in good:
+        nm = bam_vec._span_name(buf, vs[i], ve[i]) if vs[i] >= 0 else ""
+        if nm and nm not in seen:
+            seen.append(nm)
+    assert order == seen
+
+
+def test_bam_walk_bindings_refuse_offsets_outside_the_buffer():
+    buf = np.zeros(64, np.uint8)
+    native_lib.bam_fields(buf, [44])
+    for offs in ([45], [-1], [0, 100]):
+        with pytest.raises(ValueError, match="outside"):
+            native_lib.bam_fields(buf, offs)
+    native_lib.bam_aux_scan(buf, [60], [64], ("RG",))
+    for aux_off, rec_end in (([0], [65]), ([-1], [10]), ([0], [-1])):
+        with pytest.raises(ValueError, match="outside"):
+            native_lib.bam_aux_scan(buf, aux_off, rec_end, ("RG",))
+    with pytest.raises(ValueError, match="two-byte"):
+        native_lib.bam_aux_scan(buf, [0], [4], ("RGZ",))
+    with pytest.raises(ValueError, match="one end per record"):
+        native_lib.bam_aux_scan(buf, [0, 1], [4], ("RG",))
 
 
 # ------------------------------------------------------------------- rANS

@@ -3,7 +3,8 @@ of the whole-file FASTQ and BAM routes and of the streamed FASTQ route, on
 the CPU at a small size.  Off (``timings=None``) it reads no clock and opens
 no profiler range; on, every span named below is there and nests in its
 parent, the top-level stages cover the call, the byte counters equal the
-files' sizes, the output bytes and the stage keys are as without it, and a
+files' sizes, the BAM routes count the records of the per-record route
+once a job, the output bytes and the stage keys are as without it, and a
 profiler trace shows the records' ranges.
 """
 
@@ -19,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from kbbq_tpu_torch.io import bam as kbam
 from kbbq_tpu_torch.pipeline import (RecalConfig, recalibrate_bam,
+                                     recalibrate_bam_streaming,
                                      recalibrate_fastq,
                                      recalibrate_fastq_streaming)
 from kbbq_tpu_torch.utils import synth
@@ -172,6 +175,35 @@ def test_byte_counters_equal_the_files(kind, inputs, jobs):
     # codes, quals and mask a byte a base, int64 read group, bool second
     assert c["h2d_bytes"] == reads * (3 * L + 9)
     assert c["d2h_bytes"] >= reads * L            # pass 4, and the tables
+
+
+@pytest.mark.parametrize("route", ["whole_file", "streamed"])
+def test_walk_refused_counts_the_per_record_route_once_a_job(route, jobs,
+                                                             tmp_path):
+    """``bam.walk_refused``: the primary records whose aux chain the walk
+    refused (untagged, a last Z value without its NUL), each once, on the
+    whole-file route and on the streamed one with no host cache (each pass
+    decodes the chunks again); 0 on the clean input."""
+    assert jobs("bam")[2]["counters"]["bam.walk_refused"] == 0
+    arrays, _ = synth.make_arrays_fast(genome_len=3000, read_len=L,
+                                       num_reads=N, seed=11)
+    refused = np.arange(N) % 7 == 3
+    recs = [kbam.build_record(f"r{i}", arrays.codes[i], arrays.quals[i],
+                              flag=0x40, rg=None if refused[i] else "g1",
+                              aux_extra=b"XZZabc" if refused[i] else b"XAAx")
+            for i in range(N)]
+    path = tmp_path / "odd.bam"
+    path.write_bytes(kbam.serialize_bam(kbam.BamFile(
+        "@HD\tVN:1.6\n@RG\tID:g1\n", [("synth", 3000)], recs)))
+    timings = {}
+    if route == "whole_file":
+        recalibrate_bam(str(path), io.BytesIO(), RecalConfig(**CFG),
+                        device="cpu", timings=timings, set_oq=True)
+    else:
+        recalibrate_bam_streaming(str(path), io.BytesIO(), RecalConfig(**CFG),
+                                  device="cpu", timings=timings,
+                                  chunk_records=100, host_cache_bytes=0)
+    assert timings["counters"]["bam.walk_refused"] == refused.sum() > 0
 
 
 @pytest.mark.parametrize("kind", KINDS)
