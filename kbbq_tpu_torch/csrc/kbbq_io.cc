@@ -1,5 +1,5 @@
 // Host IO codec of kbbq_tpu_torch: multithreaded BGZF, the FASTQ record
-// scanner, padded-array decode and quality write-back, and the BAM record
+// walk, padded-array decode and quality write-back, and the BAM record
 // index, fixed fields, aux walk, machine-order decode, QUAL write-back and
 // OQ append.  A C ABI loaded with ctypes (kbbq_tpu_torch/io/native_lib.py
 // builds it with g++ at first use).
@@ -17,7 +17,11 @@
 // kbbq_bam_fields and kbbq_bam_aux_scan are the port's own too: the walk over
 // each record's fixed fields and aux chain that io/bam_vec.py's
 // bam_fields_plain and aux_scan_plain do in NumPy, and the read-group values
-// that rg_ids_plain finds by gathering and comparing rows.  The
+// that rg_ids_plain finds by gathering and comparing rows.
+// kbbq_fastq_lines and kbbq_fastq_walk are the port's own: kbbq_fastq_index's
+// records and checks on several threads, with each record's second-in-pair
+// flag (io/fastq.py's seconds_mask_plain); kbbq_fastq_index stays the serial
+// scanner that the tests hold the walk against.  The
 // reference's host pass 4, host histogram and tunnel packing functions are
 // not part of the port.
 
@@ -117,6 +121,40 @@ int aux_fixed(uint8_t type) {
     case 'i': case 'I': case 'f': return 4;
     default: return 0;
   }
+}
+
+// Byte range t of T over n bytes (the threaded FASTQ walk's).
+void byte_range(size_t n, int32_t T, int32_t t, size_t* a, size_t* b) {
+  *a = (size_t)((uint64_t)n * (uint64_t)t / (uint64_t)T);
+  *b = (size_t)((uint64_t)n * (uint64_t)(t + 1) / (uint64_t)T);
+}
+
+// ASCII whitespace as bytes.split takes it: space and 9-13.
+inline bool ascii_ws(uint8_t c) { return c == ' ' || (c >= 9 && c <= 13); }
+
+// Second-in-pair by DECISIONS.md D11 for the name line [s, e): its first
+// token (leading whitespace skipped) ends in "/2".
+uint8_t second_in_pair(const uint8_t* s, const uint8_t* e) {
+  while (s < e && ascii_ws(*s)) s++;
+  const uint8_t* t = s;
+  while (t < e && !ascii_ws(*t)) t++;
+  return t - s >= 2 && t[-2] == '/' && t[-1] == '2';
+}
+
+// The line ends (newlines, or n for a last line without one) of the FASTQ
+// record at off, by kbbq_fastq_index's checks: false where it is malformed.
+bool fastq_record(const uint8_t* buf, size_t n, size_t off, size_t e[4]) {
+  if (buf[off] != '@') return false;
+  size_t s = off;
+  for (int j = 0; j < 4; j++) {
+    if (j && s >= n) return false;
+    if (j == 2 && buf[s] != '+') return false;
+    const uint8_t* q = (const uint8_t*)memchr(buf + s, '\n', n - s);
+    if (!q && j < 3) return false;
+    e[j] = q ? (size_t)(q - buf) : n;
+    s = e[j] + 1;
+  }
+  return e[3] - (e[2] + 1) == e[1] - (e[0] + 1);
 }
 
 }  // namespace
@@ -258,6 +296,78 @@ int64_t kbbq_fastq_index(const uint8_t* buf, size_t n, int64_t* out,
     off = qual_e + 1;
   }
   return nrec;
+}
+
+// First call of the threaded FASTQ walk: the newlines of each of the T byte
+// ranges of buf into counts[T].  Returns the number of lines (a last line
+// without its newline counts).
+int64_t kbbq_fastq_lines(const uint8_t* buf, size_t n, int64_t* counts,
+                         int32_t T) {
+  run_threads(T, [&](int t) {
+    size_t a, b;
+    byte_range(n, T, t, &a, &b);
+    int64_t c = 0;
+    for (size_t i = a; i < b; i++) c += buf[i] == '\n';
+    counts[t] = c;
+  });
+  int64_t lines = 0;
+  for (int32_t t = 0; t < T; t++) lines += counts[t];
+  return lines + (n && buf[n - 1] != '\n');
+}
+
+// Second call: kbbq_fastq_index's records and checks, on the T threads of
+// kbbq_fastq_lines's ranges (counts from it).  Record r is lines 4r..4r+3;
+// a thread walks the records whose name line follows a newline in its range
+// (record 0 on thread 0), so it learns each one's ordinal from the counts.
+// Writes the 8 offsets of each record into out[nrec][8] and its
+// second-in-pair flag into seconds[nrec] (nrec = ceil(lines / 4)).  Returns
+// nrec, or -1 - (offset of the first malformed record in file order), the
+// serial scanner's answer.
+int64_t kbbq_fastq_walk(const uint8_t* buf, size_t n, const int64_t* counts,
+                        int32_t T, int64_t* out, uint8_t* seconds,
+                        int64_t nrec) {
+  std::vector<int64_t> bad_rec(T, INT64_MAX), bad_off(T, 0);
+  run_threads(T, [&](int t) {
+    size_t a, b;
+    byte_range(n, T, t, &a, &b);
+    int64_t line = 0;          // newlines before a
+    for (int32_t u = 0; u < t; u++) line += counts[u];
+    // the first record start in the range: a line 4r after a newline here
+    size_t off = n;
+    if (t == 0 && n) {
+      off = 0;
+    } else {
+      for (size_t p = a; p < b;) {
+        const uint8_t* q = (const uint8_t*)memchr(buf + p, '\n', b - p);
+        if (!q) break;
+        line++;                 // q ends line `line - 1`, line `line` follows
+        p = q - buf + 1;
+        if (line % 4 == 0) { off = p; break; }
+      }
+    }
+    int64_t r = line / 4;
+    while (off < n && r < nrec) {
+      size_t e[4];
+      if (!fastq_record(buf, n, off, e)) {
+        bad_rec[t] = r;
+        bad_off[t] = -1 - (int64_t)off;
+        return;
+      }
+      int64_t* o = out + r * 8;
+      o[0] = (int64_t)off + 1; o[1] = (int64_t)e[0];
+      o[2] = (int64_t)e[0] + 1; o[3] = (int64_t)e[1];
+      o[4] = 0; o[5] = 0;
+      o[6] = (int64_t)e[2] + 1; o[7] = (int64_t)e[3];
+      seconds[r] = second_in_pair(buf + off + 1, buf + e[0]);
+      if (e[3] >= b) return;   // the next record follows another range
+      off = e[3] + 1;
+      r++;
+    }
+  });
+  int32_t first = 0;
+  for (int32_t t = 1; t < T; t++)
+    if (bad_rec[t] < bad_rec[first]) first = t;
+  return bad_rec[first] == INT64_MAX ? nrec : bad_off[first];
 }
 
 // Decode records into padded [n, stride] arrays in one pass: codes through

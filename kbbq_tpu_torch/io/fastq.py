@@ -1,7 +1,8 @@
 """FASTQ reader/writer (plain, gzip or BGZF), native C++ on the hot path.
 
 Counterpart of ``kbbq_tpu/io/fastq.py`` with its native fast paths: the
-record scan (``parse_fastq_bytes``), the padded-array decode
+record walk with the second-in-pair flags (``parse_fastq_bytes``,
+``FastqData.seconds_mask``), the padded-array decode
 (``extract_padded_arrays``) and the quality write-back
 (``render_fastq_with_quals``) run in the threaded host codec
 (``io/native_lib.py``, ``csrc/kbbq_io.cc``), which is built at first use and
@@ -31,7 +32,7 @@ from . import bgzf, native_lib
 
 _NL = 10  # ord('\n')
 _ROW_CHUNK = 65536  # rows per gather/scatter step: bounds the index temporaries
-_NAME_COLS = 128    # name bytes gathered per record by seconds_mask
+_NAME_COLS = 128    # name bytes gathered per record by seconds_mask_plain
 
 
 @dataclasses.dataclass
@@ -50,6 +51,8 @@ class FastqData:
     seq_ends: np.ndarray
     qual_starts: np.ndarray
     qual_ends: np.ndarray
+    # bool [N] second-in-pair flags of the native walk; None: not computed
+    seconds: np.ndarray | None = None
 
     @property
     def num_reads(self) -> int:
@@ -74,6 +77,14 @@ class FastqData:
 
     def seconds_mask(self) -> np.ndarray:
         """Second-in-pair per DECISIONS.md D11: name (sans comment) ends '/2'.
+        The native walk's flags (``parse_fastq_bytes``), else
+        ``seconds_mask_plain``'s."""
+        if self.seconds is not None:
+            return self.seconds
+        return self.seconds_mask_plain()
+
+    def seconds_mask_plain(self) -> np.ndarray:
+        """NumPy version of ``seconds_mask``.
 
         Vectorized over the name lines alone, in row chunks: the first
         ``_NAME_COLS`` bytes of every name are gathered, and the name's first
@@ -134,13 +145,14 @@ def _as_buffer(data: bytes | np.ndarray) -> np.ndarray:
 
 
 def parse_fastq_bytes(data: bytes | np.ndarray) -> FastqData:
-    """Record offsets of a FASTQ text by the native scanner.  Malformed
+    """Record offsets and second-in-pair flags of a FASTQ text by the
+    native walk (threaded over byte ranges of the text).  Malformed
     input raises the plain version's ValueError (which names the fault);
     where the plain version accepts what the scanner refuses (a third line
     without its '+'), the scanner's own error, with the byte offset."""
     buf = _as_buffer(data)
     try:
-        idx = native_lib.fastq_index(buf)
+        idx, seconds = native_lib.fastq_walk(buf)
     except ValueError as e:
         _parse_buffer_plain(buf)        # raises its own message
         raise ValueError(f"FASTQ parse error: {e}") from None
@@ -148,7 +160,7 @@ def parse_fastq_bytes(data: bytes | np.ndarray) -> FastqData:
         buf=buf,
         name_starts=idx[:, 0], name_ends=idx[:, 1],
         seq_starts=idx[:, 2], seq_ends=idx[:, 3],
-        qual_starts=idx[:, 6], qual_ends=idx[:, 7],
+        qual_starts=idx[:, 6], qual_ends=idx[:, 7], seconds=seconds,
     )
 
 

@@ -77,6 +77,10 @@ def _bind(lib) -> None:
     lib.kbbq_bgzf_compress.restype = i64
     lib.kbbq_fastq_index.argtypes = [p, sz, p, sz]
     lib.kbbq_fastq_index.restype = i64
+    lib.kbbq_fastq_lines.argtypes = [p, sz, p, i32]
+    lib.kbbq_fastq_lines.restype = i64
+    lib.kbbq_fastq_walk.argtypes = [p, sz, p, i32, p, p, i64]
+    lib.kbbq_fastq_walk.restype = i64
     lib.kbbq_fastq_extract.argtypes = [p, p, p, p, i64, i32, p, p, p, p, i32]
     lib.kbbq_fastq_extract.restype = None
     lib.kbbq_fastq_write_quals.argtypes = [p, p, p, p, i64, i32, i32]
@@ -109,6 +113,11 @@ def library():
         _bind(lib)
         _lib = lib
     return _lib
+
+
+# bytes from which ``fastq_walk`` takes more than one thread: below, starting
+# them would cost more than the walk
+FASTQ_WALK_MIN_BYTES = 1 << 20
 
 
 def default_threads() -> int:
@@ -154,10 +163,39 @@ def bgzf_compress(data, level: int) -> bytes:
     return out[:n].tobytes()
 
 
+def fastq_walk(buf: np.ndarray, threads: int | None = None):
+    """(int64 [N, 8] record offsets, bool [N] second-in-pair flags) of a
+    FASTQ buffer (uint8, ending in a newline), from one walk on `threads`
+    threads over byte ranges of the buffer (default: ``default_threads()``
+    from FASTQ_WALK_MIN_BYTES on, one below).  Raises ValueError naming the
+    byte offset of the first malformed record, as the serial scanner
+    (``fastq_index_serial``) does."""
+    buf = _u8(buf)
+    if threads is None:
+        threads = default_threads() if buf.size >= FASTQ_WALK_MIN_BYTES \
+            else 1
+    T = max(1, min(int(threads), buf.size))
+    lib = library()
+    counts = np.empty(T, np.int64)
+    nrec = (lib.kbbq_fastq_lines(buf.ctypes.data, buf.size,
+                                 counts.ctypes.data, T) + 3) // 4
+    out = np.empty((nrec, 8), dtype=np.int64)
+    seconds = np.empty(nrec, dtype=np.uint8)
+    n = lib.kbbq_fastq_walk(buf.ctypes.data, buf.size, counts.ctypes.data, T,
+                            out.ctypes.data, seconds.ctypes.data, nrec)
+    if n < 0:
+        raise ValueError(f"malformed FASTQ record at byte {-1 - n}")
+    return out, seconds.view(bool)
+
+
 def fastq_index(buf: np.ndarray) -> np.ndarray:
-    """int64 [N, 8] record offsets of a FASTQ buffer (uint8, ending in a
-    newline).  Raises ValueError naming the byte offset of the first
-    malformed record."""
+    """int64 [N, 8] record offsets of a FASTQ buffer (``fastq_walk``'s)."""
+    return fastq_walk(buf)[0]
+
+
+def fastq_index_serial(buf: np.ndarray) -> np.ndarray:
+    """``fastq_index`` by the serial scanner (two calls of one thread: count,
+    then fill), which the tests hold the walk against."""
     buf = _u8(buf)
     lib = library()
     n = lib.kbbq_fastq_index(buf.ctypes.data, buf.size, None, 0)

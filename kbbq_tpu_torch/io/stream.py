@@ -11,8 +11,8 @@ and ``_slice_batches``, which feed the JAX package's per-batch pipelines:
 - ``scan_fastq_files``: the metadata pass (read and base counts, max length,
   k-mer windows, a CRC32 of every file's text) that filter sizing, the
   window shape and checkpoint fingerprints need before pass 1;
-- ``chunk_to_batch_arrays``: one chunk's padded arrays, read group and
-  global ordinals;
+- ``chunk_to_batch_arrays``: one chunk's padded arrays, read group,
+  global ordinals and read lengths;
 - ``prefetch_iter``: a depth-bounded background thread in front of an
   iterator, so host decode overlaps the card's work.
 """
@@ -165,10 +165,10 @@ def scan_fastq_files(paths, k: int,
 
 def chunk_to_batch_arrays(fq: FastqData, max_len: int, rg: int,
                           start_ordinal: int, interleaved: bool):
-    """(codes, quals, mask, rgs, seconds, ids) of one chunk: padded
-    [n, max_len] arrays and per-read read group, second-in-pair flag and
-    global ordinal (uint32)."""
-    codes, quals, mask, _ = extract_padded_arrays(fq, max_len)
+    """(codes, quals, mask, rgs, seconds, ids, lens) of one chunk: padded
+    [n, max_len] arrays and per-read read group, second-in-pair flag,
+    global ordinal (uint32) and length (int64)."""
+    codes, quals, mask, lens = extract_padded_arrays(fq, max_len)
     n = fq.num_reads
     rgs = np.full(n, rg, np.int32)
     if interleaved:
@@ -177,7 +177,7 @@ def chunk_to_batch_arrays(fq: FastqData, max_len: int, rg: int,
     else:
         seconds = fq.seconds_mask()
     ids = np.arange(start_ordinal, start_ordinal + n, dtype=np.uint32)
-    return codes, quals, mask, rgs, seconds, ids
+    return codes, quals, mask, rgs, seconds, ids, lens
 
 
 def prefetch_iter(it: Iterable, depth: int = 2, trace=OFF) -> Iterator:

@@ -47,7 +47,7 @@ from ..oracle.lighter import coverage_thresholds
 from ..oracle.pipeline import bloom_params_for
 from .mesh import SharedArrays, launch, row_range, slowest
 
-FIELDS = ("codes", "quals", "mask", "rgs", "seconds")
+FIELDS = ("codes", "quals", "mask", "rgs", "seconds", "lens")
 
 
 @dataclasses.dataclass
@@ -73,7 +73,7 @@ def plan_for(arrays: ReadArrays, config, layout: str = "replicated",
     (``sharded_bloom.sharded_params``); refuses filters the layout cannot
     hold (``check_layout_capacity``)."""
     k = config.k
-    lens = arrays.mask.sum(axis=1)
+    lens = arrays.read_lengths()
     total_bases = int(lens.sum())
     total_kmers = int(np.maximum(lens - k + 1, 0).sum())
     alpha, coverage = config.resolve_alpha(total_bases)
@@ -98,7 +98,8 @@ def share_arrays(arrays: ReadArrays) -> SharedArrays:
     shared = SharedArrays()
     try:
         for name in FIELDS:
-            shared.put(name, getattr(arrays, name))
+            shared.put(name, arrays.read_lengths() if name == "lens"
+                       else getattr(arrays, name))
         shared.empty("out", (arrays.num_reads, arrays.max_len), np.int8)
     except BaseException:
         shared.close()

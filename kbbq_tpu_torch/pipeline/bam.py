@@ -188,10 +188,8 @@ def _read_sam_arrays(in_path: str, use_oq: bool):
         quals_list.append(np.clip(q, 0, 93).astype(np.int8))
         seconds.append(rec.is_read2)
     rgs, registry = bam_read_group_ids(bf, primary)
-    lens = np.asarray([len(c) for c in codes_list], np.int64)
-    arrays = ReadArrays.from_lists(codes_list, quals_list, rgs, seconds,
-                                   max_len=int(lens.max(initial=1)))
-    return bf, primary, arrays, lens, registry
+    arrays = ReadArrays.from_lists(codes_list, quals_list, rgs, seconds)
+    return bf, primary, arrays, arrays.lens, registry
 
 
 def recalibrate_bam(in_path: str, out_path, config: RecalConfig,
@@ -286,7 +284,7 @@ def _recalibrate_records(header_text, refs, buf, offs, sizes, out_path,
         if cram:
             _wrapped_quals_to_zero(buf, offs, sizes, prim, lens, quals,
                                    use_oq)
-    arrays = ReadArrays(codes, quals, mask, rgs, seconds)
+    arrays = ReadArrays(codes, quals, mask, rgs, seconds, lens)
     new_quals = _run_or_apply(arrays, config, _registry_names(registry),
                               report_out, apply_report, **run_kw)
     # the decoded arrays' frees: a stage of their own, outside the codec's

@@ -202,15 +202,15 @@ class CramWindowSource:
 
     def _arrays(self, slices):
         """(arrays, rows) of a container's primary records, slice after
-        slice."""
+        slice: arrays = (codes, quals, mask, rgs, seconds, lens)."""
         parts = []
         for kind, payload, _ in slices:
             if kind == "fast":
-                parts.append(payload[:5])
+                parts.append(payload[:6])
             else:
                 parts.append(_slow_arrays(payload, self.max_len,
                                           self.registry, self.rg_names,
-                                          self.use_oq)[:5])
+                                          self.use_oq)[:6])
         rows = [int(p[0].shape[0]) for p in parts]
         if len(parts) == 1:
             return parts[0], rows

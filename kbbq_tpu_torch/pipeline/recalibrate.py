@@ -117,7 +117,7 @@ def fits_resident(arrays: ReadArrays, dev, config: RecalConfig,
     card's free memory (always on the CPU)."""
     if dev.type != "cuda":
         return True
-    lens = arrays.mask.sum(axis=1)
+    lens = arrays.read_lengths()
     need = resident_need_bytes(
         arrays.num_reads, arrays.max_len, int(lens.sum()),
         int(np.maximum(lens - config.k + 1, 0).sum()), config, chunk_rows)
@@ -186,7 +186,7 @@ def _run_devices(arrays, config, devices: int, bloom_layout: str, dev,
         raise ValueError(
             f"batch size {config.batch_size} must be divisible by "
             f"--devices {devices}")
-    lens = arrays.mask.sum(axis=1)
+    lens = arrays.read_lengths()
     layout = sharded.resolve_layout(
         bloom_layout, config, int(lens.sum()),
         int(np.maximum(lens - config.k + 1, 0).sum()), devices)
@@ -248,8 +248,10 @@ def _load_fastq_arrays(in_paths, interleaved: bool, trace=OFF):
     """Load FASTQ inputs into one padded ReadArrays (each input file is
     its own read group, DECISIONS.md D8): (fqs, mask_list, arrays).  On
     `trace`: the spans ``fastq.load`` (counter ``fastq.in_bytes``, the
-    files' sizes), ``fastq.index``, ``fastq.extract`` and
-    ``fastq.pairing``."""
+    files' sizes), ``fastq.index`` (the native walk: offsets and
+    second-in-pair flags), ``fastq.extract`` (padded arrays and the read
+    lengths they carry) and ``fastq.pairing`` (takes the walk's flags, or
+    the parity of the ordinals when `interleaved`)."""
     import os
 
     from ..io.fastq import (_load_bytes, extract_padded_arrays,
@@ -273,7 +275,7 @@ def _load_fastq_arrays(in_paths, interleaved: bool, trace=OFF):
         parts = [extract_padded_arrays(fq) for fq in fqs]
         max_len = max((p[0].shape[1] for p in parts if p[0].shape[0]),
                       default=1)
-        codes_l, quals_l, mask_l, rg_l = [], [], [], []
+        codes_l, quals_l, mask_l, rg_l, lens_l = [], [], [], [], []
         for rg, (fq, (codes, quals, mask, lens)) in enumerate(
                 zip(fqs, parts)):
             pad = max_len - codes.shape[1]
@@ -285,15 +287,16 @@ def _load_fastq_arrays(in_paths, interleaved: bool, trace=OFF):
             quals_l.append(quals)
             mask_l.append(mask)
             rg_l.append(np.full(fq.num_reads, rg, np.int32))
+            lens_l.append(lens)
         del parts
         if len(fqs) == 1:
             arrays = ReadArrays(codes_l[0], quals_l[0], mask_l[0], rg_l[0],
-                                sec_l[0])
+                                sec_l[0], lens_l[0])
         else:
             arrays = ReadArrays(
                 np.concatenate(codes_l), np.concatenate(quals_l),
                 np.concatenate(mask_l), np.concatenate(rg_l),
-                np.concatenate(sec_l))
+                np.concatenate(sec_l), np.concatenate(lens_l))
     return fqs, mask_l, arrays
 
 

@@ -133,7 +133,7 @@ def _resident_passes(arrays: ReadArrays, config, dev, chunk_rows, trace
     N, L = arrays.num_reads, arrays.max_len
     rows = int(chunk_rows or DEFAULT_CHUNK_ROWS)
 
-    lens = arrays.mask.sum(axis=1)
+    lens = arrays.read_lengths()
     total_bases = int(lens.sum())
     total_kmers = int(np.maximum(lens - k + 1, 0).sum())
     num_rg = int(arrays.rgs.max(initial=0)) + 1

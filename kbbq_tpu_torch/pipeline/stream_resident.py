@@ -190,7 +190,7 @@ class ArraysWindowSource:
         self.num_rg = int(arrays.rgs.max(initial=0)) + 1
         self.num_reads = arrays.num_reads
         self.max_len = arrays.max_len
-        self.lens = arrays.mask.sum(axis=1)
+        self.lens = arrays.read_lengths()
         self.total_bases = int(self.lens.sum())
 
     def total_kmers(self, k: int) -> int:
@@ -201,7 +201,7 @@ class ArraysWindowSource:
         for s in range(0, a.num_reads, self.window_rows):
             e = min(a.num_reads, s + self.window_rows)
             arrs = (a.codes[s:e], a.quals[s:e], a.mask[s:e], a.rgs[s:e],
-                    a.seconds[s:e])
+                    a.seconds[s:e], self.lens[s:e])
             yield self.start_ordinal + s, arrs, None, None
 
 
@@ -280,7 +280,7 @@ class BamWindowSource:
                 continue
             if held is not None:
                 yield held
-            held = (ordinal, item[3][:5], pending + [item])
+            held = (ordinal, item[3][:6], pending + [item])
             pending = []
             ordinal += prim.size
         if held is not None:
@@ -295,13 +295,20 @@ def default_device_cache_bytes(dev) -> int:
     return DEFAULT_HOST_CACHE_BYTES
 
 
+def window_arrays(arrs) -> ReadArrays:
+    """The ReadArrays of a window's host arrays (codes, quals, mask, rgs,
+    seconds, ..., lens): every window source puts the read lengths last."""
+    return ReadArrays(*arrs[:5], lens=arrs[-1])
+
+
 class StreamResidentEngine:
     """Per-window staging and the four passes over a window source.
 
     `source` gives num_rg, num_reads, max_len, total_bases,
     total_kmers(k) and a re-iterable windows() of items whose first two
     fields are the window's ordinal and host arrays (codes, quals, mask,
-    rgs, seconds, ...); the rest is the source's own, for pass 4.  The
+    rgs, seconds, ..., lens: ``window_arrays``); the rest is the source's
+    own, for pass 4.  The
     copies to and from the card are spans of `trace` (``h2d.copy``,
     ``d2h.copy``)."""
 
@@ -380,9 +387,9 @@ class StreamResidentEngine:
                 ordinal, w = self._dev_cache[mine]
                 mine += 1
             else:
-                ordinal, arrs = item[0], item[1][:5]
-                w = arrays_to_device(ReadArrays(*arrs), self.dev,
+                w = arrays_to_device(window_arrays(item[1]), self.dev,
                                      self.trace)
+                ordinal = item[0]
                 if self._cache_on:
                     self._dev_cache.append((ordinal, w))
             yield ordinal, w, item

@@ -76,7 +76,7 @@ def run_fingerprint(config, arrays) -> dict:
         h = zlib.crc32(np.ascontiguousarray(arr), h)
     return {**_config_fields(config),
             "num_reads": int(arrays.num_reads),
-            "total_bases": int(arrays.mask.sum()),
+            "total_bases": int(arrays.read_lengths().sum()),
             "content_crc32": h}
 
 

@@ -28,7 +28,8 @@ On:
   job's last stage has synchronised): no synchronise is added for it.  A
   span on a worker thread takes as its parent the span (``current()``)
   that was open where its work was handed over.
-- ``count(name, n)`` adds `n` to ``timings["counters"][name]``.
+- ``count(name, n)`` adds `n` to ``timings["counters"][name]``;
+  ``count_open(name, n)`` does it on the tracer open in this context.
 - On closing, ``timings["spans"]`` gets every kept stage and span once:
   ``{"id", "name", "start", "end", "thread", "parent"}`` (seconds since
   the tracer opened; ``thread`` the ``threading.get_ident()`` of the
@@ -90,6 +91,14 @@ def tracer(timings: dict | None, dev):
     if cur is not None and cur.timings is timings:
         return cur
     return Tracer(timings, dev)
+
+
+def count_open(name: str, n) -> None:
+    """``count(name, n)`` on the tracer of the job running in this context,
+    if one is open: for code that is handed no tracer."""
+    cur = _OPEN.get()
+    if cur is not None:
+        cur.count(name, n)
 
 
 class Tracer:

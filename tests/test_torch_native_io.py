@@ -149,6 +149,155 @@ def test_scanner_refuses_what_only_it_checks():
                                                       11, 15]
 
 
+def _odd_names(seed, n_reads=400):
+    """Names the second-in-pair rule has to read with care: leading spaces
+    or tabs, a tab inside the first token's line, first tokens longer than
+    128 bytes, '/2' only after a space, names shorter than 2 bytes, a CR
+    before the newline; quality lines that open with '@', empty reads."""
+    rng = np.random.default_rng(seed)
+    out = bytearray()
+    for i in range(n_reads):
+        body = "y" * int(rng.integers(120, 140))
+        name = ["  r/2", "\t\tr/1", f"r{i}/2\tc", f"{body}/2", f"{body}/1",
+                f"r{i} /2", "", "2", "/", "/2", " ", f"r{i}/2\r",
+                "\x0b/2 x", f"a/2b/2 {body}"][i % 14]
+        m = int(rng.integers(0, 12))
+        seq = bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), m))
+        q = b"@" * m if i % 3 == 0 else bytes(
+            (rng.integers(0, 45, m) + 33).astype(np.uint8))
+        out += b"@%s\n%s\n+\n%s\n" % (name.encode(), seq, q)
+    return bytes(out)
+
+
+def _cell_like(n_reads=2000):
+    """Reads as the benchmark's FASTQ cell has them: 150 bases, mates
+    interleaved and named r<pair>/1 and r<pair>/2."""
+    from kbbq_tpu_torch.utils import synth
+    arrays, _ = synth.make_arrays_fast(genome_len=20000, read_len=150,
+                                       num_reads=n_reads, seed=3)
+    return synth.arrays_to_fastq_bytes(arrays)
+
+
+WALK_TEXTS = {**TEXTS, "cell_like": _cell_like,
+              "odd_names": lambda: _odd_names(6),
+              "long_names": lambda: _long_names(7)}
+
+
+def _serial_or_error(data):
+    try:
+        return native_lib.fastq_index_serial(np.frombuffer(data, np.uint8))
+    except ValueError as e:
+        return str(e)
+
+
+def _walk_or_error(data, threads):
+    try:
+        return native_lib.fastq_walk(np.frombuffer(data, np.uint8), threads)
+    except ValueError as e:
+        return str(e)
+
+
+@pytest.mark.parametrize("threads", range(1, 9))
+@pytest.mark.parametrize("name", sorted(WALK_TEXTS))
+def test_walk_equals_the_serial_scanner_and_plain(name, threads):
+    """The threaded walk's offsets are the serial scanner's and the NumPy
+    version's, and its flags are ``seconds_mask_plain``'s, at every thread
+    count (the range edges fall inside records of every kind)."""
+    data = WALK_TEXTS[name]()
+    idx, seconds = native_lib.fastq_walk(np.frombuffer(data, np.uint8),
+                                         threads)
+    assert idx.dtype == np.int64 and seconds.dtype == bool
+    assert np.array_equal(idx, _serial_or_error(data))
+    plain = tfq.parse_fastq_bytes_plain(data)
+    for col, field in ((0, "name_starts"), (1, "name_ends"),
+                       (2, "seq_starts"), (3, "seq_ends"),
+                       (6, "qual_starts"), (7, "qual_ends")):
+        assert np.array_equal(idx[:, col], getattr(plain, field)), field
+    assert not idx[:, 4:6].any()
+    assert np.array_equal(seconds, plain.seconds_mask_plain())
+    if name in ("cell_like", "odd_names", "long_names"):
+        assert 0 < seconds.sum() < seconds.size
+
+
+def test_walk_with_every_byte_a_range_edge():
+    """As many threads as bytes: every byte starts a range, so every
+    record straddles edges at each of its bytes."""
+    data = _odd_names(8, n_reads=28) + _cell_like(4)
+    idx, seconds = native_lib.fastq_walk(np.frombuffer(data, np.uint8),
+                                         len(data))
+    assert np.array_equal(idx, _serial_or_error(data))
+    assert np.array_equal(
+        seconds, tfq.parse_fastq_bytes_plain(data).seconds_mask_plain())
+
+
+@pytest.mark.parametrize("threads", range(1, 9))
+@pytest.mark.parametrize("data", MALFORMED, ids=range(len(MALFORMED)))
+def test_walk_raises_at_the_serial_scanners_offset(data, threads):
+    want = _serial_or_error(data)
+    assert isinstance(want, str) and _walk_or_error(data, threads) == want
+
+
+@pytest.mark.parametrize("threads", range(2, 9))
+def test_walk_faults_on_range_edges(threads):
+    """A byte changed, removed or the text cut at each range edge (and next
+    to it): the walk answers as the serial scanner does, the first bad
+    record in file order with its byte offset, wherever the edges fall."""
+    data = _odd_names(9, n_reads=60)
+    n = len(data)
+    faults = 0
+    for t in range(1, threads):
+        edge = n * t // threads
+        for at in (edge - 1, edge, edge + 1):
+            for v in (data[:at] + b"x" + data[at + 1:],
+                      data[:at] + b"\n" + data[at + 1:],
+                      data[:at] + data[at + 1:], data[:at],
+                      data[:at] + b"@" + data[at + 1:]):
+                want = _serial_or_error(v)
+                got = _walk_or_error(v, threads)
+                if isinstance(want, str):
+                    faults += 1
+                    assert got == want, (t, at)
+                else:
+                    assert np.array_equal(got[0], want), (t, at)
+    assert faults > 0
+
+
+def test_walk_takes_one_thread_below_its_threshold(monkeypatch):
+    """Below FASTQ_WALK_MIN_BYTES the default is one thread, from it the
+    codec's thread count."""
+    seen = []
+    lib = native_lib.library()
+    real = lib.kbbq_fastq_lines
+
+    class Spy:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def kbbq_fastq_lines(self, buf, n, counts, T):
+            seen.append(T)
+            return real(buf, n, counts, T)
+
+    monkeypatch.setattr(native_lib, "library", lambda: Spy())
+    monkeypatch.setattr(native_lib, "default_threads", lambda: 5)
+    small = _cell_like(40)
+    native_lib.fastq_walk(np.frombuffer(small, np.uint8))
+    monkeypatch.setattr(native_lib, "FASTQ_WALK_MIN_BYTES", len(small))
+    native_lib.fastq_walk(np.frombuffer(small, np.uint8))
+    assert seen == [1, 5]
+
+
+def test_parse_carries_the_walks_flags():
+    """``parse_fastq_bytes`` keeps the walk's flags on the FastqData and
+    ``seconds_mask`` returns them; the NumPy parse has none and
+    ``seconds_mask`` computes them."""
+    data = _odd_names(10)
+    fq = tfq.parse_fastq_bytes(data)
+    plain = tfq.parse_fastq_bytes_plain(data)
+    assert fq.seconds is not None and plain.seconds is None
+    assert fq.seconds_mask() is fq.seconds
+    assert np.array_equal(fq.seconds_mask(), plain.seconds_mask())
+
+
 @pytest.mark.parametrize("size", [0, 1, 1000, 0xFF00, 0xFF00 + 1, 70000,
                                   500_000])
 def test_bgzf_equals_the_jax_package_and_round_trips(size):

@@ -4,8 +4,9 @@ the CPU at a small size.  Off (``timings=None``) it reads no clock and opens
 no profiler range; on, every span named below is there and nests in its
 parent, the top-level stages cover the call, the byte counters equal the
 files' sizes, the BAM routes count the records of the per-record route
-once a job, the output bytes and the stage keys are as without it, and a
-profiler trace shows the records' ranges.
+once a job, no stage sums the mask for the read lengths
+(``arrays.lens_from_mask``), the output bytes and the stage keys are as
+without it, and a profiler trace shows the records' ranges.
 """
 
 import collections
@@ -172,6 +173,11 @@ def test_byte_counters_equal_the_files(kind, inputs, jobs):
             assert c["fastq.in_bytes"] == os.path.getsize(inputs[kind])
             assert c["fastq.out_bytes"] == len(out)
         reads = N
+    # the decodes hand their read lengths on: no stage sums the mask
+    if kind == "streamed":
+        assert c.get("arrays.lens_from_mask", 0) == 0
+    else:
+        assert c["arrays.lens_from_mask"] == 0
     # codes, quals and mask a byte a base, int64 read group, bool second
     assert c["h2d_bytes"] == reads * (3 * L + 9)
     assert c["d2h_bytes"] >= reads * L            # pass 4, and the tables
